@@ -1,0 +1,339 @@
+"""Fused flat-scan score + select for the card, with plain versions.
+
+Port of `lattice_tpu/ops/pallas_topk.py` for the kernels on the main
+path. Three hand-written CUDA kernels (`csrc/scan_topk.cu`):
+
+- `scan_topk` (kernel A) replaces `_binned_kernel` (pallas_topk.py:434)
+  and the bin/key selection of `binned_topk` (:627): Q·Eᵀ over bf16 (or
+  f32) rows, masked, with a running exact top-k1 per query for each run
+  of rows a block owns.
+- `merge_candidates` (kernel B) replaces the `approx_max_k` finish of
+  `_binned_candidates` (:525): the exact top-k1 over the per-block lists.
+- `scan_topk_int8` (kernel C) replaces `_binned_kernel_int8` (:466) via
+  `binned_topk_int8` (:720): the i8·i8 -> i32 dot, times the query and
+  row scales, masked, selected like kernel A and finished by kernel B.
+
+What bounds them on the H100 and how the design answers it is written at
+the head of the CUDA source. In short: one read of the rows (1.61 GB of
+bf16, 0.81 GB of int8 at 1M x 768), the products on tensor cores, and a
+selection that after the first tiles costs one warp ballot per 32 scores.
+
+The TPU kernel's selection was lossy (128 strided bins of ~1e-3 packed
+keys; about 0.2 pp of recall at 1M). Here selection is exact at the
+precision of the first-stage scores, ordered (score desc, row id asc) as
+`lax.top_k` orders ties. The TPU's workarounds do not carry over: no tile
+gate (the kernels take any N and mask the ragged edge), no [N, 1] layout
+pins (validity stays [N] bool, scales [N] f32), no packed keys.
+
+Beside each kernel stands its plain torch version: exact masked scores,
+then a stable top-k1. A wrapper takes the plain version only for tensors
+on the CPU; for a CUDA tensor it launches the kernel or raises. The exact
+rescore stays torch code, as XLA ran it outside the Pallas body.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lattice_tpu_torch.core.errors import KernelError
+from lattice_tpu_torch.ops import _build
+from lattice_tpu_torch.ops.topk import (NEG_INF, blocked_topk,
+                                        flat_topk_blocked, full_f32,
+                                        l2_normalize_t, stable_topk)
+
+# must match csrc/scan_topk.cu
+BQ = 64          # queries per block
+BN = 128         # rows per tile
+MAX_K1 = 128     # longest first-stage list a block keeps per query
+# plain versions score this many rows at a time (bounded f32 temporaries)
+PLAIN_BLOCK = 1 << 17
+
+_SRC = "lattice_tpu_torch/csrc/scan_topk.cu"
+SCAN_TOPK = _build.Kernel(
+    "scan_topk", _SRC, "lattice_tpu/ops/pallas_topk.py:434")
+MERGE_CANDIDATES = _build.Kernel(
+    "merge_candidates", _SRC, "lattice_tpu/ops/pallas_topk.py:525")
+SCAN_TOPK_INT8 = _build.Kernel(
+    "scan_topk_int8", _SRC, "lattice_tpu/ops/pallas_topk.py:466")
+
+
+def first_stage_width(k: int, n: int) -> int:
+    """k1 = max(k, 16), capped by the row count (`binned_topk`'s width)."""
+    return min(max(k, 16), n)
+
+
+def int8_first_stage_width(k: int, n: int) -> int:
+    """k1 = max(k, 16) capped by 4k and the row count: how many int8
+    candidates `QuantizedView` rescores (JAX `quant.py:251`). The scan
+    itself runs at `first_stage_width(k1, n)`, which for every k equals
+    `first_stage_width(k, n)`."""
+    return min(max(k, 16), 4 * k, n)
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (plain version); False when
+    every one lies on one CUDA device (kernel). Anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise KernelError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise KernelError(f"no kernel for device {dev}")
+    return False
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise KernelError(f"{name}: want contiguous {dtype} of rank {ndim}, got "
+                          f"{t.dtype} {tuple(t.shape)} "
+                          f"contiguous={t.is_contiguous()}")
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _chunking(n: int, b: int, device: torch.device) -> tuple[int, int]:
+    """(rows per block, number of row chunks): about four blocks per SM
+    over the whole grid, each chunk a whole number of 128-row tiles."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    q_tiles = -(-b // BQ)
+    target = max(1, -(-4 * sms // q_tiles))
+    rows = max(BN, -(-(-(-n // target)) // BN) * BN)
+    return rows, -(-n // rows)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---- kernel B: merge_candidates ---------------------------------------------
+
+
+def merge_candidates_plain(cand_s: torch.Tensor, cand_i: torch.Tensor,
+                           k1: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k1 of [B, m] candidates by (score desc, id asc)."""
+    by_id = torch.argsort(cand_i, dim=-1, stable=True)
+    s = torch.gather(cand_s, -1, by_id)
+    i = torch.gather(cand_i, -1, by_id)
+    vals, pos = stable_topk(s, k1)
+    return vals, torch.gather(i, -1, pos.to(torch.int64))
+
+
+def merge_candidates(cand_s: torch.Tensor, cand_i: torch.Tensor, k1: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B: sorted top-k1 ([B, k1] f32, [B, k1] i32) of [B, m]
+    candidate (score, row id) pairs."""
+    if _on_cpu(cand_s, cand_i):
+        return merge_candidates_plain(cand_s, cand_i, k1)
+    _check(cand_s, "cand_s", torch.float32, 2)
+    _check(cand_i, "cand_i", torch.int32, 2)
+    b, m = cand_s.shape
+    if cand_i.shape != cand_s.shape or not 1 <= k1 <= min(m, MAX_K1):
+        raise KernelError(f"merge_candidates: k1={k1}, shapes "
+                          f"{tuple(cand_s.shape)} {tuple(cand_i.shape)}")
+    out_s, out_i = _empty_lists(b, k1, cand_s.device)
+    if b == 0:
+        return out_s, out_i
+    with torch.cuda.device(cand_s.device):
+        MERGE_CANDIDATES.launch(
+            "lt_merge_candidates", cand_s.data_ptr(), cand_i.data_ptr(), b, m,
+            k1, out_s.data_ptr(), out_i.data_ptr(), _stream(cand_s.device))
+    return out_s, out_i
+
+
+# ---- plain versions of kernels A and C --------------------------------------
+
+
+def scan_topk_plain(queries: torch.Tensor, embeddings: torch.Tensor,
+                    valid: torch.Tensor, k1: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain kernels A + B: queries cast to the row dtype, products and
+    sums in f32 (TF32 off), invalid rows NEG_INF, stable top-k1."""
+    return flat_topk_blocked(queries, embeddings, valid, k1, PLAIN_BLOCK)
+
+
+def scan_topk_int8_plain(q_values: torch.Tensor, q_scales: torch.Tensor,
+                         e_values: torch.Tensor, e_scales: torch.Tensor,
+                         valid: torch.Tensor, k1: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain kernels C + B. The int8 dot runs as an f32 product, which is
+    exact: every partial sum is an integer below 127²·d < 2²⁴ for
+    d <= 1040, and TF32 is off (`full_f32`). Then (acc·qs)·es, the
+    kernel's order, so scores agree bit for bit."""
+    d = e_values.shape[1]
+    if d > 1040:
+        raise KernelError(f"int8 plain dot is exact only for d <= 1040, got {d}")
+    qf = q_values.to(torch.float32)
+    keep = valid.to(torch.bool)
+
+    def block(lo, hi):
+        with full_f32():
+            acc = qf @ e_values[lo:hi].to(torch.float32).T
+        s = acc * q_scales[:, None] * e_scales[None, lo:hi]
+        return torch.where(keep[None, lo:hi], s, torch.full_like(s, NEG_INF))
+
+    return blocked_topk(block, e_values.shape[0], k1, PLAIN_BLOCK)
+
+
+# ---- kernels A and C ---------------------------------------------------------
+
+
+def _check_scan_shapes(b: int, d: int, e: torch.Tensor, valid: torch.Tensor,
+                       k1: int) -> int:
+    n = e.shape[0]
+    if e.shape[1] != d or valid.shape != (n,) or valid.dtype != torch.bool:
+        raise KernelError(f"scan: queries d={d}, rows {tuple(e.shape)}, "
+                          f"valid {valid.dtype} {tuple(valid.shape)}")
+    if not 1 <= k1 <= min(n, MAX_K1):
+        raise KernelError(f"scan: k1={k1} outside [1, min(N={n}, {MAX_K1})]")
+    if not valid.is_contiguous():
+        raise KernelError("scan: valid must be contiguous")
+    return n
+
+
+def _launch_scan(kernel: _build.Kernel, entry: str, k1: int, b: int, n: int,
+                 d: int, vec: int, pointers: tuple, device: torch.device
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of kernel A or C: per-chunk sorted lists, [B, n_chunks *
+    k1] scores and row ids, for kernel B to merge."""
+    rows, n_chunks = _chunking(n, b, device)
+    cand_s = torch.empty((b, n_chunks * k1), dtype=torch.float32,
+                         device=device)
+    cand_i = torch.empty((b, n_chunks * k1), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        kernel.launch(entry, *pointers, b, n, d, k1, rows, n_chunks, vec,
+                      cand_s.data_ptr(), cand_i.data_ptr(), _stream(device))
+    return cand_s, cand_i
+
+
+def scan_blocks(queries: torch.Tensor, embeddings: torch.Tensor,
+                valid: torch.Tensor, k1: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A alone on CUDA tensors (bf16 or f32 rows): the unmerged
+    per-chunk candidate lists."""
+    _check(queries, "queries", torch.float32, 2)
+    entry = {torch.bfloat16: "lt_scan_topk_bf16",
+             torch.float32: "lt_scan_topk_f32"}.get(embeddings.dtype)
+    if entry is None:
+        raise KernelError(f"scan_topk: no kernel for rows of {embeddings.dtype}")
+    _check(embeddings, "embeddings", embeddings.dtype, 2)
+    b, d = queries.shape
+    n = _check_scan_shapes(b, d, embeddings, valid, k1)
+    vec = int(d % 8 == 0 and _aligned(queries, embeddings))
+    return _launch_scan(
+        SCAN_TOPK, entry, k1, b, n, d, vec,
+        (queries.data_ptr(), embeddings.data_ptr(), valid.data_ptr()),
+        embeddings.device)
+
+
+def scan_blocks_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
+                     e_values: torch.Tensor, e_scales: torch.Tensor,
+                     valid: torch.Tensor, k1: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C alone on CUDA tensors: the unmerged per-chunk lists."""
+    _check(q_values, "q_values", torch.int8, 2)
+    _check(q_scales, "q_scales", torch.float32, 1)
+    _check(e_values, "e_values", torch.int8, 2)
+    _check(e_scales, "e_scales", torch.float32, 1)
+    b, d = q_values.shape
+    n = _check_scan_shapes(b, d, e_values, valid, k1)
+    if q_scales.shape != (b,) or e_scales.shape != (n,):
+        raise KernelError(f"scan_topk_int8: scales {tuple(q_scales.shape)} "
+                          f"{tuple(e_scales.shape)} for B={b}, N={n}")
+    vec = int(d % 16 == 0 and _aligned(q_values, e_values))
+    return _launch_scan(
+        SCAN_TOPK_INT8, "lt_scan_topk_int8", k1, b, n, d, vec,
+        (q_values.data_ptr(), q_scales.data_ptr(), e_values.data_ptr(),
+         e_scales.data_ptr(), valid.data_ptr()), e_values.device)
+
+
+def _empty_lists(b: int, k1: int, device: torch.device):
+    return (torch.empty((b, k1), dtype=torch.float32, device=device),
+            torch.empty((b, k1), dtype=torch.int32, device=device))
+
+
+def scan_topk(queries: torch.Tensor, embeddings: torch.Tensor,
+              valid: torch.Tensor, k1: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernels A + B: sorted first-stage (scores [B, k1] f32, row ids
+    [B, k1] i32) over bf16 or f32 rows. Queries are f32 and normalized;
+    the kernel casts them to the row dtype."""
+    if _on_cpu(queries, embeddings, valid):
+        return scan_topk_plain(queries, embeddings, valid, k1)
+    if queries.shape[0] == 0:
+        return _empty_lists(0, k1, queries.device)
+    return merge_candidates(*scan_blocks(queries, embeddings, valid, k1), k1)
+
+
+def scan_topk_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
+                   e_values: torch.Tensor, e_scales: torch.Tensor,
+                   valid: torch.Tensor, k1: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernels C + B: sorted first-stage (scores [B, k1] f32, row ids
+    [B, k1] i32) of the int8 scan."""
+    if _on_cpu(q_values, q_scales, e_values, e_scales, valid):
+        return scan_topk_int8_plain(q_values, q_scales, e_values, e_scales,
+                                    valid, k1)
+    if q_values.shape[0] == 0:
+        return _empty_lists(0, k1, q_values.device)
+    return merge_candidates(*scan_blocks_int8(q_values, q_scales, e_values,
+                                              e_scales, valid, k1), k1)
+
+
+# ---- the contracts of pallas_topk.py ------------------------------------------
+
+
+def _exact_rescore(queries: torch.Tensor, embeddings: torch.Tensor,
+                   stage_scores: torch.Tensor, candidates: torch.Tensor,
+                   k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 rescore of first-stage candidates; padded slots stay NEG_INF.
+
+    A gather of [B, k1, d] rows, an f32 product (TF32 off) and a stable
+    top-k, as `_exact_rescore` (pallas_topk.py:1096) ran in XLA. Slots the
+    first stage scored NEG_INF (fewer live rows than k1) are masked by
+    their stage score so they are never promoted."""
+    rows = embeddings[candidates.to(torch.int64)].to(torch.float32)
+    with full_f32():
+        scores = torch.einsum("bd,bkd->bk", queries.to(torch.float32), rows)
+    scores = torch.where(stage_scores > NEG_INF / 2, scores,
+                         torch.full_like(scores, NEG_INF))
+    top, pos = stable_topk(scores, min(k, scores.shape[-1]))
+    return top, torch.gather(candidates, -1, pos.to(torch.int64))
+
+
+def binned_topk(queries: torch.Tensor, embeddings: torch.Tensor,
+                valid: torch.Tensor, k: int, normalize: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scan + exact rescore. Returns sorted (scores [B, k], ids [B, k]).
+
+    Candidates widen to k1 = max(k, 16) (capped by N) and rescore in f32.
+    With fewer rows than k the contract shape is padded with NEG_INF / -1.
+    `normalize` L2-normalizes raw queries first."""
+    queries = queries.to(torch.float32)
+    if normalize:
+        queries = l2_normalize_t(queries)
+    queries = queries.contiguous()
+    n = embeddings.shape[0]
+    k1 = first_stage_width(k, n)
+    s1, c1 = scan_topk(queries, embeddings, valid, k1)
+    out_s, out_i = _exact_rescore(queries, embeddings, s1, c1, min(k, k1))
+    if k > k1:  # corpus smaller than k: pad the contract shape
+        pad = k - k1
+        out_s = torch.nn.functional.pad(out_s, (0, pad), value=NEG_INF)
+        out_i = torch.nn.functional.pad(out_i, (0, pad), value=-1)
+    return out_s, out_i
+
+
+def binned_topk_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
+                     e_values: torch.Tensor, e_scales: torch.Tensor,
+                     valid: torch.Tensor, k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Int8 scan; the caller rescores (`QuantizedView`). Returns the sorted
+    widened (scores [B, k1], ids [B, k1]) with k1 = max(k, 16), capped by
+    N."""
+    return scan_topk_int8(q_values, q_scales, e_values, e_scales, valid,
+                          first_stage_width(k, e_values.shape[0]))
+

@@ -1,0 +1,87 @@
+"""The port runs with no jax, flax, optax, pydantic or tenacity.
+
+The machine with the card has none of them. A subprocess blocks their
+import (`sys.modules[name] = None` makes `import name` raise), imports
+`lattice_tpu_torch`, indexes and searches a small CPU store through the
+hash embedder, and checks that no kernel was launched on the CPU and that
+asking for "cuda" without CUDA raises.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "pydantic", "tenacity"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+import importlib, pkgutil
+import torch
+import lattice_tpu_torch
+for mod in pkgutil.walk_packages(lattice_tpu_torch.__path__,
+                                 "lattice_tpu_torch."):
+    importlib.import_module(mod.name)
+assert not any(m == "lattice_tpu" or m.startswith("lattice_tpu.")
+               for m in sys.modules), "the port imported the JAX package"
+from lattice_tpu_torch.core.errors import VectorStoreError
+from lattice_tpu_torch.embeddings.embedder import Embedder
+from lattice_tpu_torch.embeddings.indexer import VectorIndexer, VectorSearcher
+from lattice_tpu_torch.index.chunk_store import ChunkStore
+from lattice_tpu_torch.ops import _build
+from lattice_tpu_torch.providers.hash_provider import HashEmbedder
+
+emb = Embedder(HashEmbedder(dimensions=64))
+indexer = VectorIndexer(emb, dtype="bfloat16", device="cpu")
+names = ["DeliveryQueue.drain", "parse_config", "HttpClient.send",
+         "retry_with_backoff", "TokenBucket.take"]
+texts = [f"def {n}(): pass  # {n.lower()}" for n in names]
+indexer.code.add(emb.embed_batch(texts), [
+    {"file_path": f"src/m{i}.py", "name": n, "content": t,
+     "entity_type": "function", "language": "python"}
+    for i, (n, t) in enumerate(zip(names, texts))])
+searcher = VectorSearcher(indexer)
+hits = searcher.search_code("drain the delivery queue", limit=3)
+assert len(hits) == 3 and hits[0].name == "DeliveryQueue.drain", hits
+assert searcher.search_lexical("drain the delivery queue")[0].name == \
+    "DeliveryQueue.drain"
+for method in ("flat", "quantized", "pallas"):
+    indexer.code.search_device(torch.from_numpy(emb.embed_batch(texts)), 2,
+                               method=method)
+assert set(_build.launch_counts().values()) == {0}, _build.launch_counts()
+assert not torch.cuda.is_available()
+try:
+    ChunkStore(64, device="cuda")
+except VectorStoreError:
+    pass
+else:
+    raise AssertionError("a cuda store was made without CUDA")
+try:
+    VectorIndexer(emb, device="cuda")
+except VectorStoreError:
+    pass
+else:
+    raise AssertionError("a cuda indexer was made without CUDA")
+print("PORT-OK")
+"""
+
+
+def test_port_runs_without_jax_pydantic_tenacity():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(REPO)],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PORT-OK" in proc.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "lattice_tpu_torch").rglob("*.py")))
+def test_no_forbidden_import_in_source(path):
+    text = (REPO / path).read_text()
+    for name in ("jax", "flax", "optax", "pydantic", "tenacity",
+                 "lattice_tpu."):
+        assert f"import {name}" not in text, (path, name)
+        assert f"from {name}" not in text, (path, name)
