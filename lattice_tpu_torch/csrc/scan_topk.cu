@@ -10,8 +10,10 @@
 //   scores agree bit for bit.
 // Kernel B, merge_candidates: replaces the `approx_max_k` finish of
 //   `_binned_candidates`: the exact top-k1 over every block's candidates.
+//   It also merges the lists of ivf_probe (ivf_probe.cu).
 //
-// Selection is exact at the precision of the scores: each block keeps one
+// Selection (topk_select.cuh, shared with ivf_probe.cu) is exact at the
+// precision of the scores: each block keeps one
 // sorted running top-k1 list per query in shared memory, ordered by
 // (score descending, row id ascending), which is the order `lax.top_k`
 // gives. Invalid rows score NEG_INF (-1e30) and still take part, so that
@@ -42,6 +44,8 @@
 
 #include <type_traits>
 
+#include "topk_select.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -50,10 +54,6 @@ constexpr int BQ = 64;          // queries per block
 constexpr int BN = 128;         // rows per tile
 constexpr int THREADS = 128;    // 4 warps
 constexpr int SC_LD = BN + 4;   // score tile row stride (floats)
-constexpr int MAX_K1 = 128;     // longest candidate list per query
-constexpr float NEG_INF = -1e30f;
-constexpr int EMPTY_ID = 0x7fffffff;
-constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int MODE_BF16 = 0;
 constexpr int MODE_F32 = 1;
@@ -73,66 +73,12 @@ template <> struct Cfg<MODE_I8> {
   static constexpr int BK = 64;
 };
 
-__device__ __forceinline__ float neg_infinity() {
-  return __int_as_float(0xff800000);
-}
-
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.f);
 }
 template <> __device__ __forceinline__ signed char zero<signed char>() {
   return 0;
-}
-
-// (s, i) ranks before (s2, i2): higher score, then lower row id.
-__device__ __forceinline__ bool better(float s, int i, float s2, int i2) {
-  return s > s2 || (s == s2 && i < i2);
-}
-
-// Insert (s, id) into the sorted list (ls, li) of length k1 that this warp
-// owns. Every lane passes the same candidate. No-op when it ranks after
-// the whole list.
-__device__ void warp_insert(float* ls, int* li, int k1, float s, int id,
-                            int lane) {
-  int pos = 0;  // entries that rank before the candidate (list is sorted)
-#pragma unroll
-  for (int j = 0; j < MAX_K1 / 32; ++j) {
-    int i = lane + 32 * j;
-    bool b = i < k1 && better(ls[i], li[i], s, id);
-    pos += __popc(__ballot_sync(FULL, b));
-  }
-  if (pos >= k1) return;
-  float ps[MAX_K1 / 32];
-  int pi[MAX_K1 / 32];
-#pragma unroll
-  for (int j = 0; j < MAX_K1 / 32; ++j) {
-    int i = lane + 32 * j;
-    if (i < k1 && i > pos) { ps[j] = ls[i - 1]; pi[j] = li[i - 1]; }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < MAX_K1 / 32; ++j) {
-    int i = lane + 32 * j;
-    if (i < k1 && i > pos) { ls[i] = ps[j]; li[i] = pi[j]; }
-    else if (i == pos) { ls[i] = s; li[i] = id; }
-  }
-  __syncwarp();
-}
-
-// Fold 32 scores per step into this warp's list; lanes with `ok` false
-// offer nothing. Candidates are inserted one at a time in lane order.
-__device__ __forceinline__ void offer(float* ls, int* li, int k1, float s,
-                                      int id, bool in, int lane) {
-  bool ok = in && better(s, id, ls[k1 - 1], li[k1 - 1]);
-  unsigned m = __ballot_sync(FULL, ok);
-  while (m) {
-    int src = __ffs(m) - 1;
-    m &= m - 1;
-    float cs = __shfl_sync(FULL, s, src);
-    int ci = __shfl_sync(FULL, id, src);
-    warp_insert(ls, li, k1, cs, ci, lane);
-  }
 }
 
 // Tiles land in shared memory k-block-major, dst[BK/16][R][16]: each

@@ -14,16 +14,20 @@ updates its tensors in place with index assignment: `add`, `remove` and
 A caller holding `device_arrays` therefore sees later mutations.
 
 Search runs through the plan table (`_plan_search_impl`): on a CUDA
-device the int8 two-stage scan (`"quantized"`, kernel C + B + exact
-rescore) by default, the bf16 scan (`"pallas"`, kernel A + B + exact
-rescore) when int8 is opted out or its shadow does not fit, and the plain
-exact scan (`"flat"`) above k = 64 and on the CPU. IVF, PQ, int4,
-sharded, refined and the rank columns are not ported yet; they raise
-`NotImplementedError` naming their ROADMAP item.
+device the IVF partition (`"ivf"`, the `ivf_probe` kernel + B over the
+probed buckets, `ops/ivf.py`) for small batches on a large clustered
+corpus whose self-measured recall clears `IVF_MIN_RECALL`; otherwise the
+int8 two-stage scan (`"quantized"`, kernel C + B + exact rescore) by
+default, the bf16 scan (`"pallas"`, kernel A + B + exact rescore) when
+int8 is opted out or its shadow does not fit, and the plain exact scan
+(`"flat"`) above k = 64 and on the CPU. PQ, int4, sharded, refined and
+the rank columns are not ported yet; they raise `NotImplementedError`
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 import re
@@ -52,8 +56,7 @@ INDEXED_FIELDS = ("file_path", "entity_type", "language", "content_hash",
 _NOT_PORTED = {
     "refined": "ROADMAP queue 2, fused_topk (refined)",
     "int4": "ROADMAP queue 2, binned_topk_int4",
-    "ivf": "ROADMAP queue 1, IVF with an H100-measured crossover",
-    "pq": "ROADMAP queue 1, IVF and PQ",
+    "pq": "ROADMAP queue 1, PQ",
     "sharded": "ROADMAP queue 1, multi-GPU",
 }
 _ENV_NOT_PORTED = {"LATTICE_SHARDED": "sharded", "LATTICE_PQ": "pq",
@@ -153,9 +156,38 @@ def query_token_set(text: str) -> frozenset[str]:
     return frozenset(toks)
 
 
+logger = logging.getLogger(__name__)
+
 # The int8 shadow plus the bf16 rows must leave a quarter of device memory
 # for transients (`_plan_search_impl`).
 SHADOW_MEMORY_FRACTION = 0.75
+# ---- IVF thresholds of the auto plan (`_plan_search_impl`) -----------------
+# IVF pays a one-time build (k-means, layout, recall self-measure) and then
+# reads only nprobe buckets per query; below this corpus size a flat scan
+# is cheap and the build never amortizes.
+IVF_AUTO_MIN_ROWS = int(os.environ.get("LATTICE_IVF_MIN_ROWS", 131_072))
+# Probe selection is not filter-aware: a filter matching under this fraction
+# of live rows (or fewer than FILTER_MIN_MATCH_PER_K * k rows) starves the
+# probed buckets -> a flat plan, which filters exactly.
+IVF_MIN_FILTER_FRACTION = 0.05
+IVF_FILTER_MIN_MATCH_PER_K = 50
+# Serve through IVF only when its build-time self-measured recall@10 clears
+# this bar (a near-isotropic corpus measures far below it).
+IVF_MIN_RECALL = float(os.environ.get("LATTICE_IVF_MIN_RECALL", 0.9))
+IVF_AUTO_NPROBE = int(os.environ.get("LATTICE_IVF_NPROBE", 8))
+# The largest batch at which `search_device` through IVF beat the int8
+# flat scan at 1M x 768 on an H100: every batch measured, B = 1 ... 256
+# (PERF.md); larger batches were not measured.
+IVF_SMALL_BATCH = int(os.environ.get("LATTICE_IVF_SMALL_BATCH", 256))
+# Past this corpus size IVF serves at any batch: probe traffic is ~nprobe/C
+# of the corpus (a crossover taken over from the JAX store, not yet measured
+# on the card).
+IVF_FLAT_CROSSOVER_ROWS = int(
+    os.environ.get("LATTICE_IVF_CROSSOVER_ROWS", 2_000_000))
+# An IVF build needs the padded buckets (max_load 2.0 = up to 2x the rows)
+# beside the rows, plus ~1x for build transients, under this fraction of
+# device memory.
+IVF_MEMORY_FRACTION = 0.85
 # Above this k the auto plan serves the exact flat scan (as in the JAX
 # store); the scan kernels keep at most `scan_ops.MAX_K1` candidates.
 KERNEL_MAX_K = 64
@@ -203,6 +235,9 @@ class ChunkStore:
         # serializes the lazy check-then-build of the int8 shadow: serving
         # surfaces drive searches from many threads
         self._serve_lock = threading.RLock()
+        self._ivf = None           # lazily built IVF partition (ops/ivf.py)
+        self._ivf_dirty = True
+        self._ivf_mutations = 0    # rows churned since the last build
         self._quant = None         # int8 shadow (ops/quant.py)
         self._quant_dirty = True
         self._lex_tokens = None    # name-token inverted index, lazy
@@ -350,15 +385,42 @@ class ChunkStore:
     def _mutate_views_impl(self, rows: list[int],
                            normed: torch.Tensor | None,
                            idx: torch.Tensor | None) -> None:
-        """O(delta) upkeep of the int8 shadow.
+        """O(delta) upkeep of the IVF partition and the int8 shadow.
 
         `normed` is the new f32 normalized rows for inserts, None for
-        removals. A live shadow that covers the rows re-quantizes the f32
+        removals. IVF: a hollow (recall-refused) index only counts the
+        churn; a live one takes the rows in place (`insert` / `remove`).
+        Centroids do not move, so past 20% churn either is marked dirty
+        and the next planned search rebuilds it (re-measuring recall).
+
+        int8: a live shadow that covers the rows re-quantizes the f32
         input in place, as the JAX store's fused delta does
         (`_fused_delta_apply`), NOT the stored bf16 rows: after a delta the
         shadow holds rows of both histories, bit for bit as in JAX. Rows
         past the shadow (the store grew) mark it dirty for a full rebuild.
         Removals leave the shadow's values stale but masked by `valid`."""
+        n = len(rows)
+        if (self._ivf is not None and not self._ivf_dirty
+                and self._ivf.hollow):
+            # the refusal verdict stands until 20% churn re-measures it
+            self._ivf_mutations += n
+            if self._ivf_mutations > 0.2 * max(self._size, 1):
+                self._ivf_dirty = True
+        elif self._ivf is not None and not self._ivf_dirty:
+            try:
+                if normed is None:
+                    self._ivf.remove(rows)
+                else:
+                    self._ivf.insert(normed, rows)
+                self._ivf_mutations += n
+                if self._ivf_mutations > 0.2 * max(self._size, 1):
+                    self._ivf_dirty = True
+            except Exception:
+                # host bookkeeping failed: rebuild, never serve another plan
+                logger.exception("incremental IVF update failed; rebuilding")
+                self._ivf_dirty = True
+        else:
+            self._ivf_dirty = True
         if normed is None:
             return
         if (self._quant is not None and not self._quant_dirty
@@ -469,9 +531,12 @@ class ChunkStore:
         return self.delete_by_filter({"file_path": file_path})
 
     def _reset_views(self) -> None:
-        """Drop the derived serving view (the int8 shadow); the next
-        search rebuilds it lazily."""
+        """Drop the derived serving views (IVF, the int8 shadow); the next
+        search rebuilds them lazily."""
         with self._serve_lock:  # a build mid-flight finishes first
+            self._ivf = None
+            self._ivf_dirty = True
+            self._ivf_mutations = 0
             self._quant = None
             self._quant_dirty = True
 
@@ -618,16 +683,85 @@ class ChunkStore:
             mask[np.fromiter(rows, dtype=np.int64)] = True
         return torch.from_numpy(mask).to(self.device)
 
-    # ---- plans not ported yet -----------------------------------------
+    # ---- IVF ------------------------------------------------------------
 
-    def build_ivf(self, *args, **kwargs):
-        raise _not_ported("build_ivf", "ivf")
+    def build_ivf(self, n_clusters: int | None = None, iters: int = 10,
+                  seed: int = 0, measure: bool = True,
+                  max_load: float | None = 2.0):
+        """Build (or rebuild) the IVF partition over the current live rows,
+        on the store's device. Bucket ids are this store's row ids, so
+        payloads are shared with the flat path. With `measure`, the build
+        self-samples recall@10 against the exact scan: the number the auto
+        plan gates on. max_load=2.0 caps bucket padding at ~2x."""
+        from lattice_tpu_torch.ops.ivf import IVFIndex
+        with self._serve_lock:
+            self._ivf = IVFIndex.build_from_device(
+                self._emb, self._valid_host.copy(), n_clusters=n_clusters,
+                iters=iters, dtype=self.dtype, seed=seed, max_load=max_load)
+            if measure:
+                self._ivf.measure_recall(self._emb, self._valid,
+                                         nprobe=IVF_AUTO_NPROBE)
+            self._ivf_dirty = False
+            self._ivf_mutations = 0
+            return self._ivf
 
-    def search_ivf(self, *args, **kwargs):
-        raise _not_ported("search_ivf", "ivf")
+    def _ivf_ready(self) -> bool:
+        """Fresh IVF whose measured recall clears the serving bar."""
+        return (self._ivf is not None and not self._ivf_dirty
+                and self._ivf.measured_recall is not None
+                and self._ivf.measured_recall >= IVF_MIN_RECALL)
+
+    def _serving_ivf(self):
+        """The IVF partition to serve from, (re)built if it is missing,
+        stale or hollow; captured under the lock, since `compact` and
+        `clear` drop it."""
+        with self._serve_lock:
+            if self._ivf is None or self._ivf_dirty or self._ivf.hollow:
+                self.build_ivf()
+            return self._ivf
+
+    def search_ivf(self, query_vectors: np.ndarray, k: int,
+                   nprobe: int = 8,
+                   filters: dict[str, Any] | None = None
+                   ) -> list[list[tuple[int, float, dict[str, Any]]]]:
+        """ANN search through the IVF partition; payload filters fold into
+        the bucket id table as a row mask (filtered rows score NEG_INF)."""
+        if self._size == 0:
+            return [[] for _ in range(len(np.atleast_2d(query_vectors)))]
+        ivf = self._serving_ivf()
+        mask = self.filter_mask(filters)
+        scores, ids = ivf.search(np.atleast_2d(query_vectors), k,
+                                 nprobe, mask=mask)
+        out: list[list[tuple[int, float, dict[str, Any]]]] = []
+        for qi in range(len(scores)):
+            hits = []
+            for score, row in zip(scores[qi], ids[qi]):
+                if row < 0 or score <= topk_ops.NEG_INF / 2:
+                    continue
+                payload = self._payloads[int(row)]
+                if payload is not None:
+                    hits.append((int(row), float(score), payload))
+            out.append(hits)
+        return out
 
     def adopt_ivf(self, ivf) -> None:
-        raise _not_ported("adopt_ivf", "ivf")
+        """Attach a partition built elsewhere (`IVFIndex.restore`) as fresh."""
+        with self._serve_lock:
+            self._ivf = ivf
+            self._ivf_dirty = False
+            self._ivf_mutations = 0
+
+    def _filter_selectivity_ok(self, filters: dict[str, Any] | None,
+                               k: int) -> bool:
+        """Probe selection is filter-blind; a very selective filter starves
+        the probed buckets. A flat plan handles those exactly."""
+        if not filters:
+            return True
+        matched = len(self._filter_rows(filters))
+        return (matched >= IVF_FILTER_MIN_MATCH_PER_K * k
+                and matched >= IVF_MIN_FILTER_FRACTION * max(self._size, 1))
+
+    # ---- plans not ported yet -----------------------------------------
 
     def build_pq(self, *args, **kwargs):
         raise _not_ported("build_pq", "pq")
@@ -716,22 +850,30 @@ class ChunkStore:
     def _plan_search_impl(self, batch: int, k_eff: int,
                           filters: dict[str, Any] | None,
                           method: str) -> str:
-        """The dispatch decision table. Returns one of "quantized" |
-        "pallas" | "flat" (method strings kept as the JAX store names
+        """The dispatch decision table. Returns one of "ivf" | "quantized"
+        | "pallas" | "flat" (method strings kept as the JAX store names
         them; serving keys on them).
 
         auto order, re-derived for the card:
         1. LATTICE_SHARDED=1 / LATTICE_PQ=1 / LATTICE_INT4=1 — those plans
            are not ported; raise rather than serve another plan
-        2. quantized — CUDA device, k <= 64, and the bf16 rows plus the
+        2. flat      — the exact plain scan: k > 64, and every CPU store
+        3. ivf       — CUDA device, k <= 64, >= IVF_AUTO_MIN_ROWS live rows,
+           a batch of at most IVF_SMALL_BATCH (the crossover measured
+           against "quantized" on the card) or a corpus of at least
+           IVF_FLAT_CROSSOVER_ROWS, rows x (1 + 2 + 1) under 85% of device
+           memory, and any filter matching enough rows. The first such
+           call builds the partition (k-means, layout, recall self-measure
+           through `IVFIndex.search`) under the serve lock; a build whose
+           recall is under IVF_MIN_RECALL releases its buckets and keeps
+           the verdict, so the plan falls through
+        4. quantized — CUDA device, k <= 64, and the bf16 rows plus the
            int8 shadow take under 75% of device memory (total_memory),
            unless LATTICE_INT8=0; LATTICE_INT8=1 forces it on CUDA at
            k <= 64 (the auto plan never hands the kernels a k they refuse).
            Int8 first stage (kernel C + B) + exact rescore.
-        3. pallas    — CUDA device, k <= 64: the bf16 scan (kernel A + B)
+        5. pallas    — CUDA device, k <= 64: the bf16 scan (kernel A + B)
            + exact rescore, when int8 is opted out or does not fit
-        4. flat      — the exact plain scan: k > 64, and every CPU store
-        IVF's crossover (TPU constants) is not part of this table yet.
         """
         if method != "auto" and method in SEARCH_METHODS:
             return method
@@ -742,6 +884,21 @@ class ChunkStore:
                 raise _not_ported(f"{flag}=1", plan)
         if not self._device_is_cuda() or k_eff > KERNEL_MAX_K:
             return "flat"
+        ivf_pays = (batch <= IVF_SMALL_BATCH
+                    or self._size >= IVF_FLAT_CROSSOVER_ROWS)
+        ivf_bytes = (self._cap * self.dim * self._emb.element_size()
+                     * (1 + 2 + 1))
+        ivf_fits = (ivf_bytes
+                    < IVF_MEMORY_FRACTION * self._device_memory_bytes())
+        if (self._size >= IVF_AUTO_MIN_ROWS and ivf_pays and ivf_fits
+                and self._filter_selectivity_ok(filters, k_eff)):
+            if self._ivf is None or self._ivf_dirty:
+                self.build_ivf()          # one-time; self-measures recall
+                if not self._ivf_ready():
+                    # remember the refusal, free the corpus-sized buckets
+                    self._ivf.release_buckets()
+            if self._ivf_ready():
+                return "ivf"
         if os.environ.get("LATTICE_INT8") == "1":
             return "quantized"
         resident = self._cap * self.dim * (self._emb.element_size() + 1)
@@ -768,8 +925,9 @@ class ChunkStore:
         """Top-k cosine search. Returns per-query [(row, score, payload)].
 
         The kernel is picked by the `_plan_search` decision table; `method`
-        forces a path ("flat"/"pallas"/"quantized"). Payload filters AND
-        into the validity mask on every path.
+        forces a path ("flat"/"pallas"/"quantized"/"ivf"). Payload filters
+        AND into the validity mask (flat/pallas/quantized) or fold into the
+        bucket id table (ivf).
         """
         if self._size == 0:
             q = np.atleast_2d(query_vectors)
@@ -777,6 +935,9 @@ class ChunkStore:
         q = topk_ops.l2_normalize(np.atleast_2d(query_vectors))
         k_eff = min(k, self._cap)
         plan = self._resolve_plan(len(q), k_eff, filters, method)
+        if plan == "ivf":
+            return self.search_ivf(q, k_eff, nprobe=IVF_AUTO_NPROBE,
+                                   filters=filters)
         if plan == "quantized":
             return self.search_quantized(q, k_eff, filters=filters)
         mask = self.filter_mask(filters)
@@ -806,6 +967,10 @@ class ChunkStore:
         k_eff = min(k, self._cap)
         plan = self._resolve_plan(int(raw.shape[0]), k_eff, filters, method)
         mask = self.filter_mask(filters)
+        if plan == "ivf":
+            return self._serving_ivf().search_device(
+                topk_ops.l2_normalize_t(raw), k_eff, nprobe=IVF_AUTO_NPROBE,
+                mask=mask)
         valid = self._valid if mask is None else (self._valid & mask)
         if plan == "quantized":
             return self._quant_view().search_device(raw, valid, k_eff,

@@ -44,6 +44,8 @@ _ENTRIES: dict[str, tuple] = {
     "lt_scan_topk_f32": (_P, _P, _P) + (_I,) * 7 + (_P, _P, _P),
     "lt_scan_topk_int8": (_P,) * 5 + (_I,) * 7 + (_P, _P, _P),
     "lt_merge_candidates": (_P, _P, _I, _I, _I, _P, _P, _P),
+    "lt_ivf_probe_bf16": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
+    "lt_ivf_probe_f32": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
 }
 
 _lock = threading.Lock()

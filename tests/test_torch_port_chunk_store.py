@@ -334,8 +334,7 @@ class TestPlanTable:
         with pytest.raises(NotImplementedError):
             cuda_store._plan_search(256, 10, None, "auto")
 
-    @pytest.mark.parametrize("method", ["refined", "ivf", "pq", "int4",
-                                        "sharded"])
+    @pytest.mark.parametrize("method", ["refined", "pq", "int4", "sharded"])
     def test_unported_forced_methods_raise(self, pair, method):
         _, ps, vecs = pair
         assert method in SEARCH_METHODS
@@ -377,9 +376,8 @@ class TestPlanTable:
 
     def test_unported_surfaces_raise(self, pair):
         _, ps, _ = pair
-        for call in (ps.build_ivf, ps.build_pq, ps.to_sharded,
-                     lambda: ps.device_rank_columns(None),
-                     lambda: ps.adopt_ivf(None)):
+        for call in (ps.build_pq, ps.to_sharded,
+                     lambda: ps.device_rank_columns(None)):
             with pytest.raises(NotImplementedError):
                 call()
 

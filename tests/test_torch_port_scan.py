@@ -16,6 +16,7 @@ from lattice_tpu.ops import pallas_topk as jax_scan
 from lattice_tpu.ops import quant as jax_quant
 from lattice_tpu.ops import topk as jax_topk
 from lattice_tpu_torch.ops import _build
+from lattice_tpu_torch.ops import ivf  # noqa: F401 (registers ivf_probe)
 from lattice_tpu_torch.ops import scan_topk as scan
 from lattice_tpu_torch.ops import topk as topk_ops
 
@@ -224,6 +225,7 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     scan.binned_topk_int8(t(qv[:3]), t(qs[:3]), t(qv), t(qs),
                           torch.ones(200, dtype=torch.bool), 5)
     assert _build.launch_counts() == {"scan_topk": 0, "merge_candidates": 0,
-                                      "scan_topk_int8": 0}
+                                      "scan_topk_int8": 0, "ivf_probe": 0}
     names = [k.name for k in _build.KERNELS]
-    assert names == ["scan_topk", "merge_candidates", "scan_topk_int8"]
+    assert names == ["scan_topk", "merge_candidates", "scan_topk_int8",
+                     "ivf_probe"]
