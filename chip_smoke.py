@@ -1,4 +1,5 @@
-"""Drive the port's vector-search main paths once on one NVIDIA card.
+"""Drive the port's main paths (vector search, the encoder) once on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -17,6 +18,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    buckets, B in {1, 16, 256}, nprobe in {1, 8, C}, k in {1, 10, 64}; ids
    agree on >= 99.9% of slots, scores within 1e-4, no -1 among live
    results, and nprobe = C equal to the exact scan at storage precision.
+   `paired_attention` at B in {1, 128}, L in {64, 128, 256, 512}, H=12,
+   bf16 and f32, unit-normal q/k/v, sm_scale 0.125, mask lengths drawn
+   from [1, L] and (B=128) one row fully masked: max abs error <= 1e-2
+   (bf16) / 1e-4 (f32), all finite; moving the masked keys and values by
+   +-100 changes no row with a live key by more than 1e-6. The same at
+   ragged (B, L, H) in {(3, 8, 2), (3, 100, 2), (5, 333, 4)}.
 3a. The flat-tier path: 1,048,576 x 768 rows around 1024 centers at
    spread 0.35 (`bench.py`'s headline corpus, near-isotropic: the noise
    norm is ~9.7x the center's), from a seed, through `VectorIndexer` ->
@@ -41,8 +48,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    through "ivf" and "quantized" at B in {1, 8, 32, 64, 128, 256} (the
    crossover that sets `IVF_SMALL_BATCH`), B=1 p50 of each; `ivf_probe`
    beside its plain version at B in {1, 256}.
-Launch counts are zeroed just before each of 3a and 3b and read just after
-it; each path's kernels, and every registered kernel, must have launched.
+3c. The encoder path, after the second store is freed: the UniXcoder
+   encoder at `UniXcoderConfig()` (12 x 768, 12 heads, FFN 3072, vocab
+   51416), random weights from seed 0, on the card. The corpus is this
+   checkout's own code: 32-line windows at a stride of 8 lines over every
+   `.py` file outside the directories `.gitignore` lists (~6,000, at
+   least 4,096),
+   through `Embedder.embed_with_progress` -> `UniXcoderEmbedder.
+   embed_batch_device` (batch 128, max_length 512) -> `ChunkStore.add`
+   (bf16); `paired_attention` launches exactly 12 times per batch. The
+   first 256 chunks through the kernel path and the einsum path
+   (`paired_attention=False`, same weights): every pooled cosine >= 0.999.
+   256 chunks drawn by seed, encoded again as queries, through
+   `search_device` at B=256, k=10: >= 99% find their own row in their top
+   10; recall@10 against an exact f32 scan is printed (information). B=1
+   `search_code` calls return hits with payloads.
+4c. Encoder timings (information only): chunks/s at B=128, L=512 on
+   device-resident ids (CUDA events) with the achieved TFLOP/s, the host
+   tokenizer per batch, B=1 query encode and `search_code` p50 (host
+   clock), `paired_attention` beside its plain version at B=128, L=512.
+Launch counts are zeroed just before each of 3a, 3b and 3c and read just
+after it; each path's kernels, and every registered kernel, must have
+launched.
 
 The line before the last is the kernel table as JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -50,12 +77,14 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -69,6 +98,17 @@ ADD_BATCH = 65_536
 ROWS_PER_FILE = 50
 K = 10
 RECALL_MIN = 0.99
+ATTN_LENGTHS = (64, 128, 256, 512)
+ATTN_HEADS = 12
+SM_SCALE = 0.125
+ENC_BATCH = 128
+ENC_LEN = 512
+WINDOW, STRIDE = 32, 8     # the corpus: 32-line windows every 8 lines
+N_PARITY = 256
+N_SELF = 256
+ENC_QUERIES = ["paired attention kernel for Hopper",
+               "parse the vocab and merges files", "exact rescore of the "
+               "candidates", "build the kernels with nvcc"]
 
 
 def log(*args) -> None:
@@ -268,6 +308,263 @@ def phase_kernels(err: dict) -> None:
         require(torch.equal(i, pi) and torch.equal(s, ps),
                 f"scan_topk_int8 d={d} differs from its plain version")
         log(f"kernels ok: d={d} rows {dtype}")
+
+
+def attention_inputs(b: int, ln: int, dtype: torch.dtype,
+                     gen: torch.Generator, fully_masked: bool,
+                     heads: int = ATTN_HEADS):
+    """Unit-normal q/k/v [b, ln, heads * 64] and a prefix mask of a length
+    drawn from [1, ln] per row; the last row is fully masked if asked."""
+    shape = (b, ln, heads * 64)
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    lengths = torch.randint(1, ln + 1, (b,), device="cuda", generator=gen)
+    mask = (torch.arange(ln, device="cuda")[None, :]
+            < lengths[:, None]).to(torch.int32)
+    if fully_masked:
+        mask[-1] = 0
+    return q, k, v, mask
+
+
+def check_attention(b: int, ln: int, heads: int, dtype: torch.dtype,
+                    tol: float, gen: torch.Generator) -> float:
+    """One `paired_attention` call against its plain version (max abs
+    error <= tol, all finite); then the masked keys and values move by
+    +-100 and no row with a live key may change by more than 1e-6."""
+    from lattice_tpu_torch.ops import attention as attn
+    q, k, v, mask = attention_inputs(b, ln, dtype, gen, b > 1, heads)
+    out = attn.paired_attention(q, k, v, mask, SM_SCALE)
+    torch.cuda.synchronize()
+    ref = attn.paired_attention_plain(q, k, v, mask, SM_SCALE)
+    e = (out - ref).abs().max().item()
+    where = f"{dtype} B={b} L={ln} H={heads}"
+    require(out.shape == ref.shape and out.dtype == torch.float32
+            and bool(torch.isfinite(out).all()),
+            f"paired_attention: bad output {where}")
+    require(e <= tol, f"paired_attention: max abs error {e:.3g} > {tol} "
+            f"{where}")
+    dead = mask == 0
+    k[dead] += 100.0
+    v[dead] -= 100.0
+    out2 = attn.paired_attention(q, k, v, mask, SM_SCALE)
+    live = mask.sum(1) > 0
+    moved = (out2[live] - out[live]).abs().max().item()
+    require(moved <= 1e-6, f"paired_attention: masked keys moved a live "
+            f"row by {moved:.3g} {where}")
+    require(bool(torch.isfinite(out2).all()),
+            f"paired_attention: non-finite after the move {where}")
+    return e
+
+
+def phase_attention_kernel(err: dict) -> None:
+    """`paired_attention` against its plain version, bf16 and f32, at the
+    encoder's widths (H=12, every length bucket), and at ragged lengths
+    and fewer heads (partial key and query tiles)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        for b in (1, 128):
+            worst = max(check_attention(b, ln, ATTN_HEADS, dtype, tol, gen)
+                        for ln in ATTN_LENGTHS)
+            err["paired_attention"] = max(err["paired_attention"], worst)
+            log(f"kernels ok: paired_attention {dtype} B={b} L in "
+                f"{ATTN_LENGTHS} H={ATTN_HEADS}, max abs error {worst:.3g}")
+        ragged = ((3, 8, 2), (3, 100, 2), (5, 333, 4))
+        worst = max(check_attention(b, ln, h, dtype, tol, gen)
+                    for b, ln, h in ragged)
+        err["paired_attention"] = max(err["paired_attention"], worst)
+        log(f"kernels ok: paired_attention {dtype} (B, L, H) in {ragged}, "
+            f"max abs error {worst:.3g}")
+
+
+def repo_chunks() -> tuple[list[str], list[dict]]:
+    """The repo's own code as the encoder's corpus: 32-line windows at a
+    stride of 8 lines over every `.py` file of the checkout this script
+    runs in, outside the directories `.gitignore` lists (build/ among
+    them), with payloads."""
+    root = Path(__file__).resolve().parent
+    ignored = {line.strip().rstrip("/") for line in
+               (root / ".gitignore").read_text().splitlines()
+               if line.strip().endswith("/")}
+    texts, out = [], []
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(root)
+        if ignored & set(rel.parts[:-1]):
+            continue
+        rows = path.read_text(encoding="utf-8", errors="replace").splitlines()
+        for lo in range(0, max(len(rows) - WINDOW, 0) + 1, STRIDE):
+            texts.append("\n".join(rows[lo:lo + WINDOW]))
+            out.append({"file_path": str(rel), "name": f"{rel}:{lo + 1}",
+                        "entity_type": "chunk", "language": "python",
+                        "start_line": lo + 1,
+                        "end_line": min(lo + WINDOW, len(rows))})
+    return texts, out
+
+
+def phase_encoder_path(ctx: dict) -> None:
+    """The encoder's serving path at full width: the repo's code through
+    `Embedder.embed_with_progress` -> `UniXcoderEmbedder.embed_batch_device`
+    -> `ChunkStore.add`; the kernel path against the einsum path; chunks
+    retrieving themselves through `search_device` and `search_code`."""
+    from lattice_tpu_torch.embeddings.embedder import Embedder
+    from lattice_tpu_torch.embeddings.indexer import (VectorIndexer,
+                                                      VectorSearcher)
+    from lattice_tpu_torch.models.unixcoder import (UniXcoderConfig,
+                                                    UniXcoderModel)
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.providers.unixcoder_provider import (
+        UniXcoderEmbedder)
+    texts, chunk_payloads = repo_chunks()
+    n = len(texts)
+    require(n >= 4096, f"only {n} chunks of code in the checkout")
+    t0 = time.perf_counter()
+    provider = UniXcoderEmbedder(batch_size=ENC_BATCH, max_length=ENC_LEN,
+                                 device="cuda")
+    model = provider.model
+    require(model.config == UniXcoderConfig() and model.device.type == "cuda",
+            f"encoder config {model.config} on {model.device}")
+    log(f"encoder: UniXcoderConfig() ({model.config.num_layers} x "
+        f"{model.config.hidden_size}, {model.config.num_heads} heads, FFN "
+        f"{model.config.intermediate_size}, vocab {model.config.vocab_size}), "
+        f"{sum(p.numel() for p in model.encoder.parameters()) / 1e6:.1f} M "
+        f"params, weights {model.weights_fingerprint!r}, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    embedder = Embedder(provider, batch_size=ENC_BATCH)
+    indexer = VectorIndexer(embedder, dtype="bfloat16", initial_capacity=n,
+                            device="cuda")
+    store = indexer.code
+    before = _build.launch_counts()["paired_attention"]
+    t0 = time.perf_counter()
+    vectors = embedder.embed_with_progress(texts)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    batches = -(-n // ENC_BATCH)
+    launched = _build.launch_counts()["paired_attention"] - before
+    require(launched == model.config.num_layers * batches,
+            f"paired_attention launched {launched} times for {batches} "
+            f"batches of {model.config.num_layers} layers")
+    require(isinstance(vectors, torch.Tensor) and vectors.is_cuda
+            and vectors.shape == (n, DIM) and vectors.dtype == torch.float32
+            and bool(torch.isfinite(vectors).all()),
+            f"embed_with_progress gave {type(vectors)} {vectors.shape}")
+    rows = store.add(vectors, chunk_payloads)
+    torch.cuda.synchronize()
+    require(rows == list(range(n)), "add assigned unexpected rows")
+    ctx["ingest_chunks_s"] = n / embed_s
+    log(f"embedded {n} chunks of this checkout's code (32-line windows, "
+        f"stride 8) in {batches} batches of {ENC_BATCH}: {embed_s:.2f} s = "
+        f"{n / embed_s:.0f} chunks/s through embed_with_progress (host "
+        f"tokenizer included); paired_attention launches {launched} = "
+        f"{model.config.num_layers} x {batches}; store {store.stats}")
+
+    # the kernel path against the einsum path, same weights and batches
+    einsum = UniXcoderModel(dataclasses.replace(model.config,
+                                                paired_attention=False),
+                            device="cuda")
+    einsum.encoder.load_state_dict(model.encoder.state_dict())
+    cos = []
+    for lo in range(0, N_PARITY, ENC_BATCH):
+        ids, mask = provider.tokenizer.encode_batch(texts[lo:lo + ENC_BATCH],
+                                                    ENC_LEN)
+        a = model.encode_device(ids, mask)
+        b = einsum.encode_device(ids, mask)
+        cos.append(torch.nn.functional.cosine_similarity(a, b))
+    cos = torch.cat(cos)
+    del einsum, a, b
+    torch.cuda.empty_cache()
+    ctx["parity_cos_min"] = cos.min().item()
+    log(f"kernel path against einsum path, first {N_PARITY} chunks: pooled "
+        f"cosine mean {cos.mean().item():.7f}, min {cos.min().item():.7f}")
+    require(cos.min().item() >= 0.999, "the kernel path disagrees with the "
+            "einsum path")
+
+    # chunks find themselves
+    gen = torch.Generator().manual_seed(SEED)
+    picks = torch.randperm(n, generator=gen)[:N_SELF].tolist()
+    qv = provider.embed_batch_device([texts[i] for i in picks])
+    plan = store._plan_search(N_SELF, K, None, "auto")
+    s, i = store.search_device(qv, K)
+    torch.cuda.synchronize()
+    require(s.shape == (N_SELF, K) and bool(torch.isfinite(s).all())
+            and bool((s[:, :-1] >= s[:, 1:]).all()), "search_device output")
+    # a text that occurs more than once (an empty __init__.py, a copied
+    # file) has no single own row: any row with the same text is a hit
+    top = i.tolist()
+    self_hit = sum(any(texts[r] == texts[j] for r in row)
+                   for j, row in zip(picks, top)) / N_SELF
+    copies = sum(texts.count(texts[j]) > 1 for j in picks)
+    emb, valid = store.device_arrays
+    r = recall(i, exact_topk(qv, emb, valid, K))
+    ctx["self_hit"], ctx["recall_encoder"] = self_hit, r
+    log(f"self-retrieval: {self_hit:.4f} of {N_SELF} chunks ({copies} of "
+        f"them with copies of their text in the corpus) have their own text "
+        f"in their top {K} (search_device, B={N_SELF}, plan {plan!r}); "
+        f"recall@{K} against an exact f32 scan {r:.4f} (information)")
+    require(self_hit >= 0.99, f"self-retrieval {self_hit:.4f} < 0.99")
+    searcher = VectorSearcher(indexer)
+    for j in picks[:4]:
+        hits = searcher.search_code(texts[j], limit=K)
+        require(len(hits) == K and all(h.file_path and h.start_line >= 1
+                                       for h in hits),
+                f"search_code gave {len(hits)} hits")
+        require(any(texts[h.row] == texts[j] for h in hits),
+                f"chunk {j} is not in its own top {K} through search_code")
+    for text in ENC_QUERIES:
+        hits = searcher.search_code(text, limit=K)
+        require(len(hits) == K and all(h.file_path and h.start_line >= 1
+                                       for h in hits),
+                f"search_code({text!r}) gave {len(hits)} hits")
+    log(f"search_code (B=1): {len(ENC_QUERIES) + 4} queries, top hit of "
+        f"{ENC_QUERIES[0]!r}: {hits[0].file_path}:{hits[0].start_line}")
+    ctx.update(provider=provider, searcher=searcher, enc_texts=texts)
+
+
+def phase_encoder_timings(ctx: dict, kernels_ms: dict, smi: str) -> None:
+    """Encoder throughput at B=128, L=512 on device-resident ids (CUDA
+    events), the host tokenizer per batch, B=1 query encode and
+    `search_code` p50 (host clock), and `paired_attention` beside its plain
+    version at one layer's call."""
+    from lattice_tpu_torch.ops import attention as attn
+    provider, searcher = ctx["provider"], ctx["searcher"]
+    model, tok, texts = provider.model, provider.tokenizer, ctx["enc_texts"]
+    cfg = model.config
+    tok_ms = []
+    for lo in range(0, 5 * ENC_BATCH, ENC_BATCH):
+        t0 = time.perf_counter()
+        ids, mask = tok.encode_batch(texts[lo:lo + ENC_BATCH], ENC_LEN)
+        tok_ms.append((time.perf_counter() - t0) * 1e3)
+    pad = ENC_LEN - len(ids[0])
+    ids = torch.tensor([r + [tok.PAD] * pad for r in ids], device="cuda")
+    mask = torch.tensor([r + [0] * pad for r in mask], device="cuda")
+    ms = cuda_ms(lambda: model.encode_device(ids, mask), 5, 2)
+    dense = sum(p.numel() for name, p in model.encoder.named_parameters()
+                if not name.startswith(("word_", "position_")))
+    tokens = ENC_BATCH * ENC_LEN
+    flop = (2 * dense * tokens + 4 * ENC_BATCH * cfg.hidden_size
+            * ENC_LEN ** 2 * cfg.num_layers)
+    ctx["enc_chunks_s"] = ENC_BATCH / ms * 1e3
+    log(f"encoder B={ENC_BATCH} L={ENC_LEN} device-resident: {ms:.2f} ms/batch"
+        f" = {ENC_BATCH / ms * 1e3:.0f} chunks/s, {flop / ms / 1e9:.1f} "
+        f"TFLOP/s ({flop / 1e12:.2f} TFLOP/batch); tokenizer "
+        f"{statistics.median(tok_ms):.1f} ms/batch on the host ({smi})")
+    q1 = [" ".join(t.split()[:8]) for t in texts[:50]]
+    enc_p50 = p50_ms(lambda j: provider.embed_batch_device([q1[j]]))
+    lengths = {model.bucket_length(len(tok.encode(t, ENC_LEN)[0]))
+               for t in q1}
+    search_p50 = p50_ms(lambda j: searcher.search_code(q1[j], limit=K))
+    ctx["enc_p50"], ctx["search_code_p50"] = enc_p50, search_p50
+    log(f"B=1 query encode p50 {enc_p50:.3f} ms (L buckets {sorted(lengths)})"
+        f"; B=1 search_code p50 {search_p50:.3f} ms ({smi})")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    q, k, v, m = attention_inputs(ENC_BATCH, ENC_LEN, torch.bfloat16, gen,
+                                  True)
+    t = (cuda_ms(lambda: attn.paired_attention(q, k, v, m, SM_SCALE), 20),
+         cuda_ms(lambda: attn.paired_attention_plain(q, k, v, m, SM_SCALE),
+                 3, 1))
+    attn_flop = 4 * ENC_BATCH * cfg.hidden_size * ENC_LEN ** 2
+    log(f"kernel paired_attention bf16 B={ENC_BATCH} L={ENC_LEN} "
+        f"H={ATTN_HEADS}: {t[0]:.4f} ms ({attn_flop / t[0] / 1e9:.1f} "
+        f"TFLOP/s), plain {t[1]:.4f} ms ({smi})")
+    kernels_ms["paired_attention"] = t
 
 
 def probe_plain_chunked(q, probe, data, ids, k, max_batch=32):
@@ -668,10 +965,12 @@ def main() -> int:
               file=sys.stderr)
         return 1
     name, smi = phase_device()
-    from lattice_tpu_torch.ops import _build, ivf  # noqa: F401 (ivf_probe)
+    # every module that registers a kernel
+    from lattice_tpu_torch.ops import _build, attention, ivf  # noqa: F401
     err = {k.name: 0.0 for k in _build.KERNELS}
     phase_kernels(err)
     phase_ivf_kernels(err)
+    phase_attention_kernel(err)
 
     ctx: dict = {}
     kernels_ms: dict = {}
@@ -680,7 +979,9 @@ def main() -> int:
             ("flat tier", phase_main_path,
              ("scan_topk", "scan_topk_int8", "merge_candidates")),
             ("ivf", phase_ivf_path,
-             ("ivf_probe", "merge_candidates", "scan_topk_int8"))):
+             ("ivf_probe", "merge_candidates", "scan_topk_int8")),
+            ("encoder", phase_encoder_path,
+             ("paired_attention", "scan_topk_int8", "merge_candidates"))):
         _build.reset_launch_counts()
         phase(ctx)
         counts = _build.launch_counts()
@@ -697,9 +998,14 @@ def main() -> int:
             torch.cuda.empty_cache()
             log(f"first store freed: {torch.cuda.memory_allocated() / 1e9:.2f}"
                 f" GB allocated")
+        elif path == "ivf":
+            phase_ivf_timings(ctx, kernels_ms)
+            del ctx["store2"], ctx["queries2"]
+            gc.collect()
+            torch.cuda.empty_cache()
     for k in _build.KERNELS:
         require(launches[k.name] > 0, f"{k.name} never ran on the main path")
-    phase_ivf_timings(ctx, kernels_ms)
+    phase_encoder_timings(ctx, kernels_ms, smi)
     log(smi)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -8,8 +8,10 @@ library only. The hand-written CUDA kernels live in `csrc/` and are
 compiled for `sm_90a` at first use (`ops/_build.py`).
 
 Ported so far: the vector-search core of the main path
-(ChunkStore -> int8 / bf16 scan kernels -> exact rescore), the hash
-embedding provider and the vector indexer/searcher.
+(ChunkStore -> int8 / bf16 scan kernels -> exact rescore), the IVF tier,
+the hash embedding provider, the vector indexer/searcher, and the
+UniXcoder encoder's serving path (tokenizer -> RoBERTa-base module with
+the paired-attention kernel -> provider).
 """
 
 __version__ = "0.1.0"

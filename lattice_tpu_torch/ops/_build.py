@@ -38,6 +38,7 @@ LIB_NAME = "liblattice_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argument types of every C entry point in csrc/
 _ENTRIES: dict[str, tuple] = {
     "lt_scan_topk_bf16": (_P, _P, _P) + (_I,) * 7 + (_P, _P, _P),
@@ -46,6 +47,8 @@ _ENTRIES: dict[str, tuple] = {
     "lt_merge_candidates": (_P, _P, _I, _I, _I, _P, _P, _P),
     "lt_ivf_probe_bf16": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
     "lt_ivf_probe_f32": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
+    "lt_paired_attention_bf16": (_P,) * 4 + (_I,) * 3 + (_F, _P, _P),
+    "lt_paired_attention_f32": (_P,) * 4 + (_I,) * 3 + (_F, _P, _P),
 }
 
 _lock = threading.Lock()

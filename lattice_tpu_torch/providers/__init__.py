@@ -1,1 +1,2 @@
-"""Embedding providers (the hash provider and its base class)."""
+"""Embedding providers: the hash provider, the UniXcoder encoder, and
+their base class."""

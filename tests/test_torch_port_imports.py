@@ -1,10 +1,13 @@
-"""The port runs with no jax, flax, optax, pydantic or tenacity.
+"""The port runs with no jax, flax, optax, pydantic, tenacity or
+transformers.
 
 The machine with the card has none of them. A subprocess blocks their
 import (`sys.modules[name] = None` makes `import name` raise), imports
 `lattice_tpu_torch`, indexes and searches a small CPU store through the
-hash embedder, and checks that no kernel was launched on the CPU and that
-asking for "cuda" without CUDA raises.
+hash embedder and through a tiny UniXcoder encoder (tokenizer, paired
+attention's plain version, the torch module, the provider), and checks
+that no kernel was launched on the CPU and that asking for "cuda" without
+CUDA raises.
 """
 
 import subprocess
@@ -17,7 +20,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "pydantic", "tenacity"):
+for name in ("jax", "jaxlib", "flax", "optax", "pydantic", "tenacity",
+             "transformers"):
     sys.modules[name] = None
 sys.path.insert(0, sys.argv[1])
 import importlib, pkgutil
@@ -52,6 +56,36 @@ assert searcher.search_lexical("drain the delivery queue")[0].name == \
 for method in ("flat", "quantized", "pallas"):
     indexer.code.search_device(torch.from_numpy(emb.embed_batch(texts)), 2,
                                method=method)
+from lattice_tpu_torch.core.errors import EmbeddingError
+from lattice_tpu_torch.models.unixcoder import UniXcoderConfig, UniXcoderModel
+from lattice_tpu_torch.ops.attention import paired_attention
+from lattice_tpu_torch.providers import unixcoder_provider as up
+from lattice_tpu_torch.text.tokenizer import CodeTokenizer
+
+ids, mask = CodeTokenizer(vocab_size=512).encode_batch(texts, 64)
+assert len({len(r) for r in ids}) == 1 and ids[0][:3] == [1, 5, 2], ids[0]
+x = torch.randn(2, 16, 128)
+ctx = paired_attention(x, x, x, torch.ones(2, 16, dtype=torch.int32), 0.125)
+assert ctx.shape == (2, 16, 128) and bool(torch.isfinite(ctx).all())
+try:
+    up.UniXcoderEmbedder(device="cuda")
+except EmbeddingError:
+    pass
+else:
+    raise AssertionError("a cuda encoder was made without CUDA")
+tiny = UniXcoderModel(UniXcoderConfig(
+    vocab_size=512, hidden_size=128, num_layers=1, num_heads=2,
+    intermediate_size=256, max_position_embeddings=130), seed=1)
+up._get_model = lambda *a, **k: tiny
+uemb = Embedder(up.UniXcoderEmbedder(batch_size=4), batch_size=4)
+vecs = uemb.embed_with_progress(texts)
+assert isinstance(vecs, torch.Tensor) and vecs.shape == (5, 128), vecs.shape
+assert bool(torch.isfinite(vecs).all())
+uidx = VectorIndexer(uemb, dtype="float32", device="cpu")
+uidx.code.add(vecs, [{"file_path": f"src/m{i}.py", "name": n}
+                     for i, n in enumerate(names)])
+hits = VectorSearcher(uidx).search_code(texts[2], limit=3)
+assert hits[0].name == names[2], hits
 assert set(_build.launch_counts().values()) == {0}, _build.launch_counts()
 assert not torch.cuda.is_available()
 try:
@@ -82,6 +116,6 @@ def test_port_runs_without_jax_pydantic_tenacity():
 def test_no_forbidden_import_in_source(path):
     text = (REPO / path).read_text()
     for name in ("jax", "flax", "optax", "pydantic", "tenacity",
-                 "lattice_tpu."):
+                 "transformers", "lattice_tpu."):
         assert f"import {name}" not in text, (path, name)
         assert f"from {name}" not in text, (path, name)
