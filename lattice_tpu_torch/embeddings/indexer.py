@@ -38,7 +38,7 @@ class VectorSearchResult:
 class VectorIndexer:
     def __init__(self, embedder: Embedder, chunker=None,
                  dtype: str = "float32", initial_capacity: int = 1024,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.embedder = embedder
         self.chunker = chunker
         self.code = ChunkStore(embedder.dimensions, dtype=dtype,

@@ -14,15 +14,22 @@ updates its tensors in place with index assignment: `add`, `remove` and
 A caller holding `device_arrays` therefore sees later mutations.
 
 Search runs through the plan table (`_plan_search_impl`): on a CUDA
-device the IVF partition (`"ivf"`, the `ivf_probe` kernel + B over the
-probed buckets, `ops/ivf.py`) for small batches on a large clustered
-corpus whose self-measured recall clears `IVF_MIN_RECALL`; otherwise the
-int8 two-stage scan (`"quantized"`, kernel C + B + exact rescore) by
-default, the bf16 scan (`"pallas"`, kernel A + B + exact rescore) when
-int8 is opted out or its shadow does not fit, and the plain exact scan
-(`"flat"`) above k = 64 and on the CPU. PQ, int4, sharded, refined and
-the rank columns are not ported yet; they raise `NotImplementedError`
-naming their ROADMAP item.
+device the packed-int4 two-stage scan (`"int4"`, kernel D + B + exact
+rescore, `ops/quant.Int4View`) when `LATTICE_INT4=1` asks for the
+capacity tier; the IVF partition (`"ivf"`, the `ivf_probe` kernel + B
+over the probed buckets, `ops/ivf.py`) for small batches on a large
+clustered corpus whose self-measured recall clears `IVF_MIN_RECALL`;
+otherwise the int8 two-stage scan (`"quantized"`, kernel C + B + exact
+rescore) by default, the bf16 scan (`"pallas"`, kernel A + B + exact
+rescore) when int8 is opted out or its shadow does not fit, and the plain
+exact scan (`"flat"`) above k = 64 and on the CPU. A forced `"refined"`
+is the widened bf16 scan with an exact rescore (`scan_topk.refined_topk`,
+kernel A + B). PQ, sharded and the rank columns are not ported yet; they
+raise `NotImplementedError` naming their ROADMAP item.
+
+Every store lives on the device it is given, `"cuda"` by default; without
+CUDA that default raises rather than landing on the CPU (the CPU is asked
+for by name, as the tests do).
 """
 
 from __future__ import annotations
@@ -54,13 +61,14 @@ INDEXED_FIELDS = ("file_path", "entity_type", "language", "content_hash",
 # Plans of the JAX store whose kernels have not been ported yet, with the
 # ROADMAP item that brings each.
 _NOT_PORTED = {
-    "refined": "ROADMAP queue 2, fused_topk (refined)",
-    "int4": "ROADMAP queue 2, binned_topk_int4",
     "pq": "ROADMAP queue 1, PQ",
     "sharded": "ROADMAP queue 1, multi-GPU",
 }
-_ENV_NOT_PORTED = {"LATTICE_SHARDED": "sharded", "LATTICE_PQ": "pq",
-                   "LATTICE_INT4": "int4"}
+_ENV_NOT_PORTED = {"LATTICE_SHARDED": "sharded", "LATTICE_PQ": "pq"}
+
+# the plans served by the widened bf16 scan (kernel A + B + exact rescore)
+_BF16_SCANS = {"pallas": scan_ops.binned_topk,
+               "refined": scan_ops.refined_topk}
 
 
 def _not_ported(what: str, plan: str) -> NotImplementedError:
@@ -215,7 +223,7 @@ def _device(device: str | torch.device) -> torch.device:
 class ChunkStore:
     def __init__(self, dim: int, dtype: str | torch.dtype = "bfloat16",
                  initial_capacity: int = 1024,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         if dim <= 0:
             raise VectorStoreError(f"bad dim {dim}")
         self.dim = dim
@@ -240,6 +248,8 @@ class ChunkStore:
         self._ivf_mutations = 0    # rows churned since the last build
         self._quant = None         # int8 shadow (ops/quant.py)
         self._quant_dirty = True
+        self._int4 = None          # packed-int4 shadow (4x capacity tier)
+        self._int4_dirty = True
         self._lex_tokens = None    # name-token inverted index, lazy
         # (None = build on next lexical_candidates). Once built, add/
         # remove maintain it incrementally like _inverted; only row-id
@@ -385,7 +395,7 @@ class ChunkStore:
     def _mutate_views_impl(self, rows: list[int],
                            normed: torch.Tensor | None,
                            idx: torch.Tensor | None) -> None:
-        """O(delta) upkeep of the IVF partition and the int8 shadow.
+        """O(delta) upkeep of the IVF partition and the int8/int4 shadows.
 
         `normed` is the new f32 normalized rows for inserts, None for
         removals. IVF: a hollow (recall-refused) index only counts the
@@ -393,12 +403,12 @@ class ChunkStore:
         Centroids do not move, so past 20% churn either is marked dirty
         and the next planned search rebuilds it (re-measuring recall).
 
-        int8: a live shadow that covers the rows re-quantizes the f32
-        input in place, as the JAX store's fused delta does
+        int8 and int4: a live shadow that covers the rows re-quantizes the
+        f32 input in place, as the JAX store's fused delta does
         (`_fused_delta_apply`), NOT the stored bf16 rows: after a delta the
         shadow holds rows of both histories, bit for bit as in JAX. Rows
-        past the shadow (the store grew) mark it dirty for a full rebuild.
-        Removals leave the shadow's values stale but masked by `valid`."""
+        past a shadow (the store grew) mark it dirty for a full rebuild.
+        Removals leave the shadows' values stale but masked by `valid`."""
         n = len(rows)
         if (self._ivf is not None and not self._ivf_dirty
                 and self._ivf.hollow):
@@ -428,6 +438,11 @@ class ChunkStore:
             self._quant.update_rows(normed, idx)
         else:
             self._quant_dirty = True
+        if (self._int4 is not None and not self._int4_dirty
+                and max(rows) < self._int4.n):
+            self._int4.update_rows(normed, idx)
+        else:
+            self._int4_dirty = True
 
     def _drop_row(self, row: int) -> None:
         payload = self._payloads[row]
@@ -531,14 +546,16 @@ class ChunkStore:
         return self.delete_by_filter({"file_path": file_path})
 
     def _reset_views(self) -> None:
-        """Drop the derived serving views (IVF, the int8 shadow); the next
-        search rebuilds them lazily."""
+        """Drop the derived serving views (IVF, the int8 and int4
+        shadows); the next search rebuilds them lazily."""
         with self._serve_lock:  # a build mid-flight finishes first
             self._ivf = None
             self._ivf_dirty = True
             self._ivf_mutations = 0
             self._quant = None
             self._quant_dirty = True
+            self._int4 = None
+            self._int4_dirty = True
 
     def clear(self) -> None:
         self._valid.zero_()
@@ -769,9 +786,6 @@ class ChunkStore:
     def search_pq(self, *args, **kwargs):
         raise _not_ported("search_pq", "pq")
 
-    def search_int4(self, *args, **kwargs):
-        raise _not_ported("search_int4", "int4")
-
     def to_sharded(self, *args, **kwargs):
         raise _not_ported("to_sharded", "sharded")
 
@@ -833,6 +847,29 @@ class ChunkStore:
         return self._search_view_two_stage(self._quant_view(), query_vectors,
                                            k, rescore, filters)
 
+    def _int4_view(self):
+        from lattice_tpu_torch.ops.quant import Int4View
+        with self._serve_lock:
+            if self._int4 is None or self._int4_dirty:
+                # quantizes the STORED rows, as the JAX store's build does
+                self._int4 = Int4View(self._emb)
+                self._int4_dirty = False
+            return self._int4
+
+    def search_int4(self, query_vectors: np.ndarray, k: int,
+                    rescore: bool = True,
+                    filters: dict[str, Any] | None = None
+                    ) -> list[list[tuple[int, float, dict[str, Any]]]]:
+        """Packed-int4 first-stage scan (+ optional full-precision rescore).
+
+        A quarter of the bytes per scanned row of bf16 (`ops/quant.
+        Int4View`, kernel D). With the rows resident, as here, the widened
+        candidates rescore exactly, so int4 buys scan bytes, not recall."""
+        if self._size == 0:
+            return [[] for _ in range(len(np.atleast_2d(query_vectors)))]
+        return self._search_view_two_stage(self._int4_view(), query_vectors,
+                                           k, rescore, filters)
+
     def _device_is_cuda(self) -> bool:
         return self.device.type == "cuda"
 
@@ -850,15 +887,20 @@ class ChunkStore:
     def _plan_search_impl(self, batch: int, k_eff: int,
                           filters: dict[str, Any] | None,
                           method: str) -> str:
-        """The dispatch decision table. Returns one of "ivf" | "quantized"
-        | "pallas" | "flat" (method strings kept as the JAX store names
-        them; serving keys on them).
+        """The dispatch decision table. Returns one of "int4" | "ivf" |
+        "quantized" | "pallas" | "flat" (method strings kept as the JAX
+        store names them; serving keys on them).
 
         auto order, re-derived for the card:
-        1. LATTICE_SHARDED=1 / LATTICE_PQ=1 / LATTICE_INT4=1 — those plans
-           are not ported; raise rather than serve another plan
+        1. LATTICE_SHARDED=1 / LATTICE_PQ=1 — those plans are not ported;
+           raise rather than serve another plan
         2. flat      — the exact plain scan: k > 64, and every CPU store
-        3. ivf       — CUDA device, k <= 64, >= IVF_AUTO_MIN_ROWS live rows,
+        3. int4      — LATTICE_INT4=1 (the 4x-capacity mode) on a CUDA
+           device at k <= 64: kernel D + B at 8k candidates + exact
+           rescore. It comes before IVF, as in the JAX store: the operator
+           asked for it because the corpus is at the memory limit, where an
+           IVF build does not fit
+        4. ivf       — CUDA device, k <= 64, >= IVF_AUTO_MIN_ROWS live rows,
            a batch of at most IVF_SMALL_BATCH (the crossover measured
            against "quantized" on the card) or a corpus of at least
            IVF_FLAT_CROSSOVER_ROWS, rows x (1 + 2 + 1) under 85% of device
@@ -867,13 +909,16 @@ class ChunkStore:
            through `IVFIndex.search`) under the serve lock; a build whose
            recall is under IVF_MIN_RECALL releases its buckets and keeps
            the verdict, so the plan falls through
-        4. quantized — CUDA device, k <= 64, and the bf16 rows plus the
+        5. quantized — CUDA device, k <= 64, and the bf16 rows plus the
            int8 shadow take under 75% of device memory (total_memory),
            unless LATTICE_INT8=0; LATTICE_INT8=1 forces it on CUDA at
            k <= 64 (the auto plan never hands the kernels a k they refuse).
            Int8 first stage (kernel C + B) + exact rescore.
-        5. pallas    — CUDA device, k <= 64: the bf16 scan (kernel A + B)
+        6. pallas    — CUDA device, k <= 64: the bf16 scan (kernel A + B)
            + exact rescore, when int8 is opted out or does not fit
+        A forced "refined" (the widened bf16 scan + exact rescore) or
+        "int4" is served on either device, through the plain versions on
+        the CPU.
         """
         if method != "auto" and method in SEARCH_METHODS:
             return method
@@ -884,6 +929,8 @@ class ChunkStore:
                 raise _not_ported(f"{flag}=1", plan)
         if not self._device_is_cuda() or k_eff > KERNEL_MAX_K:
             return "flat"
+        if os.environ.get("LATTICE_INT4") == "1":
+            return "int4"
         ivf_pays = (batch <= IVF_SMALL_BATCH
                     or self._size >= IVF_FLAT_CROSSOVER_ROWS)
         ivf_bytes = (self._cap * self.dim * self._emb.element_size()
@@ -912,7 +959,8 @@ class ChunkStore:
                       filters: dict[str, Any] | None, method: str) -> str:
         """The planned method; an unported one raises. A forced kernel plan
         is served as asked: on a CUDA store past the kernels' candidate
-        lists (k > `scan_ops.MAX_K1`) the scan wrapper raises KernelError."""
+        lists (k1 > `scan_ops.MAX_K1`, or 8k > `scan_ops.MAX_K1_LONG` for
+        "int4") the scan wrapper raises KernelError."""
         plan = self._plan_search(batch, k_eff, filters, method)
         if plan in _NOT_PORTED:
             raise _not_ported(f"method={plan!r}", plan)
@@ -925,9 +973,9 @@ class ChunkStore:
         """Top-k cosine search. Returns per-query [(row, score, payload)].
 
         The kernel is picked by the `_plan_search` decision table; `method`
-        forces a path ("flat"/"pallas"/"quantized"/"ivf"). Payload filters
-        AND into the validity mask (flat/pallas/quantized) or fold into the
-        bucket id table (ivf).
+        forces a path ("flat"/"pallas"/"refined"/"quantized"/"int4"/"ivf").
+        Payload filters AND into the validity mask (every flat plan) or
+        fold into the bucket id table (ivf).
         """
         if self._size == 0:
             q = np.atleast_2d(query_vectors)
@@ -940,13 +988,13 @@ class ChunkStore:
                                    filters=filters)
         if plan == "quantized":
             return self.search_quantized(q, k_eff, filters=filters)
+        if plan == "int4":
+            return self.search_int4(q, k_eff, filters=filters)
         mask = self.filter_mask(filters)
         valid = self._valid if mask is None else (self._valid & mask)
         qt = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
-        if plan == "pallas":
-            scores, idx = scan_ops.binned_topk(qt, self._emb, valid, k_eff)
-        else:
-            scores, idx = topk_ops.flat_topk(qt, self._emb, valid, k_eff)
+        scan = _BF16_SCANS.get(plan, topk_ops.flat_topk)
+        scores, idx = scan(qt, self._emb, valid, k_eff)
         return self._assemble_hits(len(q), scores.cpu().numpy(),
                                    idx.cpu().numpy())
 
@@ -975,9 +1023,12 @@ class ChunkStore:
         if plan == "quantized":
             return self._quant_view().search_device(raw, valid, k_eff,
                                                     full_precision=self._emb)
-        if plan == "pallas":
-            return scan_ops.binned_topk(raw, self._emb, valid, k_eff,
-                                        normalize=True)
+        if plan == "int4":
+            return self._int4_view().search_device(raw, valid, k_eff,
+                                                   full_precision=self._emb)
+        if plan in _BF16_SCANS:
+            return _BF16_SCANS[plan](raw, self._emb, valid, k_eff,
+                                     normalize=True)
         return topk_ops.flat_topk(topk_ops.l2_normalize_t(raw), self._emb,
                                   valid, k_eff)
 

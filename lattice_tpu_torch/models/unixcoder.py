@@ -236,7 +236,7 @@ class UniXcoderModel:
     def __init__(self, config: UniXcoderConfig | None = None,
                  weights_dir: str | Path | None = None, seed: int = 0,
                  finetune_dir: str | Path | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.config = config or UniXcoderConfig()
         if self.config.fused_attention or self.config.fused_qkv:
             raise ConfigurationError(

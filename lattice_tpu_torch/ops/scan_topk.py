@@ -1,7 +1,7 @@
 """Fused flat-scan score + select for the card, with plain versions.
 
-Port of `lattice_tpu/ops/pallas_topk.py` for the kernels on the main
-path. Three hand-written CUDA kernels (`csrc/scan_topk.cu`):
+Port of `lattice_tpu/ops/pallas_topk.py`. Four hand-written CUDA kernels
+(`csrc/scan_topk.cu`):
 
 - `scan_topk` (kernel A) replaces `_binned_kernel` (pallas_topk.py:434)
   and the bin/key selection of `binned_topk` (:627): Q·Eᵀ over bf16 (or
@@ -12,13 +12,27 @@ path. Three hand-written CUDA kernels (`csrc/scan_topk.cu`):
 - `scan_topk_int8` (kernel C) replaces `_binned_kernel_int8` (:466) via
   `binned_topk_int8` (:720): the i8·i8 -> i32 dot, times the query and
   row scales, masked, selected like kernel A and finished by kernel B.
+- `scan_topk_int4` (kernel D) replaces the packed-int4 bodies of
+  `binned_topk_int4` (:980): `_binned_kernel_int4_hoistq` (:894, its
+  default), `_binned_kernel_int4` (:938), `_fma` (:843) and `_matmul`
+  (:793). Kernel C's path over packed rows [N, d/2], unpacked in
+  registers; lists up to 512 long (the int4 view's 8k candidates).
+
+The TPU's other scans compute functions these kernels already compute
+exactly, so they are entry points over them: `fused_topk` (`_topk_kernel`
+with `_select_topk_insertion`, :193, :236, :102) is A + B at k, and
+`refined_topk` (:1114) widens it and rescores; `fused_topk_int8`
+(`_topk_kernel_int8`, :297, :345) is C + B at k; the int8 `hoistq` chain
+(`_binned_kernel_int8_hoistq`, :492) is C + B like `"mul"`. Every variant
+of `binned_topk_int4` (`unpack=`, `selection=`) reaches kernel D: they
+approximated one exact function in different ways.
 
 What bounds them on the H100 and how the design answers it is written at
 the head of the CUDA source. In short: one read of the rows (1.61 GB of
 bf16, 0.81 GB of int8 at 1M x 768), the products on tensor cores, and a
 selection that after the first tiles costs one warp ballot per 32 scores.
 
-The TPU kernel's selection was lossy (128 strided bins of ~1e-3 packed
+The TPU kernels' selection was lossy (128 strided bins of ~1e-3 packed
 keys; about 0.2 pp of recall at 1M). Here selection is exact at the
 precision of the first-stage scores, ordered (score desc, row id asc) as
 `lax.top_k` orders ties. The TPU's workarounds do not carry over: no tile
@@ -43,8 +57,10 @@ from lattice_tpu_torch.ops.topk import (NEG_INF, blocked_topk,
 
 # must match csrc/scan_topk.cu
 BQ = 64          # queries per block
+BQ_LONG = 32     # queries per block of kernel D past MAX_K1
 BN = 128         # rows per tile
 MAX_K1 = 128     # longest first-stage list a block keeps per query
+MAX_K1_LONG = 512  # longest list of kernels D and B
 # plain versions score this many rows at a time (bounded f32 temporaries)
 PLAIN_BLOCK = 1 << 17
 
@@ -55,6 +71,8 @@ MERGE_CANDIDATES = _build.Kernel(
     "merge_candidates", _SRC, "lattice_tpu/ops/pallas_topk.py:525")
 SCAN_TOPK_INT8 = _build.Kernel(
     "scan_topk_int8", _SRC, "lattice_tpu/ops/pallas_topk.py:466")
+SCAN_TOPK_INT4 = _build.Kernel(
+    "scan_topk_int4", _SRC, "lattice_tpu/ops/pallas_topk.py:894")
 
 
 def first_stage_width(k: int, n: int) -> int:
@@ -68,6 +86,13 @@ def int8_first_stage_width(k: int, n: int) -> int:
     itself runs at `first_stage_width(k1, n)`, which for every k equals
     `first_stage_width(k, n)`."""
     return min(max(k, 16), 4 * k, n)
+
+
+def int4_first_stage_width(k: int, n: int) -> int:
+    """k1 = max(8k, 32), capped by the row count: how many int4 candidates
+    `Int4View` rescores (JAX `quant.py:497, :523, :534`). int4 steps are
+    amax/7 against int8's amax/127, so the first stage widens further."""
+    return min(max(8 * k, 32), n)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -95,11 +120,12 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _chunking(n: int, b: int, device: torch.device) -> tuple[int, int]:
+def _chunking(n: int, b: int, device: torch.device, bq: int = BQ
+              ) -> tuple[int, int]:
     """(rows per block, number of row chunks): about four blocks per SM
     over the whole grid, each chunk a whole number of 128-row tiles."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-b // BQ)
+    q_tiles = -(-b // bq)
     target = max(1, -(-4 * sms // q_tiles))
     rows = max(BN, -(-(-(-n // target)) // BN) * BN)
     return rows, -(-n // rows)
@@ -131,7 +157,7 @@ def merge_candidates(cand_s: torch.Tensor, cand_i: torch.Tensor, k1: int
     _check(cand_s, "cand_s", torch.float32, 2)
     _check(cand_i, "cand_i", torch.int32, 2)
     b, m = cand_s.shape
-    if cand_i.shape != cand_s.shape or not 1 <= k1 <= min(m, MAX_K1):
+    if cand_i.shape != cand_s.shape or not 1 <= k1 <= min(m, MAX_K1_LONG):
         raise KernelError(f"merge_candidates: k1={k1}, shapes "
                           f"{tuple(cand_s.shape)} {tuple(cand_i.shape)}")
     out_s, out_i = _empty_lists(b, k1, cand_s.device)
@@ -178,33 +204,68 @@ def scan_topk_int8_plain(q_values: torch.Tensor, q_scales: torch.Tensor,
     return blocked_topk(block, e_values.shape[0], k1, PLAIN_BLOCK)
 
 
-# ---- kernels A and C ---------------------------------------------------------
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[N, d/2] packed -> [N, d] int8: low nibbles (biased by 8) are dims
+    [0, d/2), high nibbles (sign-extended) dims [d/2, d)."""
+    x = packed.to(torch.int32)
+    return torch.cat([(x & 0xF) - 8, x >> 4], dim=-1).to(torch.int8)
+
+
+def scan_topk_int4_plain(q_values: torch.Tensor, q_scales: torch.Tensor,
+                         e_packed: torch.Tensor, e_scales: torch.Tensor,
+                         valid: torch.Tensor, k1: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain kernels D + B (JAX `int4_topk`, quant.py:377): unpack a block
+    of rows, then kernel C's exact f32 product: every partial sum is an
+    integer below 127·8·d < 2²⁴ for d <= 16,000 (TF32 off); then
+    (acc·qs)·es, so scores agree with the kernel bit for bit."""
+    d = 2 * e_packed.shape[1]
+    if d > 16_000:
+        raise KernelError(f"int4 plain dot is exact only for d <= 16000, got {d}")
+    qf = q_values.to(torch.float32)
+    keep = valid.to(torch.bool)
+
+    def block(lo, hi):
+        with full_f32():
+            acc = qf @ unpack_int4(e_packed[lo:hi]).to(torch.float32).T
+        s = acc * q_scales[:, None] * e_scales[None, lo:hi]
+        return torch.where(keep[None, lo:hi], s, torch.full_like(s, NEG_INF))
+
+    return blocked_topk(block, e_packed.shape[0], k1, PLAIN_BLOCK)
+
+
+# ---- kernels A, C and D --------------------------------------------------------
 
 
 def _check_scan_shapes(b: int, d: int, e: torch.Tensor, valid: torch.Tensor,
-                       k1: int) -> int:
+                       k1: int, max_k1: int = MAX_K1, width: int | None = None
+                       ) -> int:
+    """Row count of a scan's rows `e` ([N, width], width d unless packed)."""
     n = e.shape[0]
-    if e.shape[1] != d or valid.shape != (n,) or valid.dtype != torch.bool:
+    if (e.shape[1] != (d if width is None else width) or valid.shape != (n,)
+            or valid.dtype != torch.bool):
         raise KernelError(f"scan: queries d={d}, rows {tuple(e.shape)}, "
                           f"valid {valid.dtype} {tuple(valid.shape)}")
-    if not 1 <= k1 <= min(n, MAX_K1):
-        raise KernelError(f"scan: k1={k1} outside [1, min(N={n}, {MAX_K1})]")
+    if not 1 <= k1 <= min(n, max_k1):
+        raise KernelError(f"scan: k1={k1} outside [1, min(N={n}, {max_k1})]")
     if not valid.is_contiguous():
         raise KernelError("scan: valid must be contiguous")
     return n
 
 
 def _launch_scan(kernel: _build.Kernel, entry: str, k1: int, b: int, n: int,
-                 d: int, vec: int, pointers: tuple, device: torch.device
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch of kernel A or C: per-chunk sorted lists, [B, n_chunks *
-    k1] scores and row ids, for kernel B to merge."""
-    rows, n_chunks = _chunking(n, b, device)
+                 d: int, vec: int, pointers: tuple, device: torch.device,
+                 bq: int = BQ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of kernel A, C or D with `bq` queries per block:
+    per-chunk sorted lists, [B, n_chunks * k1] scores and row ids, for
+    kernel B to merge. The entry refuses a `bq` its instance does not
+    have, so the chunking here always matches the kernel's grid."""
+    rows, n_chunks = _chunking(n, b, device, bq)
     cand_s = torch.empty((b, n_chunks * k1), dtype=torch.float32,
                          device=device)
     cand_i = torch.empty((b, n_chunks * k1), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        kernel.launch(entry, *pointers, b, n, d, k1, rows, n_chunks, vec,
+        kernel.launch(entry, *pointers, b, n, d, k1, bq, rows, n_chunks, vec,
                       cand_s.data_ptr(), cand_i.data_ptr(), _stream(device))
     return cand_s, cand_i
 
@@ -250,6 +311,34 @@ def scan_blocks_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
          e_scales.data_ptr(), valid.data_ptr()), e_values.device)
 
 
+def scan_blocks_int4(q_values: torch.Tensor, q_scales: torch.Tensor,
+                     e_packed: torch.Tensor, e_scales: torch.Tensor,
+                     valid: torch.Tensor, k1: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D alone on CUDA tensors: the unmerged per-chunk lists. Any
+    even d; 16-byte loads where d/2 % 16 == 0. Past k1 = MAX_K1 a block
+    owns BQ_LONG queries instead of BQ (shared memory for the longer
+    lists); this is the one place that rule is made."""
+    _check(q_values, "q_values", torch.int8, 2)
+    _check(q_scales, "q_scales", torch.float32, 1)
+    _check(e_packed, "e_packed", torch.int8, 2)
+    _check(e_scales, "e_scales", torch.float32, 1)
+    b, d = q_values.shape
+    if d != 2 * e_packed.shape[1]:
+        raise KernelError(f"scan_topk_int4: queries d={d} against packed rows "
+                          f"{tuple(e_packed.shape)} (d must be even)")
+    n = _check_scan_shapes(b, d, e_packed, valid, k1, MAX_K1_LONG, d // 2)
+    if q_scales.shape != (b,) or e_scales.shape != (n,):
+        raise KernelError(f"scan_topk_int4: scales {tuple(q_scales.shape)} "
+                          f"{tuple(e_scales.shape)} for B={b}, N={n}")
+    vec = int((d // 2) % 16 == 0 and _aligned(q_values, e_packed))
+    return _launch_scan(
+        SCAN_TOPK_INT4, "lt_scan_topk_int4", k1, b, n, d, vec,
+        (q_values.data_ptr(), q_scales.data_ptr(), e_packed.data_ptr(),
+         e_scales.data_ptr(), valid.data_ptr()), e_packed.device,
+        BQ if k1 <= MAX_K1 else BQ_LONG)
+
+
 def _empty_lists(b: int, k1: int, device: torch.device):
     return (torch.empty((b, k1), dtype=torch.float32, device=device),
             torch.empty((b, k1), dtype=torch.int32, device=device))
@@ -283,6 +372,21 @@ def scan_topk_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
                                               e_scales, valid, k1), k1)
 
 
+def scan_topk_int4(q_values: torch.Tensor, q_scales: torch.Tensor,
+                   e_packed: torch.Tensor, e_scales: torch.Tensor,
+                   valid: torch.Tensor, k1: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernels D + B: sorted first-stage (scores [B, k1] f32, row ids
+    [B, k1] i32) of int8 queries against packed int4 rows."""
+    if _on_cpu(q_values, q_scales, e_packed, e_scales, valid):
+        return scan_topk_int4_plain(q_values, q_scales, e_packed, e_scales,
+                                    valid, k1)
+    if q_values.shape[0] == 0:
+        return _empty_lists(0, k1, q_values.device)
+    return merge_candidates(*scan_blocks_int4(q_values, q_scales, e_packed,
+                                              e_scales, valid, k1), k1)
+
+
 # ---- the contracts of pallas_topk.py ------------------------------------------
 
 
@@ -305,19 +409,18 @@ def _exact_rescore(queries: torch.Tensor, embeddings: torch.Tensor,
 
 
 def binned_topk(queries: torch.Tensor, embeddings: torch.Tensor,
-                valid: torch.Tensor, k: int, normalize: bool = False
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                valid: torch.Tensor, k: int, normalize: bool = False,
+                widen: int = 16) -> tuple[torch.Tensor, torch.Tensor]:
     """Scan + exact rescore. Returns sorted (scores [B, k], ids [B, k]).
 
-    Candidates widen to k1 = max(k, 16) (capped by N) and rescore in f32.
-    With fewer rows than k the contract shape is padded with NEG_INF / -1.
-    `normalize` L2-normalizes raw queries first."""
+    Candidates widen to k1 = max(k, widen) (capped by N) and rescore in
+    f32. With fewer rows than k the contract shape is padded with NEG_INF
+    / -1. `normalize` L2-normalizes raw queries first."""
     queries = queries.to(torch.float32)
     if normalize:
         queries = l2_normalize_t(queries)
     queries = queries.contiguous()
-    n = embeddings.shape[0]
-    k1 = first_stage_width(k, n)
+    k1 = min(max(k, widen), embeddings.shape[0])
     s1, c1 = scan_topk(queries, embeddings, valid, k1)
     out_s, out_i = _exact_rescore(queries, embeddings, s1, c1, min(k, k1))
     if k > k1:  # corpus smaller than k: pad the contract shape
@@ -329,11 +432,66 @@ def binned_topk(queries: torch.Tensor, embeddings: torch.Tensor,
 
 def binned_topk_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
                      e_values: torch.Tensor, e_scales: torch.Tensor,
-                     valid: torch.Tensor, k: int
+                     valid: torch.Tensor, k: int, selection: str = "mul"
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Int8 scan; the caller rescores (`QuantizedView`). Returns the sorted
     widened (scores [B, k1], ids [B, k1]) with k1 = max(k, 16), capped by
-    N."""
+    N. Both `selection` chains ("mul", and "hoistq", which hoisted the
+    query scale out of the TPU kernel) are kernels C + B here."""
+    _check_choice("selection", selection, ("mul", "hoistq"))
     return scan_topk_int8(q_values, q_scales, e_values, e_scales, valid,
                           first_stage_width(k, e_values.shape[0]))
 
+
+def binned_topk_int4(q_values: torch.Tensor, q_scales: torch.Tensor,
+                     e_packed: torch.Tensor, e_scales: torch.Tensor,
+                     valid: torch.Tensor, k: int, unpack: str = "vpu",
+                     selection: str = "hoistq"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed-int4 scan; the caller rescores (`Int4View`). Returns the
+    sorted widened (scores [B, k1], ids [B, k1]) with k1 = max(k, 16),
+    capped by N. Every `unpack` ("vpu", "matmul") and `selection`
+    ("hoistq", "mul", "fma") is kernels D + B: the TPU bodies differed in
+    how they approximated this exact function, not in the function."""
+    _check_choice("unpack", unpack, ("vpu", "matmul"))
+    _check_choice("selection", selection, ("hoistq", "mul", "fma"))
+    return scan_topk_int4(q_values, q_scales, e_packed, e_scales, valid,
+                          first_stage_width(k, e_packed.shape[0]))
+
+
+def _check_choice(name: str, value: str, allowed: tuple[str, ...]) -> None:
+    if value not in allowed:
+        raise ValueError(f"{name}={value!r}: one of {allowed}")
+
+
+def fused_topk(queries: torch.Tensor, embeddings: torch.Tensor,
+               valid: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat-scan top-k at the first stage's precision (queries cast to the
+    row dtype): kernels A + B at k1 = k. The TPU's insertion scan
+    (`_select_topk_insertion`) kept ~1e-3 packed scores; this is exact."""
+    return scan_topk(queries.to(torch.float32).contiguous(), embeddings,
+                     valid, k)
+
+
+def fused_topk_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
+                    e_values: torch.Tensor, e_scales: torch.Tensor,
+                    valid: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantized flat-scan top-k: kernels C + B at k1 = k."""
+    return scan_topk_int8(q_values, q_scales, e_values, e_scales, valid, k)
+
+
+def refined_topk(queries: torch.Tensor, embeddings: torch.Tensor,
+                 valid: torch.Tensor, k: int, widen: int = 16,
+                 normalize: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`binned_topk`'s widened scan and rescore, except where the width
+    does not exceed k (k >= widen, or N <= k): there the first stage,
+    unrescored and unpadded, is the answer, as in the JAX function."""
+    if min(max(k, widen), embeddings.shape[0]) > k:
+        return binned_topk(queries, embeddings, valid, k, normalize, widen)
+    if normalize:
+        queries = l2_normalize_t(queries.to(torch.float32))
+    return fused_topk(queries, embeddings, valid,
+                      min(k, embeddings.shape[0]))

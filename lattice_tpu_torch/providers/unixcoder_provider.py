@@ -30,7 +30,7 @@ MAX_LENGTH = 512             # reference `unixcoder_provider.py:90`
 
 @lru_cache(maxsize=2)
 def _get_model(weights_dir: str | None, finetune_dir: str | None = None,
-               seed: int = 0, device: str = "cpu") -> UniXcoderModel:
+               seed: int = 0, device: str = "cuda") -> UniXcoderModel:
     """One model per (weights, fine-tune, seed, device)."""
     return UniXcoderModel(UniXcoderConfig(), weights_dir=weights_dir,
                           seed=seed, finetune_dir=finetune_dir, device=device)
@@ -42,7 +42,7 @@ class UniXcoderEmbedder:
     def __init__(self, weights_dir: str | None = None,
                  max_length: int = MAX_LENGTH, batch_size: int = 128,
                  finetune_dir: str | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.model = _get_model(weights_dir, finetune_dir,
                                 device=str(torch.device(device)))
         # LATTICE_BF16_SERVE=1: the JAX package's switch to serve from bf16
@@ -97,7 +97,7 @@ class UniXcoderEmbeddingProvider(BaseEmbeddingProvider):
     def __init__(self, config: ProviderConfig | None = None,
                  weights_dir: str | None = None,
                  finetune_dir: str | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         config = config or ProviderConfig(name="unixcoder",
                                           dimensions=EMBEDDING_DIM)
         config.dimensions = EMBEDDING_DIM

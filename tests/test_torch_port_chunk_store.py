@@ -53,7 +53,7 @@ def _assert_same_hits(a, b, atol=1e-5):
 
 def _pair(n=120, d=32, dtype="float32", cap=16, seed=0):
     js = JaxStore(dim=d, dtype=dtype, initial_capacity=cap)
-    ps = ChunkStore(dim=d, dtype=dtype, initial_capacity=cap)
+    ps = ChunkStore(dim=d, dtype=dtype, initial_capacity=cap, device="cpu")
     vecs = _vecs(n, d, seed)
     pl = _payloads(n)
     assert js.add(vecs, pl) == ps.add(vecs, pl)
@@ -98,7 +98,8 @@ class TestMutation:
 
     def test_growth_doubles_from_minimum_eight(self):
         js = JaxStore(dim=8, dtype="float32", initial_capacity=3)
-        ps = ChunkStore(dim=8, dtype="float32", initial_capacity=3)
+        ps = ChunkStore(dim=8, dtype="float32", initial_capacity=3,
+                        device="cpu")
         assert ps.capacity == js.capacity == 8
         for s in (js, ps):
             s.add(_vecs(20, 8), [{"file_path": "a", "content_hash": "h"}] * 20)
@@ -138,13 +139,13 @@ class TestMutation:
         assert ps.stats == js.stats
 
     def test_errors(self):
-        ps = ChunkStore(dim=8, dtype="float32")
+        ps = ChunkStore(dim=8, dtype="float32", device="cpu")
         with pytest.raises(VectorStoreError):
             ps.add(_vecs(1, 16), [{}])
         with pytest.raises(VectorStoreError):
             ps.add(_vecs(2, 8), [{}])
         with pytest.raises(VectorStoreError):
-            ChunkStore(dim=0)
+            ChunkStore(dim=0, device="cpu")
         assert ps.add(np.zeros((0, 8), np.float32), []) == []
         with pytest.raises(VectorStoreError):
             ps.search_device(torch.zeros(1, 8), 3)
@@ -330,14 +331,26 @@ class TestPlanTable:
     @pytest.mark.parametrize("flag", ["LATTICE_INT4", "LATTICE_PQ",
                                       "LATTICE_SHARDED"])
     def test_unported_modes_raise(self, cuda_store, monkeypatch, flag):
+        """LATTICE_PQ / LATTICE_SHARDED still raise; LATTICE_INT4 is ported
+        and now plans "int4" (tests/test_torch_port_int4.py)."""
         monkeypatch.setenv(flag, "1")
+        if flag == "LATTICE_INT4":
+            assert cuda_store._plan_search(256, 10, None, "auto") == "int4"
+            return
         with pytest.raises(NotImplementedError):
             cuda_store._plan_search(256, 10, None, "auto")
 
     @pytest.mark.parametrize("method", ["refined", "pq", "int4", "sharded"])
     def test_unported_forced_methods_raise(self, pair, method):
+        """"pq" and "sharded" still raise; "refined" and "int4" are ported
+        and serve the exact flat answer here (rescored widened lists)."""
         _, ps, vecs = pair
         assert method in SEARCH_METHODS
+        if method in ("refined", "int4"):
+            got = ps.search(vecs[:1], k=3, method=method)
+            want = ps.search(vecs[:1], k=3, method="flat")
+            assert [r for r, _, _ in got[0]] == [r for r, _, _ in want[0]]
+            return
         with pytest.raises(NotImplementedError):
             ps.search(vecs[:1], k=3, method=method)
 
@@ -350,7 +363,7 @@ class TestPlanTable:
         assert port_cs.KERNEL_MAX_K == 64
         q = torch.from_numpy(vecs[:2])
         fs, fi = ps.search_device(q, 129, method="flat")
-        for method in ("quantized", "pallas"):
+        for method in ("quantized", "pallas", "refined", "int4"):
             assert ps._resolve_plan(1, 129, None, method) == method
             s, i = ps.search_device(q, 129, method=method)
             assert s.shape == i.shape == (2, 129)
@@ -365,6 +378,10 @@ class TestPlanTable:
         with pytest.raises(KernelError, match="128"):
             scan_ops.scan_blocks_int8(qv, qs, ev, es, valid,
                                       scan_ops.MAX_K1 + 1)
+        ep, eps = quant.quantize_rows_int4_device(emb)
+        with pytest.raises(KernelError, match="512"):
+            scan_ops.scan_blocks_int4(qv, qs, ep, eps, valid,
+                                      scan_ops.MAX_K1_LONG + 1)
 
     def test_first_stage_widths(self):
         for k, n, int8_k1 in ((1, 1000, 4), (4, 1000, 16), (10, 1000, 16),
@@ -384,6 +401,6 @@ class TestPlanTable:
     def test_cpu_store_launches_no_kernel(self, pair):
         _, ps, vecs = pair
         _build.reset_launch_counts()
-        for method in ("quantized", "pallas", "flat"):
+        for method in ("quantized", "pallas", "flat", "int4", "refined"):
             ps.search_device(torch.from_numpy(vecs[:2]), 5, method=method)
         assert set(_build.launch_counts().values()) == {0}

@@ -44,7 +44,7 @@ def flat_params(params) -> dict:
 def port_model(jax_model, **overrides) -> um.UniXcoderModel:
     cfg = um.UniXcoderConfig(**{**SMALL, "dtype": jax_model.config.dtype,
                                 **overrides})
-    model = um.UniXcoderModel(cfg, seed=SEED)
+    model = um.UniXcoderModel(cfg, seed=SEED, device="cpu")
     model.encoder.load_state_dict(um.params_from_jax(
         flat_params(jax_model.params)))
     return model
@@ -157,14 +157,14 @@ def test_finetune_npz_round_trip(tmp_path):
                         **flat_params(trained.params))
     jm = JaxModel(cfg, seed=SEED, finetune_dir=tmp_path)
     port = um.UniXcoderModel(um.UniXcoderConfig(**SMALL, dtype="float32"),
-                             seed=SEED, finetune_dir=tmp_path)
+                             seed=SEED, finetune_dir=tmp_path, device="cpu")
     assert port.loaded_finetuned and port.loaded_pretrained
     assert port.weights_fingerprint == jm.weights_fingerprint
     ids, mask = batch(seed=8)
     np.testing.assert_allclose(port.encode(ids, mask), jm.encode(ids, mask),
                                atol=2e-4)
     by_dir = um.UniXcoderModel(um.UniXcoderConfig(**SMALL, dtype="float32"),
-                               weights_dir=tmp_path)
+                               weights_dir=tmp_path, device="cpu")
     assert by_dir.loaded_pretrained
     assert by_dir.weights_fingerprint == "unixcoder-pretrained"
     np.testing.assert_allclose(by_dir.encode(ids, mask), port.encode(ids, mask),
@@ -176,10 +176,11 @@ def test_finetune_npz_mismatch_keeps_base(tmp_path):
     flat["layer_1/intermediate/kernel"] = np.zeros((128, 8), np.float32)
     np.savez_compressed(tmp_path / "finetuned_params.npz", **flat)
     port = um.UniXcoderModel(um.UniXcoderConfig(**SMALL), seed=SEED,
-                             finetune_dir=tmp_path)
+                             finetune_dir=tmp_path, device="cpu")
     assert not port.loaded_finetuned
     assert port.weights_fingerprint == f"unixcoder-torch-random-seed{SEED}"
-    base = um.UniXcoderModel(um.UniXcoderConfig(**SMALL), seed=SEED)
+    base = um.UniXcoderModel(um.UniXcoderConfig(**SMALL), seed=SEED,
+                             device="cpu")
     for a, b in zip(port.encoder.parameters(), base.encoder.parameters()):
         assert torch.equal(a, b)
 
@@ -202,7 +203,7 @@ def test_hf_state_matches_transformers(tmp_path):
     torch.save({"roberta." + k: v for k, v in ref.state_dict().items()},
                tmp_path / "pytorch_model.bin")
     port = um.UniXcoderModel(um.UniXcoderConfig(**SMALL, dtype="float32"),
-                             weights_dir=tmp_path)
+                             weights_dir=tmp_path, device="cpu")
     assert port.loaded_pretrained
     assert port.weights_fingerprint == "unixcoder-pretrained"
     ids, mask = batch(seed=9)
@@ -221,12 +222,13 @@ def test_hf_state_matches_transformers(tmp_path):
 
 def test_missing_checkpoint_falls_back(tmp_path):
     port = um.UniXcoderModel(um.UniXcoderConfig(**SMALL),
-                             weights_dir=tmp_path / "nope")
+                             weights_dir=tmp_path / "nope", device="cpu")
     assert not port.loaded_pretrained
     assert um._read_torch_state(tmp_path) is None
     (tmp_path / "pytorch_model.bin").write_bytes(b"not a checkpoint")
     assert um._read_torch_state(tmp_path) is None
-    port = um.UniXcoderModel(um.UniXcoderConfig(**SMALL), weights_dir=tmp_path)
+    port = um.UniXcoderModel(um.UniXcoderConfig(**SMALL), weights_dir=tmp_path,
+                             device="cpu")
     assert not port.loaded_pretrained
     assert port.weights_fingerprint == "unixcoder-torch-random-seed0"
 
@@ -235,12 +237,12 @@ def test_random_init_fingerprint_and_statistics():
     cfg = um.UniXcoderConfig(vocab_size=4096, hidden_size=256, num_layers=2,
                              num_heads=4, intermediate_size=1024,
                              max_position_embeddings=130)
-    a = um.UniXcoderModel(cfg, seed=3)
+    a = um.UniXcoderModel(cfg, seed=3, device="cpu")
     assert a.weights_fingerprint == "unixcoder-torch-random-seed3"
     assert a.weights_fingerprint != JaxModel(
         JaxConfig(**SMALL), seed=3).weights_fingerprint
-    b = um.UniXcoderModel(cfg, seed=3)
-    c = um.UniXcoderModel(cfg, seed=4)
+    b = um.UniXcoderModel(cfg, seed=3, device="cpu")
+    c = um.UniXcoderModel(cfg, seed=4, device="cpu")
     sa, sb, sc = (m.encoder.state_dict() for m in (a, b, c))
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["layers.0.attention.query.weight"],
@@ -264,7 +266,8 @@ def test_random_init_fingerprint_and_statistics():
 @pytest.mark.parametrize("field", ["fused_qkv", "fused_attention"])
 def test_unported_options_raise(field):
     with pytest.raises(ConfigurationError):
-        um.UniXcoderModel(um.UniXcoderConfig(**SMALL, **{field: True}))
+        um.UniXcoderModel(um.UniXcoderConfig(**SMALL, **{field: True}),
+                          device="cpu")
 
 
 def test_cuda_without_cuda_raises(monkeypatch):

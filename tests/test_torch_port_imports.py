@@ -4,7 +4,8 @@ transformers.
 The machine with the card has none of them. A subprocess blocks their
 import (`sys.modules[name] = None` makes `import name` raise), imports
 `lattice_tpu_torch`, indexes and searches a small CPU store through the
-hash embedder and through a tiny UniXcoder encoder (tokenizer, paired
+hash embedder (every ported plan, and the int4 view in capacity mode) and
+through a tiny UniXcoder encoder (tokenizer, paired
 attention's plain version, the torch module, the provider), and checks
 that no kernel was launched on the CPU and that asking for "cuda" without
 CUDA raises.
@@ -53,9 +54,16 @@ hits = searcher.search_code("drain the delivery queue", limit=3)
 assert len(hits) == 3 and hits[0].name == "DeliveryQueue.drain", hits
 assert searcher.search_lexical("drain the delivery queue")[0].name == \
     "DeliveryQueue.drain"
-for method in ("flat", "quantized", "pallas"):
+for method in ("flat", "quantized", "pallas", "int4", "refined"):
     indexer.code.search_device(torch.from_numpy(emb.embed_batch(texts)), 2,
                                method=method)
+from lattice_tpu_torch.ops.quant import Int4View
+view = Int4View.from_packed(indexer.code._int4.values,
+                            indexer.code._int4.scales)
+s4, i4 = view.search_device(torch.from_numpy(emb.embed_batch(texts)),
+                            indexer.code.device_arrays[1], 2,
+                            dequant_rescore=True)
+assert i4[:, 0].tolist() == list(range(5)), i4
 from lattice_tpu_torch.core.errors import EmbeddingError
 from lattice_tpu_torch.models.unixcoder import UniXcoderConfig, UniXcoderModel
 from lattice_tpu_torch.ops.attention import paired_attention
@@ -75,9 +83,9 @@ else:
     raise AssertionError("a cuda encoder was made without CUDA")
 tiny = UniXcoderModel(UniXcoderConfig(
     vocab_size=512, hidden_size=128, num_layers=1, num_heads=2,
-    intermediate_size=256, max_position_embeddings=130), seed=1)
+    intermediate_size=256, max_position_embeddings=130), seed=1, device="cpu")
 up._get_model = lambda *a, **k: tiny
-uemb = Embedder(up.UniXcoderEmbedder(batch_size=4), batch_size=4)
+uemb = Embedder(up.UniXcoderEmbedder(batch_size=4, device="cpu"), batch_size=4)
 vecs = uemb.embed_with_progress(texts)
 assert isinstance(vecs, torch.Tensor) and vecs.shape == (5, 128), vecs.shape
 assert bool(torch.isfinite(vecs).all())

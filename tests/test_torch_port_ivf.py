@@ -441,7 +441,8 @@ def _clustered_store(n, d, n_clusters=8, seed=0, spread=0.15,
                      cls=ChunkStore, payload=lambda i: {"file_path": f"f{i % 4}.py",
                                                         "entity_type": "function"}):
     x, _ = clustered_data(n, d, n_clusters, seed=seed, spread=spread)
-    s = cls(dim=d, dtype="float32", initial_capacity=n)
+    on_cpu = {"device": "cpu"} if cls is ChunkStore else {}
+    s = cls(dim=d, dtype="float32", initial_capacity=n, **on_cpu)
     s.add(x, [payload(i) for i in range(n)])
     return s, x
 
@@ -506,7 +507,7 @@ def test_store_search_ivf_matches_jax_store(dtype):
 
 
 def test_store_ivf_matches_flat_at_full_probe():
-    s = ChunkStore(dim=32, dtype="float32", initial_capacity=64)
+    s = ChunkStore(dim=32, dtype="float32", initial_capacity=64, device="cpu")
     vecs = _vecs(40, 32, seed=11)
     s.add(vecs, [{"file_path": f"f{i}.py", "content_hash": "h"}
                  for i in range(40)])
@@ -519,7 +520,7 @@ def test_store_ivf_matches_flat_at_full_probe():
 
 
 def test_store_ivf_fresh_on_small_mutation():
-    s = ChunkStore(dim=16, dtype="float32", initial_capacity=32)
+    s = ChunkStore(dim=16, dtype="float32", initial_capacity=32, device="cpu")
     s.add(_vecs(20, 16, seed=13),
           [{"file_path": "a.py", "content_hash": "h"}] * 20)
     s.search_ivf(_vecs(1, 16), k=3)
@@ -532,7 +533,7 @@ def test_store_ivf_fresh_on_small_mutation():
 
 
 def test_store_hollow_ivf_survives_mutations():
-    s = ChunkStore(dim=16, dtype="float32", initial_capacity=64)
+    s = ChunkStore(dim=16, dtype="float32", initial_capacity=64, device="cpu")
     s.add(_vecs(30, 16, seed=27),
           [{"file_path": "a.py", "content_hash": "h"}] * 30)
     s.build_ivf(n_clusters=4)
@@ -688,7 +689,8 @@ class TestPlanTable:
         assert called["n"] == 0
 
     def test_isotropic_corpus_never_auto_ivf(self, cuda):
-        s = ChunkStore(dim=64, dtype="float32", initial_capacity=512)
+        s = ChunkStore(dim=64, dtype="float32", initial_capacity=512,
+                       device="cpu")
         s.add(_vecs(512, 64), [{"file_path": "a.py"}] * 512)
         cuda.setattr(port_cs, "IVF_AUTO_NPROBE", 1)
         assert s._plan_search(4, 10, None, "auto") == "quantized"
@@ -736,8 +738,11 @@ class TestPlanTable:
         called = self._never_build(s, cuda)
         for flag in ("LATTICE_INT4", "LATTICE_PQ", "LATTICE_SHARDED"):
             cuda.setenv(flag, "1")
-            with pytest.raises(NotImplementedError):
-                s._plan_search(256, 10, None, "auto")
+            if flag == "LATTICE_INT4":  # ported: the capacity tier serves
+                assert s._plan_search(4, 10, None, "auto") == "int4"
+            else:
+                with pytest.raises(NotImplementedError):
+                    s._plan_search(256, 10, None, "auto")
             cuda.delenv(flag)
         assert called["n"] == 0
 

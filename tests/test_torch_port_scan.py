@@ -18,6 +18,7 @@ from lattice_tpu.ops import topk as jax_topk
 from lattice_tpu_torch.ops import _build
 from lattice_tpu_torch.ops import attention  # noqa: F401 (paired_attention)
 from lattice_tpu_torch.ops import ivf  # noqa: F401 (registers ivf_probe)
+from lattice_tpu_torch.ops import quant
 from lattice_tpu_torch.ops import scan_topk as scan
 from lattice_tpu_torch.ops import topk as topk_ops
 
@@ -225,11 +226,152 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     t = torch.from_numpy
     scan.binned_topk_int8(t(qv[:3]), t(qs[:3]), t(qv), t(qs),
                           torch.ones(200, dtype=torch.bool), 5)
+    pv, ps = quant.quantize_rows_int4_device(emb)
+    scan.binned_topk_int4(t(qv[:3]), t(qs[:3]), pv, ps,
+                          torch.ones(200, dtype=torch.bool), 5)
     assert _build.launch_counts() == {"scan_topk": 0, "merge_candidates": 0,
-                                      "scan_topk_int8": 0, "ivf_probe": 0,
+                                      "scan_topk_int8": 0,
+                                      "scan_topk_int4": 0, "ivf_probe": 0,
                                       "paired_attention": 0}
     # one registration each, in whatever order the modules were imported
     names = [k.name for k in _build.KERNELS]
     assert sorted(names) == ["ivf_probe", "merge_candidates",
                              "paired_attention", "scan_topk",
-                             "scan_topk_int8"]
+                             "scan_topk_int4", "scan_topk_int8"]
+
+
+# ---- refined, fused and the int8 hoistq chain ---------------------------------
+
+
+def _padded_jax(emb, valid, dtype, tile=128):
+    pe, pv = jax_scan.pad_for_tile(np.asarray(jnp.asarray(emb, dtype)),
+                                   valid, tile)
+    return jnp.asarray(pe), jnp.asarray(pv)
+
+
+@pytest.mark.parametrize("dtype,n,b,k,n_live", [("float32", 1024, 4, 10, None),
+                                                ("bfloat16", 1024, 4, 10, None),
+                                                ("float32", 700, 3, 5, None),
+                                                ("float32", 256, 2, 10, 6)])
+def test_refined_topk_matches_jax(dtype, n, b, k, n_live):
+    """Widened first stage + exact f32 rescore: ids identical to JAX's
+    `refined_topk` in interpret mode, scores within 1e-5; with fewer live
+    rows than the width, padded slots never surface."""
+    rng = np.random.default_rng(n + k)
+    emb = _rows(rng, n, 64)
+    q = _rows(rng, b, 64)
+    valid = np.ones(n, dtype=bool)
+    if n_live is not None:
+        valid[:] = False
+        valid[rng.choice(n, n_live, replace=False)] = True
+    te = torch.from_numpy(emb).to(getattr(torch, dtype))
+    s, i = scan.refined_topk(torch.from_numpy(q), te, torch.from_numpy(valid),
+                             k, widen=16)
+    s, i = s.numpy(), i.numpy()
+    je, jv = _padded_jax(emb, valid, dtype)
+    j_s, j_i = jax_scan.refined_topk(jnp.asarray(q), je, jv, k, widen=16,
+                                     tile=128, interpret=True)
+    j_s, j_i = np.asarray(j_s), np.asarray(j_i)
+    live = j_s > NEG
+    np.testing.assert_array_equal(s > NEG, live)
+    np.testing.assert_array_equal(i[live], j_i[live])
+    np.testing.assert_allclose(s[live], j_s[live], atol=1e-5)
+    assert np.all(valid[i[live]])
+
+
+def test_refined_topk_passes_the_first_stage_through_at_k_above_widen():
+    rng = np.random.default_rng(6)
+    emb = torch.from_numpy(_rows(rng, 512, 32))
+    q = torch.from_numpy(_rows(rng, 2, 32))
+    valid = torch.ones(512, dtype=torch.bool)
+    a = scan.refined_topk(q, emb, valid, 20, widen=16)
+    b = scan.fused_topk(q, emb, valid, 20)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("k", [5, 16, 20])
+def test_refined_topk_normalizes_raw_queries_as_binned_topk(k):
+    """`normalize=True` on raw queries equals the call on normalized ones;
+    below the width (k < 16) the result is `binned_topk`'s."""
+    rng = np.random.default_rng(k)
+    emb = torch.from_numpy(_rows(rng, 600, 32)).to(torch.bfloat16)
+    raw = torch.from_numpy(3.0 * rng.normal(size=(3, 32)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(600) < 0.9)
+    a = scan.refined_topk(raw, emb, valid, k, normalize=True)
+    b = scan.refined_topk(topk_ops.l2_normalize_t(raw), emb, valid, k)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if k < 16:
+        c = scan.binned_topk(raw, emb, valid, k, normalize=True)
+        assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_topk_matches_jax_away_from_ties(dtype):
+    """Kernel A + B at k1 = k against the insertion scan (`_topk_kernel`),
+    whose packed keys resolve scores to ~1e-3: ids identical except where
+    the two scores are within 2e-3."""
+    rng = np.random.default_rng(11)
+    emb = _rows(rng, 1024, 64)
+    q = _rows(rng, 6, 64)
+    valid = rng.random(1024) < 0.9
+    te = torch.from_numpy(emb).to(getattr(torch, dtype))
+    s, i = scan.fused_topk(torch.from_numpy(q), te, torch.from_numpy(valid), 12)
+    s, i = s.numpy(), i.numpy()
+    if dtype == "float32":   # exact at f32 storage
+        np.testing.assert_array_equal(
+            i, topk_ops.topk_oracle(q, emb, valid, 12)[1])
+    je, jv = _padded_jax(emb, valid, dtype)
+    j_s, j_i = jax_scan.fused_topk(jnp.asarray(q), je, jv, 12, tile=128,
+                                   interpret=True)
+    j_s, j_i = np.asarray(j_s), np.asarray(j_i)
+    agree = i == j_i
+    assert agree.mean() >= 0.8   # d=64: many top-12 scores sit within 2e-3
+    assert np.all(np.abs(s - j_s)[~agree] < 2e-3)
+    np.testing.assert_allclose(s, j_s, atol=2e-3)
+
+
+def test_fused_topk_int8_matches_jax_away_from_ties():
+    rng = np.random.default_rng(12)
+    qv, qs = jax_quant.quantize_rows(_rows(rng, 5, 64))
+    ev, es = jax_quant.quantize_rows(_rows(rng, 1024, 64))
+    valid = rng.random(1024) < 0.85
+    s, i = scan.fused_topk_int8(*map(torch.from_numpy, (qv, qs, ev, es,
+                                                        valid)), 10)
+    s, i = s.numpy(), i.numpy()
+    e_s, e_i = jax_quant.int8_topk(*map(jnp.asarray, (qv, qs, ev, es, valid)),
+                                   10)
+    np.testing.assert_array_equal(i, np.asarray(e_i))     # exact int8 scan
+    j_s, j_i = jax_scan.fused_topk_int8(
+        *map(jnp.asarray, (qv, qs, ev, es, valid)), 10, tile=256,
+        interpret=True)
+    j_s, j_i = np.asarray(j_s), np.asarray(j_i)
+    agree = i == j_i
+    assert agree.mean() >= 0.8
+    assert np.all(np.abs(s - j_s)[~agree] < 2e-3)
+
+
+def test_binned_topk_int8_hoistq_is_kernel_c():
+    """Both selection chains of the TPU kernel are kernel C + B here: the
+    same exact list; JAX's hoistq list agrees within its packed keys."""
+    rng = np.random.default_rng(13)
+    qv, qs = jax_quant.quantize_rows(_rows(rng, 4, 64))
+    ev, es = jax_quant.quantize_rows(_rows(rng, 1024, 64))
+    valid = rng.random(1024) < 0.9
+    args = tuple(map(torch.from_numpy, (qv, qs, ev, es, valid)))
+    s_m, i_m = scan.binned_topk_int8(*args, 10)
+    s_h, i_h = scan.binned_topk_int8(*args, 10, selection="hoistq")
+    assert torch.equal(s_m, s_h) and torch.equal(i_m, i_h)
+    with pytest.raises(ValueError):
+        scan.binned_topk_int8(*args, 10, selection="fma")
+    j_s, j_i = jax_scan.binned_topk_int8(
+        *map(jnp.asarray, (qv, qs, ev, es, valid)), 10, tile=256,
+        interpret=True, selection="hoistq")
+    s_h, i_h = s_h.numpy(), i_h.numpy()
+    j_s, j_i = np.asarray(j_s), np.asarray(j_i)
+    for row in range(4):
+        mine = dict(zip(i_h[row].tolist(), s_h[row].tolist()))
+        for c, js_ in zip(j_i[row].tolist(), j_s[row].tolist()):
+            if js_ > s_h[row, -1] + 2e-3:
+                assert c in mine
+            if c in mine:
+                assert abs(mine[c] - js_) < 2e-3
