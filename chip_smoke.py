@@ -29,6 +29,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (bf16) / 1e-4 (f32), all finite; moving the masked keys and values by
    +-100 changes no row with a live key by more than 1e-6. The same at
    ragged (B, L, H) in {(3, 8, 2), (3, 100, 2), (5, 333, 4)}.
+   `score_probe` at every type and mode on 64 queries x 262,144 rows (+ a
+   ragged tail of 100) x 768 at tiles 2048 and 8192, and 16 x 4,133 x 100
+   at tile 256: int8 and int4 bit-equal, bf16 rawmax within 1e-4, bf16
+   pack within one score step of the key and equal on >= 99.9% of bins.
 3a. The flat-tier path: 1,048,576 x 768 rows around 1024 centers at
    spread 0.35 (`bench.py`'s headline corpus, near-isotropic: the noise
    norm is ~9.7x the center's), from a seed, through `VectorIndexer` ->
@@ -52,6 +56,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 4d. Timings: "int4" and "refined" QPS at B=256 and p50 at B=1; kernel D
    at B in {1, 256} beside its plain version, its bound and the bare int8
    product; kernel D (and C) at B=256 by list length, k1 in {16, 80, 512}.
+3f. The dissection path on the same store, its int8 and int4 views and
+   the 256 queries (`lattice_tpu_torch/tools/dissect.py`): `score_probe`
+   at every (type, mode, tile) the round-2 scripts timed, each held to its
+   plain version as in phase 2 on the same inputs; kernels A, C and
+   D at k1 in {16, 80} beside their floors (the selection share is scan ms
+   minus probe ms over scan ms); the library product of each type;
+   `binned_topk` at B in {8, 32, 64, 128, 256}; one device-trace summary
+   (torch.profiler) each of a "quantized", an "int4" and a forced
+   "refined" `search_device` call. The store is freed after it.
 3b. The IVF path, after the first store is freed: a second 1,048,576 x 768
    store at spread 0.06 from the same centers (`bench.py`'s clustered
    corpus), with payloads. The first B=1 text query builds the IVF
@@ -74,7 +87,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    information-bound). Then, with the launch counts read, kernels D + B
    against their plain versions on all 1,024 of these queries at both
    widths the path ran (k1 = 16 and 80): ids identical, scores bit-equal.
-   4e. Its QPS in both modes and kernel D at B=1024.
+   4e. Its QPS in both modes, kernel D at B=1024 and the int4 probe beside
+   it (its floor), the probe equal to its plain version on these inputs.
 3c. The encoder path, after the capacity view is freed: the UniXcoder
    encoder at `UniXcoderConfig()` (12 x 768, 12 heads, FFN 3072, vocab
    51416), random weights from seed 0, on the card. The corpus is this
@@ -94,8 +108,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    device-resident ids (CUDA events) with the achieved TFLOP/s, the host
    tokenizer per batch, B=1 query encode and `search_code` p50 (host
    clock), `paired_attention` beside its plain version at B=128, L=512.
-Launch counts are zeroed just before each of 3a, 3d, 3b, 3e and 3c and
-read just after it; each path's kernels, and every registered kernel, must
+Launch counts are zeroed just before each of 3a, 3d, 3f, 3b, 3e and 3c
+and read just after it; each path's kernels, and every registered kernel, must
 have launched.
 
 The line before the last is the kernel table as JSON: per kernel its
@@ -120,6 +134,11 @@ from pathlib import Path
 
 import torch
 
+from lattice_tpu_torch.ops.topk import l2_normalize_t as normalize
+from lattice_tpu_torch.tools.dissect import (bound, cluster_centers,
+                                             cluster_rows, cuda_ms,
+                                             scan_bound)
+
 SEED = 0
 N_ROWS = 1 << 20
 CAP_ROWS = 1 << 22     # the capacity tier: 4,194,304 rows
@@ -128,9 +147,8 @@ CAP_BATCH = 1024
 CAP_TRUTH = 256        # queries scored exactly at 4M
 CAP_MEMORY = 3e9       # bytes allocated at capacity search time
 INT4_RECALL_MIN = 0.98
-# the H100's published rates (SXM, dense): bytes/s and operations/s
-H100_BYTES_S = 3.35e12
-H100_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PROBE_ROWS = 1 << 18   # the probe's check: 262,144 rows (+ a ragged tail)
+PROBE_QUERIES = 64
 DIM = 768
 N_CLUSTERS = 1024
 SPREAD = 0.35          # the near-isotropic corpus: IVF must refuse it
@@ -161,42 +179,7 @@ def require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of `fn()` in ms over `iters` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 # ---- data -------------------------------------------------------------------
-
-
-def normalize(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
-                           min=1e-12)
-
-
-def cluster_centers(gen: torch.Generator) -> torch.Tensor:
-    return normalize(torch.randn(N_CLUSTERS, DIM, device="cuda",
-                                 generator=gen))
-
-
-def cluster_rows(centers: torch.Tensor, n: int, gen: torch.Generator,
-                 spread: float = SPREAD) -> torch.Tensor:
-    """Rows around bf16 cluster centers with Gaussian spread, normalized
-    (the bench's `gen_block`)."""
-    assign = torch.randint(0, N_CLUSTERS, (n,), device="cuda", generator=gen)
-    base = centers.to(torch.bfloat16).to(torch.float32)[assign]
-    return normalize(base + spread * torch.randn(n, DIM, device="cuda",
-                                                 generator=gen))
 
 
 _SYL = ("ba", "co", "de", "fi", "gu", "ka", "lo", "mi", "no", "pe", "ra",
@@ -246,27 +229,6 @@ def exact_topk(q: torch.Tensor, emb: torch.Tensor, valid: torch.Tensor,
 def recall(got: torch.Tensor, truth: torch.Tensor) -> float:
     hit = (got[:, :, None] == truth[:, None, :]).any(-1).sum().item()
     return hit / truth.numel()
-
-
-def bound(n_bytes: float, ops: float, kind: str) -> tuple[float, str]:
-    """The least time (ms) the card could take: bytes moved once over its
-    memory rate, or operations over its dense peak for `kind`."""
-    by_bytes = n_bytes / H100_BYTES_S * 1e3
-    by_ops = ops / H100_OPS_S[kind] * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
-
-
-def scan_bound(n: int, d: int, b: int, k1: int, row_bytes: float,
-               kind: str) -> tuple[float, str]:
-    """A flat scan of n rows of `row_bytes` each (plus the row's 1-byte
-    validity, and a 4-byte scale for the quantized kinds) against b f32
-    or int8 queries, writing [b, k1] f32 scores and i32 ids; 2 b n d
-    operations."""
-    scale = 4 if kind == "int8" else 0
-    q_bytes = b * d * (1 if kind == "int8" else 4) + b * scale
-    return bound(n * (row_bytes + scale + 1) + q_bytes + b * k1 * 8,
-                 2 * b * n * d, kind)
 
 
 def kernel_row(ms: float, plain_ms: float, bnd: tuple[float, str],
@@ -521,6 +483,45 @@ def phase_attention_kernel(err: dict) -> None:
         err["paired_attention"] = max(err["paired_attention"], worst)
         log(f"kernels ok: paired_attention {dtype} (B, L, H) in {ragged}, "
             f"max abs error {worst:.3g}")
+
+
+def phase_probe_kernel(err: dict) -> None:
+    """`score_probe` against its plain version on the card, at every type
+    and mode, by `dissect.check_probe`: 64 queries x 262,144 + 100 rows x
+    768 at tiles 2048 and 8192 (the 100 tail rows must be dropped), and 16
+    queries x 4,133 rows x 100 at tile 256 (scalar loads, a partial query
+    tile). int8 and int4 bit-equal (exact integer sums); bf16 rawmax within
+    1e-4, as kernel A's scores are held; bf16 pack within one score step of
+    the key and equal on >= 99.9% of bins. The dissection path holds the
+    probe again at its own shapes (several tiles per block, four query
+    blocks), and the capacity timings at 4M x 768, B=1024."""
+    from lattice_tpu_torch.ops import probe, quant
+    from lattice_tpu_torch.tools.dissect import check_probe
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for b, n, d, tiles in ((PROBE_QUERIES, PROBE_ROWS + 100, DIM,
+                            (2048, 8192)), (16, 4133, 100, (256,))):
+        emb = normalize(torch.randn(n, d, device="cuda", generator=gen)
+                        ).to(torch.bfloat16)
+        q = normalize(torch.randn(b, d, device="cuda", generator=gen))
+        qv, _ = quant.quantize_rows_device(q)
+        cases = (("bf16", q, emb),
+                 ("int8", qv, quant.quantize_rows_device(emb)[0]),
+                 ("int4", qv, quant.quantize_rows_int4_device(emb)[0]))
+        for tile in tiles:
+            for kind, qq, rows in cases:
+                for mode in ("rawmax",) if kind == "int4" else probe.MODES:
+                    out = probe.score_probe(qq, rows, tile=tile, mode=mode)
+                    torch.cuda.synchronize()
+                    ref = probe.score_probe_plain(qq, rows, tile=tile,
+                                                  mode=mode)
+                    where = f"{kind} {mode} B={b} N={n} d={d} tile={tile}"
+                    require(out.shape == (b, n // tile * 128),
+                            f"score_probe: shape {tuple(out.shape)} {where}")
+                    e, same = check_probe(out, ref, kind, mode, tile, where)
+                    if mode == "rawmax":
+                        err["score_probe"] = max(err["score_probe"], e)
+                    log(f"kernels ok: score_probe {where}: max abs error "
+                        f"{e:.3g}, {same:.6f} of bins equal")
 
 
 def repo_chunks() -> tuple[list[str], list[dict]]:
@@ -845,7 +846,7 @@ def phase_main_path(ctx: dict) -> None:
     from lattice_tpu_torch.index.chunk_store import name_token_set
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    centers = cluster_centers(gen)
+    centers = cluster_centers(gen, N_CLUSTERS, DIM)
     ctx["centers"], ctx["gen"] = centers, gen
     indexer, store = index_store(centers, gen, SPREAD)
     searcher = VectorSearcher(indexer)
@@ -1192,13 +1193,26 @@ def phase_int4_timings(ctx: dict, kernels_ms: dict, smi: str) -> None:
         in sweep.items()) + f" ({smi})")
 
 
+def phase_dissect_path(ctx: dict) -> None:
+    """3f: the dissection path on corpus A's store, its int8 and int4 views
+    and the path's 256 queries (`tools/dissect.py`): every probe the
+    round-2 scripts timed, kernels A, C and D at k1 = 16 and 80 beside
+    their floors, the library products, `binned_topk` by batch, and a
+    device-trace summary of a "quantized", an "int4" and a forced "refined"
+    `search_device` call."""
+    from lattice_tpu_torch.tools import dissect
+    ctx["dissect"] = dissect.dissect(
+        ctx["store"], ctx["queries"],
+        str(Path(__file__).resolve().parent / "build" / "traces"), log)
+
+
 def phase_capacity_path(ctx: dict) -> None:
     """3e: 4,194,304 x 768 rows held only as packed int4 (the bench's
     capacity cell), served at B=1024."""
     from lattice_tpu_torch.ops import quant, scan_topk as scan
     from lattice_tpu_torch.ops import topk as topk_ops
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    centers = cluster_centers(gen)
+    centers = cluster_centers(gen, N_CLUSTERS, DIM)
     q = cluster_rows(centers, CAP_BATCH, gen)
     q_truth = q[:CAP_TRUTH]
     packed = torch.empty((CAP_ROWS, DIM // 2), dtype=torch.int8,
@@ -1314,6 +1328,8 @@ def phase_capacity_timings(ctx: dict, smi: str) -> None:
     log(f"kernel scan_topk_int4 B={CAP_BATCH} N={view.n} d={DIM} k1={k1}: "
         f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} ms "
         f"({bnd[1]}) ({smi})")
+    from lattice_tpu_torch.tools import dissect
+    ctx["capacity_probe"] = dissect.capacity_probe(view, q, log)
 
 
 def p50_ms(fn, n: int = 50) -> float:
@@ -1380,12 +1396,14 @@ def main() -> int:
         return 1
     name, smi = phase_device()
     # every module that registers a kernel
-    from lattice_tpu_torch.ops import _build, attention, ivf  # noqa: F401
+    from lattice_tpu_torch.ops import (_build, attention,  # noqa: F401
+                                       ivf, probe)
     t_start = time.perf_counter()
     err = {k.name: 0.0 for k in _build.KERNELS}
     phase_kernels(err)
     phase_ivf_kernels(err)
     phase_attention_kernel(err)
+    phase_probe_kernel(err)
 
     ctx: dict = {}
     kernels_ms: dict = {}
@@ -1395,6 +1413,9 @@ def main() -> int:
              ("scan_topk", "scan_topk_int8", "merge_candidates")),
             ("int4 tier", phase_int4_path,
              ("scan_topk_int4", "merge_candidates", "scan_topk")),
+            ("dissection", phase_dissect_path,
+             ("score_probe", "scan_topk", "scan_topk_int8",
+              "scan_topk_int4")),
             ("ivf", phase_ivf_path,
              ("ivf_probe", "merge_candidates", "scan_topk_int8")),
             ("capacity", phase_capacity_path,
@@ -1413,6 +1434,16 @@ def main() -> int:
             phase_timings(ctx, kernels_ms)
         elif path == "int4 tier":
             phase_int4_timings(ctx, kernels_ms, smi)
+        elif path == "dissection":
+            rep = ctx.pop("dissect")
+            floor = rep["probes"]["bf16_rawmax_t2048"]
+            err["score_probe"] = max([err["score_probe"]] + [
+                r["max_abs_err"] for case, r in rep["probes"].items()
+                if "_rawmax_" in case])
+            kernels_ms["score_probe"] = kernel_row(
+                floor["ms"], floor["plain_ms"],
+                (floor["bound_ms"], floor["bound_by"]), None,
+                rep["library"]["bf16"])
             # free the first store before the second is built
             del ctx["store"], ctx["indexer"], ctx["queries"]
             gc.collect()

@@ -59,243 +59,19 @@
 // tiles before it stores any of them (6-15% faster than one load at a
 // time on an H100). Even so the scans read rows at about half the card's
 // bandwidth at B=1. No double buffering, TMA or wgmma yet: simple and
-// exact first.
+// exact first. The loads and products of a row tile are `score_tile`
+// (scan_tile.cuh), which the score-floor probe (score_probe.cu) runs too,
+// so a scan's time minus its probe's is what its selection costs.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
+#include "scan_tile.cuh"
 #include "topk_select.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64;          // queries per block
 constexpr int BQ_LONG = 32;     // queries per block of kernel D past MAX_K1
-constexpr int BN = 128;         // rows per tile
-constexpr int THREADS = 128;    // 4 warps
-constexpr int SC_LD = BN + 4;   // score tile row stride (floats)
-
-constexpr int MODE_BF16 = 0;
-constexpr int MODE_F32 = 1;
-constexpr int MODE_I8 = 2;
-constexpr int MODE_I4 = 3;
-
-template <int MODE> struct Cfg;
-template <> struct Cfg<MODE_BF16> {
-  using T = __nv_bfloat16; using Q = float; using Acc = float;
-  static constexpr int BK = 64;
-};
-template <> struct Cfg<MODE_F32> {
-  using T = float; using Q = float; using Acc = float;
-  static constexpr int BK = 32;
-};
-template <> struct Cfg<MODE_I8> {
-  using T = signed char; using Q = signed char; using Acc = int;
-  static constexpr int BK = 64;
-};
-// int4: E holds packed bytes; the tiles in shared memory hold the unpacked
-// int8 values, 64 dims (32 packed bytes of each row) per k step
-template <> struct Cfg<MODE_I4> {
-  using T = signed char; using Q = signed char; using Acc = int;
-  static constexpr int BK = 64;
-};
-
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16_rn(0.f);
-}
-template <> __device__ __forceinline__ signed char zero<signed char>() {
-  return 0;
-}
-
-// Tiles land in shared memory k-block-major, dst[BK/16][R][16]: each
-// 16-wide k block of 16 rows is one contiguous, 32-byte aligned wmma
-// operand. Out-of-range elements are 0, which adds nothing to a dot
-// product.
-__device__ __forceinline__ int kmajor(int R, int r, int kk) {
-  return ((kk >> 4) * R + r) * 16 + (kk & 15);
-}
-
-// Rows [r0, r0 + R) x columns [k0, k0 + BK) of a row-major [*, d] matrix
-// of S, in 16-byte units U held in registers: `fetch` issues every load
-// of a thread's units before any is used, so each thread keeps PER loads
-// in flight. Needs d % (16 / sizeof(S)) == 0 and 16-byte alignment.
-template <typename S, typename U, int R, int BK>
-struct TileRegs {
-  static constexpr int VE = sizeof(U) / sizeof(S);  // elements per unit
-  static constexpr int UPR = BK / VE;               // units per tile row
-  static constexpr int PER = R * UPR / THREADS;     // units per thread
-  static_assert(R * UPR % THREADS == 0, "tile must split over the block");
-  U v[PER];
-
-  __device__ __forceinline__ int row(int j) const {
-    return (threadIdx.x + j * THREADS) / UPR;
-  }
-  __device__ __forceinline__ int kk(int j) const {
-    return (threadIdx.x + j * THREADS) % UPR * VE;
-  }
-  __device__ __forceinline__ void fetch(const S* src, int r0, int r_end,
-                                        int k0, int d) {
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int r = r0 + row(j), k = k0 + kk(j);
-      v[j] = U{};
-      if (r < r_end && k < d)
-        v[j] = __ldg(reinterpret_cast<const U*>(src + (size_t)r * d + k));
-    }
-  }
-  // 16-byte units stored as they are (rows of the row type, int8 queries)
-  template <typename T>
-  __device__ __forceinline__ void store(T* dst) const {
-#pragma unroll
-    for (int j = 0; j < PER; ++j)
-      *reinterpret_cast<U*>(dst + kmajor(R, row(j), kk(j))) = v[j];
-  }
-  // f32 queries cast to bf16 (round to nearest even, as torch and XLA
-  // cast), four elements per unit
-  __device__ __forceinline__ void store_bf16(__nv_bfloat16* dst) const {
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      __nv_bfloat162* out =
-          reinterpret_cast<__nv_bfloat162*>(dst + kmajor(R, row(j), kk(j)));
-      out[0] = __floats2bfloat162_rn(v[j].x, v[j].y);
-      out[1] = __floats2bfloat162_rn(v[j].z, v[j].w);
-    }
-  }
-};
-
-// The same tile one element at a time, for widths no vector unit divides.
-template <typename T, int R, int BK>
-__device__ void load_kmajor_scalar(T* dst, const T* src, int r0, int r_end,
-                                   int k0, int d) {
-  for (int e = threadIdx.x; e < R * BK; e += THREADS) {
-    int r = e / BK, kk = e % BK, k = k0 + kk;
-    dst[kmajor(R, r, kk)] =
-        (r0 + r < r_end && k < d) ? src[(size_t)(r0 + r) * d + k] : zero<T>();
-  }
-}
-
-template <int BQ_, int BK>
-__device__ void load_q_bf16_scalar(__nv_bfloat16* dst, const float* q, int q0,
-                                   int B, int k0, int d) {
-  for (int e = threadIdx.x; e < BQ_ * BK; e += THREADS) {
-    int r = e / BK, kk = e % BK, k = k0 + kk;
-    float v = (q0 + r < B && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
-    dst[kmajor(BQ_, r, kk)] = __float2bfloat16_rn(v);
-  }
-}
-
-// Row-major [R][BK + 1] f32 tile for the FMA path.
-template <int R, int BK>
-__device__ void load_rowmajor_f32(float* dst, const float* src, int r0,
-                                  int r_end, int k0, int d) {
-  for (int e = threadIdx.x; e < R * BK; e += THREADS) {
-    int r = e / BK, kk = e % BK, k = k0 + kk;
-    dst[r * (BK + 1) + kk] =
-        (r0 + r < r_end && k < d) ? src[(size_t)(r0 + r) * d + k] : 0.f;
-  }
-}
-
-// Four packed int4 bytes -> their low-nibble values ((b & 0xF) - 8) and
-// high-nibble values (b >> 4, sign-extended), four int8 per word each.
-__device__ __forceinline__ void unpack4(unsigned w, unsigned& lo,
-                                        unsigned& hi) {
-  lo = __vsub4(w & 0x0F0F0F0Fu, 0x08080808u);
-  hi = __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-
-// One k step of kernel D: packed columns [c0, c0 + 32) of rows [r0, r_end)
-// of E [*, dh] unpacked into the k-major int8 tile dst[BN rows][64]: low
-// nibbles at kk in [0, 32), high nibbles at [32, 64); and the matching
-// query columns [c0, c0 + 32) and [dh + c0, dh + c0 + 32) of q [*, 2 dh]
-// into Qs. Out-of-range values are 0 (not the unpacked 0 byte, which is
-// -8). `vec`: 16-byte units, needs dh % 16 == 0 and 16-byte alignment;
-// every thread starts all of its loads before it stores any.
-template <int BQ_>
-__device__ __forceinline__ void load_int4_step(
-    signed char* Qs, signed char* Es, const signed char* q,
-    const signed char* e, int q0, int B, int r0, int r_end, int c0, int dh,
-    int vec) {
-  const int d = 2 * dh;
-  if (vec) {
-    constexpr int QU = BQ_ * 4 / THREADS;   // query units per thread
-    constexpr int EU = BN * 2 / THREADS;    // packed row units per thread
-    uint4 qv[QU], ev[EU];
-#pragma unroll
-    for (int j = 0; j < QU; ++j) {
-      const int u = threadIdx.x + j * THREADS, r = u >> 2, part = u & 3;
-      const int c = c0 + 16 * (part & 1);
-      qv[j] = uint4{};
-      if (q0 + r < B && c < dh)
-        qv[j] = __ldg(reinterpret_cast<const uint4*>(
-            q + (size_t)(q0 + r) * d + (part >> 1) * dh + c));
-    }
-#pragma unroll
-    for (int j = 0; j < EU; ++j) {
-      const int u = threadIdx.x + j * THREADS, r = u >> 1, part = u & 1;
-      const int c = c0 + 16 * part;
-      ev[j] = uint4{};
-      if (r0 + r < r_end && c < dh)
-        ev[j] = __ldg(reinterpret_cast<const uint4*>(
-            e + (size_t)(r0 + r) * dh + c));
-    }
-#pragma unroll
-    for (int j = 0; j < QU; ++j) {
-      const int u = threadIdx.x + j * THREADS, r = u >> 2, part = u & 3;
-      *reinterpret_cast<uint4*>(Qs + kmajor(BQ_, r, 16 * part)) = qv[j];
-    }
-#pragma unroll
-    for (int j = 0; j < EU; ++j) {
-      const int u = threadIdx.x + j * THREADS, r = u >> 1, part = u & 1;
-      const bool in = r0 + r < r_end && c0 + 16 * part < dh;
-      uint4 lo, hi;
-      unpack4(ev[j].x, lo.x, hi.x);
-      unpack4(ev[j].y, lo.y, hi.y);
-      unpack4(ev[j].z, lo.z, hi.z);
-      unpack4(ev[j].w, lo.w, hi.w);
-      if (!in) lo = hi = uint4{};
-      *reinterpret_cast<uint4*>(Es + kmajor(BN, r, 16 * part)) = lo;
-      *reinterpret_cast<uint4*>(Es + kmajor(BN, r, 32 + 16 * part)) = hi;
-    }
-  } else {
-    for (int i = threadIdx.x; i < BQ_ * 64; i += THREADS) {
-      const int r = i / 64, kk = i % 64, c = c0 + (kk & 31);
-      Qs[kmajor(BQ_, r, kk)] =
-          (q0 + r < B && c < dh)
-              ? q[(size_t)(q0 + r) * d + (kk >> 5) * dh + c]
-              : (signed char)0;
-    }
-    for (int i = threadIdx.x; i < BN * 32; i += THREADS) {
-      const int r = i / 32, j = i % 32, c = c0 + j;
-      signed char lo = 0, hi = 0;
-      if (r0 + r < r_end && c < dh) {
-        const int b = e[(size_t)(r0 + r) * dh + c];
-        lo = (signed char)((b & 0xF) - 8);
-        hi = (signed char)(b >> 4);
-      }
-      Es[kmajor(BN, r, j)] = lo;
-      Es[kmajor(BN, r, 32 + j)] = hi;
-    }
-  }
-}
-
-__host__ __device__ constexpr size_t round_up(size_t x) {
-  return (x + 127) / 128 * 128;
-}
-
-template <int MODE, int BQ_>
-__host__ __device__ constexpr size_t tile_bytes() {
-  using C = Cfg<MODE>;
-  return MODE == MODE_F32
-             ? round_up(BQ_ * (C::BK + 1) * 4) + round_up(BN * (C::BK + 1) * 4)
-             : round_up(BQ_ * C::BK * sizeof(typename C::T)) +
-                   round_up(BN * C::BK * sizeof(typename C::T));
-}
 
 template <int MODE, int BQ_>
 size_t scan_smem_bytes(int k1) {
@@ -307,7 +83,7 @@ size_t scan_smem_bytes(int k1) {
 
 // BQ_ queries per block; lists of at most KMAX entries
 template <int MODE, int BQ_, int KMAX>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __maxnreg__((SCAN_REGS<MODE, BQ_>))
 scan_topk_kernel(const typename Cfg<MODE>::Q* __restrict__ q,
                  const float* __restrict__ qs,
                  const typename Cfg<MODE>::T* __restrict__ e,
@@ -328,15 +104,13 @@ scan_topk_kernel(const typename Cfg<MODE>::Q* __restrict__ q,
 
   unsigned char* p = smem;
   T* Qs = reinterpret_cast<T*>(p);
-  float* Qf = reinterpret_cast<float*>(p);
   p += MODE == MODE_F32 ? round_up(BQ * (BK + 1) * 4)
                         : round_up(BQ * BK * sizeof(T));
   T* Es = reinterpret_cast<T*>(p);
-  float* Ef = reinterpret_cast<float*>(p);
   p += MODE == MODE_F32 ? round_up(BN * (BK + 1) * 4)
                         : round_up(BN * BK * sizeof(T));
   float* Sc = reinterpret_cast<float*>(p);
-  int* Sci = reinterpret_cast<int*>(p);
+  const int* Sci = reinterpret_cast<const int*>(p);
   p += round_up(BQ * SC_LD * 4);
   float* esc = reinterpret_cast<float*>(p);
   p += round_up(BN * 4);
@@ -363,104 +137,7 @@ scan_topk_kernel(const typename Cfg<MODE>::Q* __restrict__ q,
       if (INT) esc[c] = row < chunk_hi ? es[row] : 0.f;
     }
 
-    if constexpr (MODE == MODE_F32) {
-      // CUDA-core FMA: thread (ty, tx) owns queries ty + 8i, rows tx + 16j
-      const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < d; k0 += BK) {
-        load_rowmajor_f32<BQ, BK>(Qf, q, q0, B, k0, d);
-        load_rowmajor_f32<BN, BK>(Ef, e, row0, chunk_hi, k0, d);
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < BK; ++kk) {
-          float a[8], b[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = Qf[(ty + 8 * i) * (BK + 1) + kk];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) b[j] = Ef[(tx + 16 * j) * (BK + 1) + kk];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          Sc[(ty + 8 * i) * SC_LD + tx + 16 * j] = acc[i][j];
-    } else {
-      // tensor cores: warp w owns queries [WQ*(w>>1), +WQ) x rows
-      // [64*(w&1), +64) of the tile, WQ/16 x 4 fragments of 16 x 16
-      using FA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>;
-      using FB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major>;
-      using FC = wmma::fragment<wmma::accumulator, 16, 16, 16, typename C::Acc>;
-      // 16-byte unit of the query rows: four f32 (cast to bf16 in shared
-      // memory) or sixteen int8
-      using QUnit = std::conditional_t<MODE == MODE_BF16, float4, uint4>;
-      constexpr int WQ = BQ / 2, FQ = WQ / 16;
-      const int wq = (warp >> 1) * WQ, wn = (warp & 1) * 64;
-      FC acc[FQ][4];
-#pragma unroll
-      for (int i = 0; i < FQ; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0);
-      for (int k0 = 0; k0 < d; k0 += BK) {
-        if constexpr (MODE == MODE_I4) {
-          load_int4_step<BQ>(Qs, Es, q, e, q0, B, row0, chunk_hi, k0 / 2,
-                             d / 2, vec);
-        } else if (vec) {  // both tiles' loads in flight before either is stored
-          TileRegs<typename C::Q, QUnit, BQ, BK> qt;
-          TileRegs<T, uint4, BN, BK> et;
-          qt.fetch(q, q0, B, k0, d);
-          et.fetch(e, row0, chunk_hi, k0, d);
-          if constexpr (MODE == MODE_BF16)
-            qt.store_bf16(Qs);
-          else
-            qt.store(Qs);
-          et.store(Es);
-        } else {
-          if constexpr (MODE == MODE_BF16)
-            load_q_bf16_scalar<BQ, BK>(Qs, q, q0, B, k0, d);
-          else
-            load_kmajor_scalar<T, BQ, BK>(Qs, q, q0, B, k0, d);
-          load_kmajor_scalar<T, BN, BK>(Es, e, row0, chunk_hi, k0, d);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kb = 0; kb < BK / 16; ++kb) {
-          FA a[FQ];
-#pragma unroll
-          for (int i = 0; i < FQ; ++i)
-            wmma::load_matrix_sync(a[i], Qs + (kb * BQ + wq + 16 * i) * 16, 16);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            FB b;
-            wmma::load_matrix_sync(b, Es + (kb * BN + wn + 16 * j) * 16, 16);
-#pragma unroll
-            for (int i = 0; i < FQ; ++i)
-              wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < FQ; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if constexpr (INT)
-            wmma::store_matrix_sync(Sci + (wq + 16 * i) * SC_LD + wn + 16 * j,
-                                    acc[i][j], SC_LD, wmma::mem_row_major);
-          else
-            wmma::store_matrix_sync(Sc + (wq + 16 * i) * SC_LD + wn + 16 * j,
-                                    acc[i][j], SC_LD, wmma::mem_row_major);
-        }
-    }
+    score_tile<MODE, BQ>(q, e, Qs, Es, Sc, q0, B, row0, chunk_hi, d, vec);
     __syncthreads();
 
     // selection: warp w folds queries [w BQ/4, (w + 1) BQ/4) of the tile

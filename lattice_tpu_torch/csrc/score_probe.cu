@@ -1,0 +1,222 @@
+// Score-floor probe for Hopper (sm_90a), plain C interface.
+//
+// score_probe replaces the dissection kernels of the round-2 scripts:
+// `make_probe.kern` (scripts/r2_tpu_experiments3.py:106, bf16),
+// `make_int4_probe.kern` (r2_tpu_experiments4.py:121) and
+// `make_probe.kern_bf16` / `kern_int8` / `kern_int4`
+// (r2_tpu_experiments6.py:109, :120, :132). Each computes a scan's product
+// and then only a max over 128 strided bins of each row tile, with no
+// running top-k: its time is the floor of a scan kernel with the selection
+// taken out. For queries [B, d] and rows [N, d] (packed [N, d/2] for int4),
+// tiles of `tile` rows and t < N / tile (trailing rows dropped),
+//   out[b, t*128 + j] = max over i < tile/128 of v(b, t*tile + i*128 + j)
+// where v is, by type and mode:
+// - bf16 rows, f32 queries cast to bf16, f32 sums: the score ("rawmax"),
+//   or the packed key (bits(s + 2.0f) & ~0xFFF) | (i*128 + j) ("pack",
+//   `pallas_topk._pack_keys_fast` at its default shift 12, also at tile
+//   8192 where the column reaches bit 12, as the scripts ran it);
+// - int8 rows and queries: the i32 sum as f32 with no scales, or its key;
+// - int4: q[:, :d/2] . lo + q[:, d/2:] . hi in i32 with the scripts'
+//   unpack lo = ((b & 0xF) ^ 8) - 8, hi = b >> 4. `quantize_rows_int4`
+//   stores lo + 8, so on its bytes this is not the view's dot product: a
+//   quirk of the reference, kept so that the floor does the scripts' work.
+// Keys and i32 sums are maxed as i32 and written as f32 rounded to nearest
+// (`.astype(f32)`), rawmax scores as they are.
+//
+// What bounds it on the H100 is what bounds the scan of its type: one pass
+// over the rows (1.61 GB of bf16, 0.81 GB of int8, 0.40 GB of packed int4
+// at 1M x 768) and, at B=256, 403 G products (0.41 ms at 989 TFLOP/s in
+// bf16, 0.20 ms at 1,979 TOP/s in int8); the [B, N/tile * 128] f32 output
+// adds 67 MB at tile 2048. Design: the same blocks, loads and wmma
+// products as kernels A, C and D (`score_tile`, scan_tile.cuh), so that a
+// scan's time minus its probe's is what its selection costs. A block owns
+// 64 queries and a run of whole probe tiles; each warp maxes its own
+// fragments of a row tile's scores into the running bin max it keeps in
+// the shared score tile (a wmma load, an element-wise max, a store: the
+// accumulator layout is the same on both sides, so no element needs its
+// position), and the block writes [64, 128] once per probe tile. In pack
+// mode a fragment element only knows its row tile i, so the running max
+// holds (key bits) | (i << 7) and the column j joins at the write:
+// max over i of (a_i | j) = (max over i of a_i) | j when no a_i has a bit
+// below 7.
+
+#include <climits>
+
+#include "scan_tile.cuh"
+
+namespace {
+
+// (bits(s + 2) with the low 12 bits cleared) | (i << 7): a packed key
+// without its column j
+__device__ __forceinline__ int key_of(float s, int i) {
+  return (__float_as_int(__fadd_rn(s, 2.f)) & ~0xFFF) | (i << 7);
+}
+
+// The probe's epilogue: fold row tile i's fragments into the running max
+// held in Sc (f32 scores, or i32 keys and sums; bf16 keys as f32 bits).
+template <bool PACK>
+struct FoldMax {
+  int i;
+  __device__ __forceinline__ void operator()(const FragF& acc, float* Sc,
+                                             int off) const {
+    FragF mx;
+    wmma::load_matrix_sync(mx, Sc + off, SC_LD, wmma::mem_row_major);
+#pragma unroll
+    for (int t = 0; t < mx.num_elements; ++t)
+      mx.x[t] = PACK ? __int_as_float(max(__float_as_int(mx.x[t]),
+                                          key_of(acc.x[t], i)))
+                     : fmaxf(mx.x[t], acc.x[t]);
+    wmma::store_matrix_sync(Sc + off, mx, SC_LD, wmma::mem_row_major);
+  }
+  __device__ __forceinline__ void operator()(const FragI& acc, float* Sc,
+                                             int off) const {
+    int* S = reinterpret_cast<int*>(Sc) + off;
+    FragI mx;
+    wmma::load_matrix_sync(mx, S, SC_LD, wmma::mem_row_major);
+#pragma unroll
+    for (int t = 0; t < mx.num_elements; ++t)
+      mx.x[t] = max(mx.x[t], PACK ? key_of(__int2float_rn(acc.x[t]), i)
+                                  : acc.x[t]);
+    wmma::store_matrix_sync(S, mx, SC_LD, wmma::mem_row_major);
+  }
+};
+
+template <int MODE>
+size_t probe_smem_bytes() {
+  return tile_bytes<MODE, BQ>() + round_up(BQ * SC_LD * 4);
+}
+
+// The probe's blocks: each owns 64 queries and the probe tiles
+// [tiles_per_chunk * blockIdx.x, ...) of n_tiles.
+template <int MODE, bool PACK>
+__device__ __forceinline__ void probe_tiles(
+    const typename Cfg<MODE>::Q* __restrict__ q,
+    const typename Cfg<MODE>::T* __restrict__ e, int B, int d, int tile,
+    int n_tiles, int tiles_per_chunk, int vec, float* __restrict__ out) {
+  using T = typename Cfg<MODE>::T;
+  // the running max is i32 (keys, integer sums) or f32 (bf16 rawmax)
+  constexpr bool IMAX = PACK || MODE != MODE_BF16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Es =
+      reinterpret_cast<T*>(smem + round_up(BQ * Cfg<MODE>::BK * sizeof(T)));
+  float* Sc = reinterpret_cast<float*>(smem + tile_bytes<MODE, BQ>());
+  int* Sci = reinterpret_cast<int*>(Sc);
+  const int q0 = blockIdx.y * BQ;
+  const int t_lo = blockIdx.x * tiles_per_chunk;
+  const int t_hi = min(t_lo + tiles_per_chunk, n_tiles);
+  const size_t out_ld = (size_t)n_tiles * BN;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    for (int x = threadIdx.x; x < BQ * BN; x += THREADS) {
+      const int at = x / BN * SC_LD + x % BN;
+      if (IMAX)
+        Sci[at] = INT_MIN;
+      else
+        Sc[at] = __int_as_float(0xff800000);   // -inf
+    }
+    // score_tile syncs after its first loads, before any fold reads Sc;
+    // each warp then reads and writes only its own fragments
+    for (int i = 0; i < tile / BN; ++i) {
+      const int row0 = t * tile + i * BN;
+      score_tile<MODE, BQ, NIB_SIGNED>(q, e, Qs, Es, Sc, q0, B, row0,
+                                       row0 + BN, d, vec, FoldMax<PACK>{i});
+    }
+    __syncthreads();
+    for (int x = threadIdx.x; x < BQ * BN; x += THREADS) {
+      const int qi = x / BN, j = x % BN;
+      if (q0 + qi >= B) continue;
+      const int at = qi * SC_LD + j;
+      float v;
+      if constexpr (MODE == MODE_BF16 && PACK)
+        v = __int2float_rn(__float_as_int(Sc[at]) | j);
+      else if constexpr (PACK)
+        v = __int2float_rn(Sci[at] | j);
+      else if constexpr (IMAX)
+        v = __int2float_rn(Sci[at]);
+      else
+        v = Sc[at];
+      out[(size_t)(q0 + qi) * out_ld + (size_t)t * BN + j] = v;
+    }
+    __syncthreads();   // the next tile resets Sc
+  }
+}
+
+// At its scan's register budget (SCAN_REGS, scan_tile.cuh), so that the
+// two run the same load schedule; the lighter epilogue then spills up to
+// 112 bytes to the stack (nvcc 12.8), which makes scan minus probe a lower
+// bound on the selection's cost.
+template <int MODE, bool PACK>
+__global__ void __maxnreg__((SCAN_REGS<MODE, BQ>))
+score_probe_kernel(const typename Cfg<MODE>::Q* __restrict__ q,
+                   const typename Cfg<MODE>::T* __restrict__ e, int B, int d,
+                   int tile, int n_tiles, int tiles_per_chunk, int vec,
+                   float* __restrict__ out) {
+  probe_tiles<MODE, PACK>(q, e, B, d, tile, n_tiles, tiles_per_chunk, vec,
+                          out);
+}
+
+// n rows in tiles of `tile`; the caller's chunking gives each of n_chunks
+// blocks (per 64 queries) tiles_per_chunk whole tiles, the last one fewer.
+template <int MODE, bool PACK>
+int launch_probe(const void* q, const void* e, int B, int n, int d, int tile,
+                 int tiles_per_chunk, int n_chunks, int bq, int vec, void* out,
+                 void* stream) {
+  const int n_tiles = tile >= BN ? n / tile : 0;
+  if (B < 1 || d < 1 || tile < BN || tile % BN != 0 || n_tiles < 1 ||
+      bq != BQ || (MODE == MODE_I4 && d % 2 != 0) || tiles_per_chunk < 1 ||
+      n_chunks < 1 || (n_chunks - 1) * tiles_per_chunk >= n_tiles ||
+      n_chunks * tiles_per_chunk < n_tiles)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = probe_smem_bytes<MODE>();
+  auto kern = score_probe_kernel<MODE, PACK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_chunks, (B + BQ - 1) / BQ);
+  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const typename Cfg<MODE>::Q*>(q),
+      static_cast<const typename Cfg<MODE>::T*>(e), B, d, tile, n_tiles,
+      tiles_per_chunk, vec, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every entry returns cudaGetLastError() after its launch (0 = success).
+// q f32 [B, d], rows bf16 [n, d]
+int lt_score_probe_bf16(const void* q, const void* e, int B, int n, int d,
+                        int tile, int tiles_per_chunk, int n_chunks, int bq,
+                        int pack, int vec, void* out, void* stream) {
+  return pack ? launch_probe<MODE_BF16, true>(q, e, B, n, d, tile,
+                                              tiles_per_chunk, n_chunks, bq,
+                                              vec, out, stream)
+              : launch_probe<MODE_BF16, false>(q, e, B, n, d, tile,
+                                               tiles_per_chunk, n_chunks, bq,
+                                               vec, out, stream);
+}
+
+// q int8 [B, d], rows int8 [n, d]
+int lt_score_probe_int8(const void* q, const void* e, int B, int n, int d,
+                        int tile, int tiles_per_chunk, int n_chunks, int bq,
+                        int pack, int vec, void* out, void* stream) {
+  return pack ? launch_probe<MODE_I8, true>(q, e, B, n, d, tile,
+                                            tiles_per_chunk, n_chunks, bq,
+                                            vec, out, stream)
+              : launch_probe<MODE_I8, false>(q, e, B, n, d, tile,
+                                             tiles_per_chunk, n_chunks, bq,
+                                             vec, out, stream);
+}
+
+// q int8 [B, d], packed rows int8 [n, d/2]; the int4 probe has no pack mode
+int lt_score_probe_int4(const void* q, const void* e, int B, int n, int d,
+                        int tile, int tiles_per_chunk, int n_chunks, int bq,
+                        int pack, int vec, void* out, void* stream) {
+  if (pack) return (int)cudaErrorInvalidValue;
+  return launch_probe<MODE_I4, false>(q, e, B, n, d, tile, tiles_per_chunk,
+                                      n_chunks, bq, vec, out, stream);
+}
+
+}  // extern "C"

@@ -1,13 +1,15 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled at first use, on the machine with the card:
+The sources are compiled at first use, on the machine with the card, one
+`nvcc` per source, all started together:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/lattice_tpu_torch/<hash>/liblattice_kernels.so \
-         lattice_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -I lattice_tpu_torch/csrc -c -o <source>.o <source>.cu
 
-into `build/` at the root of the checkout, keyed by a hash of the sources
-and the flags, and loaded with `ctypes`. Each C entry takes its pointers
+then linked with `nvcc -shared` into
+`build/lattice_tpu_torch/<hash>/liblattice_kernels.so` at the root of the
+checkout, keyed by a hash of the sources and the flags, and loaded with
+`ctypes`. Each C entry takes its pointers
 and the stream as `void*` and returns `cudaGetLastError()` after its
 launch; `Kernel.launch` raises when that is not 0. A missing `nvcc` or a
 failed compile raises too: nothing here falls back to a plain version.
@@ -33,7 +35,7 @@ from lattice_tpu_torch.core.errors import KernelError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lattice_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIB_NAME = "liblattice_kernels.so"
 
 _P = ctypes.c_void_p
@@ -50,6 +52,9 @@ _ENTRIES: dict[str, tuple] = {
     "lt_ivf_probe_f32": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
     "lt_paired_attention_bf16": (_P,) * 4 + (_I,) * 3 + (_F, _P, _P),
     "lt_paired_attention_f32": (_P,) * 4 + (_I,) * 3 + (_F, _P, _P),
+    "lt_score_probe_bf16": (_P, _P) + (_I,) * 9 + (_P, _P),
+    "lt_score_probe_int8": (_P, _P) + (_I,) * 9 + (_P, _P),
+    "lt_score_probe_int4": (_P, _P) + (_I,) * 9 + (_P, _P),
 }
 
 _lock = threading.Lock()
@@ -80,24 +85,39 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise KernelError(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile `csrc/*.cu` into the content-keyed library unless it is
-    already there. Compiles into a temporary name and renames, so two
-    processes building at once never load a half-written file."""
+    already there: one `nvcc -c` per source in parallel, then one link.
+    Builds in a temporary directory and renames the library into place, so
+    two processes building at once never load a half-written file."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelError(f"nvcc failed ({proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, compiles = [], []
+        for src in sources():
+            if src.suffix == ".cu":
+                objs.append(str(Path(tmp) / f"{src.stem}.o"))
+                compiles.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                                 "-o", objs[-1], str(src)])
+        _run(compiles)
+        lib = str(Path(tmp) / LIB_NAME)
+        _run([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

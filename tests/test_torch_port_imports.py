@@ -6,9 +6,10 @@ import (`sys.modules[name] = None` makes `import name` raise), imports
 `lattice_tpu_torch`, indexes and searches a small CPU store through the
 hash embedder (every ported plan, and the int4 view in capacity mode) and
 through a tiny UniXcoder encoder (tokenizer, paired
-attention's plain version, the torch module, the provider), and checks
-that no kernel was launched on the CPU and that asking for "cuda" without
-CUDA raises.
+attention's plain version, the torch module, the provider), runs the
+score probe's plain version, the span tracer and the dissection tool's
+bounds (`ops/probe.py`, `utils/`, `tools/`), and checks that no kernel was
+launched on the CPU and that asking for "cuda" without CUDA raises.
 """
 
 import subprocess
@@ -94,6 +95,14 @@ uidx.code.add(vecs, [{"file_path": f"src/m{i}.py", "name": n}
                      for i, n in enumerate(names)])
 hits = VectorSearcher(uidx).search_code(texts[2], limit=3)
 assert hits[0].name == names[2], hits
+from lattice_tpu_torch.ops.probe import score_probe
+from lattice_tpu_torch.tools import dissect
+from lattice_tpu_torch.utils.tracing import get_tracer
+with get_tracer().span("probe"):
+    p = score_probe(torch.randn(3, 64), torch.randn(300, 64).to(torch.bfloat16),
+                    tile=128, mode="pack")
+assert p.shape == (3, 256) and get_tracer().report()["probe"]["count"] == 1
+assert dissect.probe_bound(1 << 20, 768, 256, 2048, 1536, "bf16")[1] == "bytes"
 assert set(_build.launch_counts().values()) == {0}, _build.launch_counts()
 assert not torch.cuda.is_available()
 try:

@@ -18,6 +18,7 @@ from lattice_tpu.ops import topk as jax_topk
 from lattice_tpu_torch.ops import _build
 from lattice_tpu_torch.ops import attention  # noqa: F401 (paired_attention)
 from lattice_tpu_torch.ops import ivf  # noqa: F401 (registers ivf_probe)
+from lattice_tpu_torch.ops import probe  # noqa: F401 (registers score_probe)
 from lattice_tpu_torch.ops import quant
 from lattice_tpu_torch.ops import scan_topk as scan
 from lattice_tpu_torch.ops import topk as topk_ops
@@ -232,12 +233,14 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert _build.launch_counts() == {"scan_topk": 0, "merge_candidates": 0,
                                       "scan_topk_int8": 0,
                                       "scan_topk_int4": 0, "ivf_probe": 0,
-                                      "paired_attention": 0}
+                                      "paired_attention": 0,
+                                      "score_probe": 0}
     # one registration each, in whatever order the modules were imported
     names = [k.name for k in _build.KERNELS]
     assert sorted(names) == ["ivf_probe", "merge_candidates",
                              "paired_attention", "scan_topk",
-                             "scan_topk_int4", "scan_topk_int8"]
+                             "scan_topk_int4", "scan_topk_int8",
+                             "score_probe"]
 
 
 # ---- refined, fused and the int8 hoistq chain ---------------------------------
