@@ -29,6 +29,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (bf16) / 1e-4 (f32), all finite; moving the masked keys and values by
    +-100 changes no row with a live key by more than 1e-6. The same at
    ragged (B, L, H) in {(3, 8, 2), (3, 100, 2), (5, 333, 4)}.
+   Kernel B on `merge_cases` (the CPU tests' adversarial lists: ties,
+   NEG_INF rows, pads past the live candidates, m = k1, k1 = 512, equal
+   and signed-zero scores; and, split over blocks, pads, 600,000
+   candidates with negative ids, B=200): ids equal and scores bit-equal
+   to its plain version on CPU copies; k1 = 513 refused.
    `score_probe` at every type and mode on 64 queries x 262,144 rows (+ a
    ragged tail of 100) x 768 at tiles 2048 and 8192, and 16 x 4,133 x 100
    at tile 256: int8 and int4 bit-equal, bf16 rawmax within 1e-4, bf16
@@ -108,6 +113,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    device-resident ids (CUDA events) with the achieved TFLOP/s, the host
    tokenizer per batch, B=1 query encode and `search_code` p50 (host
    clock), `paired_attention` beside its plain version at B=128, L=512.
+In 4a, 4d, 4b and after 3e, kernel B is held bit-equal to its plain
+version on the lists each path gives it (A and C at k1=16, B in {1,
+256}; D at k1 in {80, 512}, B in {1, 256}, and a shuffled copy; `ivf_probe`
+at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
+`torch.topk` on them by device time (`device_ms`: a sleep kernel keeps
+the queue full, so the host's issue is not counted) and back to back.
 Launch counts are zeroed just before each of 3a, 3d, 3f, 3b, 3e and 3c
 and read just after it; each path's kernels, and every registered kernel, must
 have launched.
@@ -132,6 +143,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from lattice_tpu_torch.ops.topk import l2_normalize_t as normalize
@@ -417,6 +429,159 @@ def check_entry_points(q, emb, qv, qs, ev, es, valid, k: int,
     ps, pi = scan.scan_topk_int8_plain(qv, qs, ev, es, valid, k)
     require(torch.equal(i8, pi) and torch.equal(s8, ps),
             f"fused_topk_int8 differs from its plain chain {where}")
+
+
+def merge_cases(seed: int, large: bool = False
+                ) -> list[tuple[str, np.ndarray, np.ndarray, int]]:
+    """Adversarial inputs of kernel B, (name, scores [B, m] f32, ids [B, m]
+    i32, k1), from a seed with numpy: the CPU tests hold the plain version
+    to `lax.top_k` on the small ones, the card holds the kernel to the
+    plain version on all. `large` adds three shapes only the card runs,
+    each split over blocks: pads past the live candidates, a list long
+    enough for three passes, and a batch with two blocks a query."""
+    rng = np.random.default_rng(seed)
+    neg, empty = np.float32(-1e30), np.int32(0x7fffffff)
+
+    def ids(b, m, lo=0):  # distinct ids, in no order
+        return np.stack([rng.permutation(m) + lo for _ in range(b)]
+                        ).astype(np.int32)
+
+    # 8 lists of 16, each sorted as a scan writes it, few distinct scores
+    s = (rng.integers(0, 6, size=(4, 128)) / 8).astype(np.float32)
+    i = ids(4, 128, 1000)
+    for q in range(4):
+        for lo in range(0, 128, 16):
+            o = np.lexsort((i[q, lo:lo + 16], -s[q, lo:lo + 16]))
+            s[q, lo:lo + 16], i[q, lo:lo + 16] = (s[q, lo + o],
+                                                  i[q, lo + o])
+    cases = [("ties across sorted lists", s, i, 16)]
+    s = rng.normal(size=(3, 200)).astype(np.float32)
+    s[:, 50:] = neg
+    cases.append(("NEG_INF rows among the winners", s, ids(3, 200), 64))
+    s = rng.normal(size=(3, 96)).astype(np.float32)
+    i = ids(3, 96)
+    s[:, 10:30] = neg
+    s[:, 30:], i[:, 30:] = -np.inf, empty
+    cases.append(("k1 above the live candidates (pads)", s, i, 80))
+    cases.append(("unsorted, m no multiple of k1 or 4",
+                  rng.normal(size=(5, 1001)).astype(np.float32),
+                  ids(5, 1001), 48))
+    cases.append(("m = k1", rng.normal(size=(2, 37)).astype(np.float32),
+                  ids(2, 37), 37))
+    cases.append(("k1 = 512 with ties",
+                  (np.round(rng.normal(size=(2, 5000)) * 64) / 64
+                   ).astype(np.float32), ids(2, 5000), 512))
+    cases.append(("all scores equal", np.full((2, 3000), 0.25, np.float32),
+                  ids(2, 3000), 100))
+    s = rng.choice(np.array([-0.0, 0.0, 0.5, -0.5], np.float32),
+                   size=(2, 64))
+    cases.append(("signed zeros", s, ids(2, 64), 40))
+    if large:
+        s = rng.normal(size=(1, 20_000)).astype(np.float32)
+        i = ids(1, 20_000)
+        s[:, 100:200] = neg
+        s[:, 200:], i[:, 200:] = -np.inf, empty
+        cases.append(("pads through a split", s, i, 300))
+        cases.append(("three passes, negative ids",
+                      (np.round(rng.normal(size=(1, 600_000)) * 4096) / 4096
+                       ).astype(np.float32), ids(1, 600_000, -300_000), 512))
+        cases.append(("B=200, two blocks a query",
+                      rng.normal(size=(200, 20_000)).astype(np.float32),
+                      ids(200, 20_000), 80))
+    return cases
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal f32 tensors bit for bit (-0.0 is not +0.0)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_merge(cs: torch.Tensor, ci: torch.Tensor, k1: int, where: str,
+                err: dict, on_cpu: bool = False) -> None:
+    """Kernel B against its plain version on the same lists: ids equal,
+    scores bit-equal. `on_cpu` takes the plain version on CPU copies (the
+    semantics the CPU tests pin, signed zeros included)."""
+    from lattice_tpu_torch.ops import scan_topk as scan
+    ks, ki = scan.merge_candidates(cs, ci, k1)
+    torch.cuda.synchronize()
+    ps, pi = (scan.merge_candidates_plain(cs.cpu(), ci.cpu(), k1) if on_cpu
+              else scan.merge_candidates_plain(cs, ci, k1))
+    ks, ki = ks.cpu(), ki.cpu()
+    ps, pi = ps.cpu(), pi.cpu()
+    require(torch.equal(ki, pi) and same_bits(ks, ps),
+            f"merge_candidates differs from its plain version ({where}, "
+            f"B={cs.shape[0]}, m={cs.shape[1]}, k1={k1}): ids agree on "
+            f"{(ki == pi).float().mean().item():.6f}")
+    finite = torch.isfinite(ps)
+    if bool(finite.any()):
+        err["merge_candidates"] = max(err["merge_candidates"],
+                                      (ks - ps)[finite].abs().max().item())
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of `fn()` in ms with the queue kept full: a sleep
+    kernel (~10 ms) holds the card while the host enqueues every call, so
+    the host's issue time, which bounds back-to-back timing of a kernel of
+    a few microseconds, is not counted."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def merge_timing(cs: torch.Tensor, ci: torch.Tensor, k1: int, where: str,
+                 smi: str) -> dict:
+    """Kernel B's device time beside `torch.topk`'s on the same lists, its
+    plain version's and its bound (each candidate read once, B x k1
+    written); back-to-back time per call (the host's issue included) as
+    information."""
+    from lattice_tpu_torch.ops import scan_topk as scan
+    b, m = cs.shape
+    row = kernel_row(
+        device_ms(lambda: scan.merge_candidates(cs, ci, k1)),
+        device_ms(lambda: scan.merge_candidates_plain(cs, ci, k1), 5),
+        bound(b * m * 8 + b * k1 * 8, 0, "f32"),
+        device_ms(lambda: torch.topk(cs, k1)))
+    per_call = cuda_ms(lambda: scan.merge_candidates(cs, ci, k1), 20)
+    topk_call = cuda_ms(lambda: torch.topk(cs, k1), 20)
+    log(f"kernel merge_candidates {where} B={b} m={m} k1={k1}: "
+        f"{row['ms']:.4f} ms, torch.topk {row['library_ms']:.4f} ms "
+        f"({row['ms'] / row['library_ms']:.2f}x), plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}); back to back {per_call:.4f} ms a call, "
+        f"torch.topk {topk_call:.4f} ({smi})")
+    return row
+
+
+def phase_merge_kernel(err: dict) -> None:
+    """Kernel B on `merge_cases`, the CPU tests' adversarial inputs and two
+    larger shapes: bit-equal to its plain version on CPU copies; a k1 it
+    cannot take is refused."""
+    from lattice_tpu_torch.core.errors import KernelError
+    from lattice_tpu_torch.ops import scan_topk as scan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, s, i, k1 in merge_cases(SEED + 7, large=True):
+        cs = torch.from_numpy(s).cuda()
+        ci = torch.from_numpy(i).cuda()
+        check_merge(cs, ci, k1, name, err, on_cpu=True)
+        b, m = s.shape
+        log(f"kernels ok: merge_candidates {name} (B={b}, m={m}, k1={k1}, "
+            f"{scan.merge_splits(b, m, k1, sms)} blocks a query)")
+    try:
+        scan.merge_candidates(cs, ci, scan.MAX_K1_LONG + 1)
+    except KernelError as exc:
+        log(f"merge_candidates refuses k1 past MAX_K1_LONG: {exc}")
+    else:
+        raise AssertionError("merge_candidates took k1 past MAX_K1_LONG")
 
 
 def attention_inputs(b: int, ln: int, dtype: torch.dtype,
@@ -1085,7 +1250,7 @@ def phase_ivf_path(ctx: dict) -> None:
     ctx["store2"], ctx["queries2"] = store, q
 
 
-def phase_timings(ctx: dict, kernels_ms: dict) -> None:
+def phase_timings(ctx: dict, kernels_ms: dict, err: dict, smi: str) -> None:
     from lattice_tpu_torch.ops import quant, scan_topk as scan
     store, q256 = ctx["store"], ctx["queries"]
     for method in ("quantized", "pallas"):
@@ -1116,11 +1281,8 @@ def phase_timings(ctx: dict, kernels_ms: dict) -> None:
                 cuda_ms(lambda: scan.scan_topk_plain(q, emb, valid, k1), 3, 1),
                 scan_bound(n, DIM, b, k1, 2 * DIM, "bf16"), None,
                 cuda_ms(lambda: q.to(torch.bfloat16) @ emb.T, 10)),
-            "merge_candidates": kernel_row(
-                cuda_ms(lambda: scan.merge_candidates(cs, ci, k1), 20),
-                cuda_ms(lambda: scan.merge_candidates_plain(cs, ci, k1), 5),
-                bound(b * m * 8 + b * k1 * 8, 0, "f32"),
-                cuda_ms(lambda: torch.topk(cs, k1), 20)),
+            "merge_candidates": merge_timing(cs, ci, k1, "kernel A lists",
+                                             smi),
             "scan_topk_int8": kernel_row(
                 cuda_ms(lambda: scan.scan_blocks_int8(
                     qv, qs, view.values, view.scales, valid, k1), 10),
@@ -1130,6 +1292,14 @@ def phase_timings(ctx: dict, kernels_ms: dict) -> None:
                 cuda_ms(lambda: torch._int_mm(qv, view.values.T), 10)
                 if b > 16 else None),
         }
+        # kernel B on the lists of the "pallas" / "refined" (A) and the
+        # "quantized" (C) plans
+        check_merge(cs, ci, k1, "kernel A lists", err)
+        c_cs, c_ci = scan.scan_blocks_int8(qv, qs, view.values, view.scales,
+                                           valid, k1)
+        check_merge(c_cs, c_ci, k1, "kernel C lists", err)
+        merge_timing(c_cs, c_ci, k1, "kernel C lists", smi)
+        log(f"kernel B lists at B={b}: m={m} candidates per query")
         for name, row in rows.items():
             log(f"kernel {name} B={b} N={n} d={DIM} k1={k1}: "
                 f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
@@ -1139,7 +1309,8 @@ def phase_timings(ctx: dict, kernels_ms: dict) -> None:
                 kernels_ms[name] = row
 
 
-def phase_int4_timings(ctx: dict, kernels_ms: dict, smi: str) -> None:
+def phase_int4_timings(ctx: dict, kernels_ms: dict, err: dict,
+                       smi: str) -> None:
     """"int4" and "refined" through `search_device` on corpus A's store,
     and kernel D beside its plain version, its bound and the bare int8
     product over the unpacked rows."""
@@ -1176,6 +1347,23 @@ def phase_int4_timings(ctx: dict, kernels_ms: dict, smi: str) -> None:
             f"{product} ({smi})")
         if b == 256:
             kernels_ms["scan_topk_int4"] = row
+    # kernel B on kernel D's lists: the "int4" plan's k1 = 80 and the
+    # longest lists (k1 = 512), at B = 1 and 256, and a shuffled copy
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    for b, kk in ((1, k1), (256, k1), (1, scan.MAX_K1_LONG),
+                  (256, scan.MAX_K1_LONG)):
+        q = q256[:b].contiguous()
+        qv, qs = quant.quantize_rows_device(q)
+        cs, ci = scan.scan_blocks_int4(qv, qs, view.values, view.scales,
+                                       valid, kk)
+        check_merge(cs, ci, kk, "kernel D lists", err)
+        merge_timing(cs, ci, kk, "kernel D lists", smi)
+        if b == 256 and kk == k1:
+            mix = torch.argsort(torch.rand(cs.shape, device="cuda",
+                                           generator=gen), dim=1)
+            check_merge(torch.gather(cs, 1, mix), torch.gather(ci, 1, mix),
+                        kk, "shuffled kernel D lists", err)
+        del cs, ci
     # what the list length costs: kernel D, and kernel C on the int8 view,
     # at B=256 over k1 = 16 (the first stage alone), 80 (8k at k=10) and
     # 512 (8k at k=64, D only)
@@ -1271,7 +1459,7 @@ def phase_capacity_path(ctx: dict) -> None:
     ctx["capacity"] = (view, valid, q)
 
 
-def phase_capacity_kernels(ctx: dict, err: dict) -> None:
+def phase_capacity_kernels(ctx: dict, err: dict, smi: str) -> None:
     """Kernels D and B against their plain versions on the inputs the
     capacity path gave them: all 1,024 queries, quantized as
     `Int4View.search_device` quantizes them, over the 4M packed rows, at
@@ -1303,6 +1491,8 @@ def phase_capacity_kernels(ctx: dict, err: dict) -> None:
         log(f"kernels ok: scan_topk_int4 + merge_candidates at N={view.n}, "
             f"B={CAP_BATCH}, k1={k1} ({cs.shape[1]} candidates per query "
             f"merged)")
+        check_merge(cs, ci, k1, "capacity kernel D lists", err)
+        merge_timing(cs, ci, k1, "capacity kernel D lists", smi)
         del cs, ci, ks, ki, ps, pi, ms_, mi
 
 
@@ -1343,7 +1533,8 @@ def p50_ms(fn, n: int = 50) -> float:
     return statistics.median(lat)
 
 
-def phase_ivf_timings(ctx: dict, kernels_ms: dict) -> None:
+def phase_ivf_timings(ctx: dict, kernels_ms: dict, err: dict,
+                      smi: str) -> None:
     """"ivf" against "quantized" through `search_device` on the clustered
     store, by batch; `ivf_probe` alone beside its plain version."""
     from lattice_tpu_torch.index import chunk_store as cs
@@ -1387,6 +1578,9 @@ def phase_ivf_timings(ctx: dict, kernels_ms: dict) -> None:
             f"({bnd[1]}; {touched} buckets touched)")
         if b == 256:
             kernels_ms["ivf_probe"] = row
+        lists = ivf.probe_blocks(q, pb, data, ids, K)
+        check_merge(*lists, K, "ivf_probe lists", err)
+        merge_timing(*lists, K, "ivf_probe lists", smi)
 
 
 def main() -> int:
@@ -1401,6 +1595,7 @@ def main() -> int:
     t_start = time.perf_counter()
     err = {k.name: 0.0 for k in _build.KERNELS}
     phase_kernels(err)
+    phase_merge_kernel(err)
     phase_ivf_kernels(err)
     phase_attention_kernel(err)
     phase_probe_kernel(err)
@@ -1431,9 +1626,9 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] += v
         if path == "flat tier":
-            phase_timings(ctx, kernels_ms)
+            phase_timings(ctx, kernels_ms, err, smi)
         elif path == "int4 tier":
-            phase_int4_timings(ctx, kernels_ms, smi)
+            phase_int4_timings(ctx, kernels_ms, err, smi)
         elif path == "dissection":
             rep = ctx.pop("dissect")
             floor = rep["probes"]["bf16_rawmax_t2048"]
@@ -1451,12 +1646,12 @@ def main() -> int:
             log(f"first store freed: {torch.cuda.memory_allocated() / 1e9:.2f}"
                 f" GB allocated")
         elif path == "ivf":
-            phase_ivf_timings(ctx, kernels_ms)
+            phase_ivf_timings(ctx, kernels_ms, err, smi)
             del ctx["store2"], ctx["queries2"]
             gc.collect()
             torch.cuda.empty_cache()
         elif path == "capacity":
-            phase_capacity_kernels(ctx, err)
+            phase_capacity_kernels(ctx, err, smi)
             phase_capacity_timings(ctx, smi)
             gc.collect()
             torch.cuda.empty_cache()

@@ -19,9 +19,8 @@
 //   and the query tile loads the two matching column blocks. Every partial
 //   sum is an integer below 127 * 8 * d, so scores equal the plain
 //   version's bit for bit, as kernel C's do.
-// Kernel B, merge_candidates: replaces the `approx_max_k` finish of
-//   `_binned_candidates`: the exact top-k1 over every block's candidates.
-//   It also merges the lists of ivf_probe (ivf_probe.cu).
+// Kernel B, merge_candidates (merge_candidates.cu), merges the lists these
+//   kernels write: the exact top-k1 over every block's candidates.
 //
 // Lists of kernels D and B reach k1 = MAX_K1_LONG = 512 (the int4 view
 // widens to 8k candidates, 512 at k = 64). A block keeps two lists of k1
@@ -31,8 +30,7 @@
 // 32 * 132 * 4 = 16.5 KB, tiles 2 + 8 KB, scales and validity < 1 KB:
 // ~155 KB. At k1 <= 128 it keeps kernel C's 64 queries (~110 KB). The
 // wrapper (`scan_blocks_int4`) makes that choice and passes it as `bq`, and
-// sizes its row chunks for it; each instance refuses another count. Kernel B
-// keeps one list per warp: 4 * 2 * 512 * 4 = 16 KB.
+// sizes its row chunks for it; each instance refuses another count.
 //
 // Selection (topk_select.cuh, shared with ivf_probe.cu) is exact at the
 // precision of the scores: each block keeps one
@@ -175,37 +173,6 @@ scan_topk_kernel(const typename Cfg<MODE>::Q* __restrict__ q,
   }
 }
 
-// One warp per query: the exact top-k1 (k1 <= KMAX) over its m candidates.
-template <int KMAX>
-__global__ void __launch_bounds__(THREADS)
-merge_candidates_kernel(const float* __restrict__ cs,
-                        const int* __restrict__ ci, int B, int m, int k1,
-                        float* __restrict__ out_s, int* __restrict__ out_i) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q = blockIdx.x * (THREADS / 32) + warp;
-  float* ls = reinterpret_cast<float*>(smem) + warp * k1;
-  int* li = reinterpret_cast<int*>(smem) + (THREADS / 32) * k1 + warp * k1;
-  if (q >= B) return;
-  for (int j = lane; j < k1; j += 32) {
-    ls[j] = neg_infinity();
-    li[j] = EMPTY_ID;
-  }
-  __syncwarp();
-  const float* s_row = cs + (size_t)q * m;
-  const int* i_row = ci + (size_t)q * m;
-  for (int j0 = 0; j0 < m; j0 += 32) {
-    const int j = j0 + lane;
-    const bool in = j < m;
-    offer<KMAX>(ls, li, k1, in ? s_row[j] : neg_infinity(),
-          in ? i_row[j] : EMPTY_ID, in, lane);
-  }
-  for (int j = lane; j < k1; j += 32) {
-    out_s[(size_t)q * k1 + j] = ls[j];
-    out_i[(size_t)q * k1 + j] = li[j];
-  }
-}
-
 // `bq` is the caller's queries per block, which its row chunking assumed:
 // an instance refuses any other count, so the two sides cannot drift apart.
 template <int MODE, int BQ_ = BQ, int KMAX = MAX_K1>
@@ -280,21 +247,6 @@ int lt_scan_topk_int4(const void* q, const void* qs, const void* e,
   return launch_scan<MODE_I4, BQ_LONG, MAX_K1_LONG>(
       q, qs, e, es, valid, B, n, d, k1, bq, rows_per_chunk, n_chunks, vec,
       cand_s, cand_i, stream);
-}
-
-int lt_merge_candidates(const void* cs, const void* ci, int B, int m, int k1,
-                        void* out_s, void* out_i, void* stream) {
-  if (B < 1 || m < k1 || k1 < 1 || k1 > MAX_K1_LONG)
-    return (int)cudaErrorInvalidValue;
-  const int warps = THREADS / 32;
-  const size_t smem = (size_t)2 * warps * k1 * 4;
-  auto kern = k1 <= MAX_K1 ? merge_candidates_kernel<MAX_K1>
-                           : merge_candidates_kernel<MAX_K1_LONG>;
-  kern<<<(B + warps - 1) / warps, THREADS, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cs), static_cast<const int*>(ci), B, m, k1,
-      static_cast<float*>(out_s), static_cast<int*>(out_i));
-  return (int)cudaGetLastError();
 }
 
 const char* lt_error_string(int code) {

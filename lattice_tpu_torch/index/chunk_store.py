@@ -64,7 +64,6 @@ _NOT_PORTED = {
     "pq": "ROADMAP queue 1, PQ",
     "sharded": "ROADMAP queue 1, multi-GPU",
 }
-_ENV_NOT_PORTED = {"LATTICE_SHARDED": "sharded", "LATTICE_PQ": "pq"}
 
 # the plans served by the widened bf16 scan (kernel A + B + exact rescore)
 _BF16_SCANS = {"pallas": scan_ops.binned_topk,
@@ -892,8 +891,10 @@ class ChunkStore:
         store names them; serving keys on them).
 
         auto order, re-derived for the card:
-        1. LATTICE_SHARDED=1 / LATTICE_PQ=1 — those plans are not ported;
-           raise rather than serve another plan
+        1. LATTICE_SHARDED=1 on more than one CUDA device (the reference's
+           `len(jax.devices()) > 1`) / LATTICE_PQ=1 — those plans are not
+           ported; raise rather than serve another plan. On one card or
+           the CPU the sharded flag falls through, as in the reference
         2. flat      — the exact plain scan: k > 64, and every CPU store
         3. int4      — LATTICE_INT4=1 (the 4x-capacity mode) on a CUDA
            device at k <= 64: kernel D + B at 8k candidates + exact
@@ -924,9 +925,11 @@ class ChunkStore:
             return method
         if method != "auto":
             raise VectorStoreError(f"unknown search method {method!r}")
-        for flag, plan in _ENV_NOT_PORTED.items():
-            if os.environ.get(flag) == "1":
-                raise _not_ported(f"{flag}=1", plan)
+        if (os.environ.get("LATTICE_SHARDED") == "1"
+                and torch.cuda.device_count() > 1):
+            raise _not_ported("LATTICE_SHARDED=1", "sharded")
+        if os.environ.get("LATTICE_PQ") == "1":
+            raise _not_ported("LATTICE_PQ=1", "pq")
         if not self._device_is_cuda() or k_eff > KERNEL_MAX_K:
             return "flat"
         if os.environ.get("LATTICE_INT4") == "1":
@@ -1040,11 +1043,16 @@ class ChunkStore:
         """Bulk device search: `search_device` over ceil(B/chunk) query
         chunks, concatenated. (The JAX store ran the chunks inside one
         scanned execution to pay its dispatch cost once; here each chunk
-        is a few launches on one stream.)"""
+        is a few launches on one stream.)
+
+        The plan is made once, at `chunk`, and serves every slice, the
+        short tail included: the JAX store padded the batch to whole
+        chunks and planned at `chunk`, so one call never mixes plans."""
         if self._size == 0:
             raise VectorStoreError("empty store has no device path")
+        plan = self._resolve_plan(chunk, min(k, self._cap), filters, method)
         outs = [self.search_device(queries[lo:lo + chunk], k, filters=filters,
-                                   method=method)
+                                   method=plan)
                 for lo in range(0, int(queries.shape[0]), chunk)]
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))

@@ -1,14 +1,15 @@
 """Fused flat-scan score + select for the card, with plain versions.
 
 Port of `lattice_tpu/ops/pallas_topk.py`. Four hand-written CUDA kernels
-(`csrc/scan_topk.cu`):
+(`csrc/scan_topk.cu`, and `csrc/merge_candidates.cu` for kernel B):
 
 - `scan_topk` (kernel A) replaces `_binned_kernel` (pallas_topk.py:434)
   and the bin/key selection of `binned_topk` (:627): Q·Eᵀ over bf16 (or
   f32) rows, masked, with a running exact top-k1 per query for each run
   of rows a block owns.
-- `merge_candidates` (kernel B) replaces the `approx_max_k` finish of
-  `_binned_candidates` (:525): the exact top-k1 over the per-block lists.
+- `merge_candidates` (kernel B, `csrc/merge_candidates.cu`) replaces the
+  `approx_max_k` finish of `_binned_candidates` (:525): the exact top-k1
+  over the per-block lists, by a block-wide radix select.
 - `scan_topk_int8` (kernel C) replaces `_binned_kernel_int8` (:466) via
   `binned_topk_int8` (:720): the i8·i8 -> i32 dot, times the query and
   row scales, masked, selected like kernel A and finished by kernel B.
@@ -47,6 +48,9 @@ rescore stays torch code, as XLA ran it outside the Pallas body.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from lattice_tpu_torch.core.errors import KernelError
@@ -61,6 +65,10 @@ BQ_LONG = 32     # queries per block of kernel D past MAX_K1
 BN = 128         # rows per tile
 MAX_K1 = 128     # longest first-stage list a block keeps per query
 MAX_K1_LONG = 512  # longest list of kernels D and B
+MERGE_CAP = 16384  # candidates one block of kernel B holds
+# kernel B splits a query's candidates over blocks only past this many: up
+# to it one block takes about as long as split blocks plus a second pass
+MERGE_ONE_BLOCK = 8192
 # plain versions score this many rows at a time (bounded f32 temporaries)
 PLAIN_BLOCK = 1 << 17
 
@@ -68,7 +76,8 @@ _SRC = "lattice_tpu_torch/csrc/scan_topk.cu"
 SCAN_TOPK = _build.Kernel(
     "scan_topk", _SRC, "lattice_tpu/ops/pallas_topk.py:434")
 MERGE_CANDIDATES = _build.Kernel(
-    "merge_candidates", _SRC, "lattice_tpu/ops/pallas_topk.py:525")
+    "merge_candidates", "lattice_tpu_torch/csrc/merge_candidates.cu",
+    "lattice_tpu/ops/pallas_topk.py:525")
 SCAN_TOPK_INT8 = _build.Kernel(
     "scan_topk_int8", _SRC, "lattice_tpu/ops/pallas_topk.py:466")
 SCAN_TOPK_INT4 = _build.Kernel(
@@ -120,11 +129,16 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _chunking(n: int, b: int, device: torch.device, bq: int = BQ
               ) -> tuple[int, int]:
     """(rows per block, number of row chunks): about four blocks per SM
     over the whole grid, each chunk a whole number of 128-row tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(device)
     q_tiles = -(-b // bq)
     target = max(1, -(-4 * sms // q_tiles))
     rows = max(BN, -(-(-(-n // target)) // BN) * BN)
@@ -148,10 +162,22 @@ def merge_candidates_plain(cand_s: torch.Tensor, cand_i: torch.Tensor,
     return vals, torch.gather(i, -1, pos.to(torch.int64))
 
 
+def merge_splits(b: int, m: int, k1: int, sms: int) -> int:
+    """Blocks per query of kernel B's first pass. One when the batch alone
+    fills the SMs or the list is short (`MERGE_ONE_BLOCK`); else about
+    sqrt(m / k1), so that a block's slice and the g * k1 survivors the
+    second pass selects from are about as long, capped at two blocks per
+    SM over the grid. Never fewer than a block can hold (`MERGE_CAP`
+    candidates each)."""
+    g = (1 if b >= sms or m <= MERGE_ONE_BLOCK
+         else min(max(1, math.isqrt(m // k1)), -(-2 * sms // b)))
+    return max(g, -(-m // MERGE_CAP))
+
+
 def merge_candidates(cand_s: torch.Tensor, cand_i: torch.Tensor, k1: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B: sorted top-k1 ([B, k1] f32, [B, k1] i32) of [B, m]
-    candidate (score, row id) pairs."""
+    candidate (score, row id) pairs, by (score desc, id asc)."""
     if _on_cpu(cand_s, cand_i):
         return merge_candidates_plain(cand_s, cand_i, k1)
     _check(cand_s, "cand_s", torch.float32, 2)
@@ -160,13 +186,19 @@ def merge_candidates(cand_s: torch.Tensor, cand_i: torch.Tensor, k1: int
     if cand_i.shape != cand_s.shape or not 1 <= k1 <= min(m, MAX_K1_LONG):
         raise KernelError(f"merge_candidates: k1={k1}, shapes "
                           f"{tuple(cand_s.shape)} {tuple(cand_i.shape)}")
-    out_s, out_i = _empty_lists(b, k1, cand_s.device)
+    device = cand_s.device
+    out_s, out_i = _empty_lists(b, k1, device)
     if b == 0:
         return out_s, out_i
-    with torch.cuda.device(cand_s.device):
+    g = merge_splits(b, m, k1, _sm_count(device))
+    # two [B, g, k1] buffers of (u64 key, i32 position): 12 bytes an entry
+    scratch = (torch.empty(2 * b * g * k1 * 3, dtype=torch.int32,
+                           device=device) if g > 1 else None)
+    with torch.cuda.device(device):
         MERGE_CANDIDATES.launch(
             "lt_merge_candidates", cand_s.data_ptr(), cand_i.data_ptr(), b, m,
-            k1, out_s.data_ptr(), out_i.data_ptr(), _stream(cand_s.device))
+            k1, g, 0 if scratch is None else scratch.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), _stream(device))
     return out_s, out_i
 
 

@@ -281,6 +281,37 @@ class TestSearch:
         b = ps.search_device_pipelined(q, 5, chunk=4, method="quantized")
         assert torch.equal(a[1], b[1]) and torch.allclose(a[0], b[0])
 
+    def test_pipelined_plans_once_at_chunk(self, pair, monkeypatch):
+        """A plan that depends on the batch ("ivf" at <= 256, "quantized"
+        above) is made once, at `chunk`, and serves every slice, the
+        600 - 512 = 88-query tail included, as the JAX store's padding to
+        whole chunks did."""
+        _, ps, _ = pair
+        calls = []
+
+        def plan(self, batch, k_eff, filters, method):
+            calls.append((batch, method))
+            if method != "auto":
+                return method
+            return "ivf" if batch <= 256 else "quantized"
+
+        monkeypatch.setattr(ChunkStore, "_plan_search", plan)
+        q = torch.from_numpy(_vecs(600, 32, seed=11))
+        s, i = ps.search_device_pipelined(q, 5, chunk=512)
+        assert calls == [(512, "auto"), (512, "quantized"), (88, "quantized")]
+        want_s, want_i = ps.search_device(q, 5, method="quantized")
+        assert torch.equal(i, want_i) and torch.equal(s, want_s)
+
+    def test_pipelined_matches_jax(self, pair):
+        """Ten queries in chunks of 4 (a short tail) through both stores'
+        `search_device_pipelined`, each planned by its own table."""
+        js, ps, vecs = pair
+        q = np.concatenate([vecs[[1, 4, 60]], _vecs(7, 32, seed=12)])
+        s, i = ps.search_device_pipelined(torch.from_numpy(q), 6, chunk=4)
+        j_s, j_i = js.search_device_pipelined(jnp.asarray(q), 6, chunk=4)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(j_i))
+        np.testing.assert_allclose(s.numpy(), np.asarray(j_s), atol=1e-5)
+
     def test_filtered_search_device(self, pair):
         js, ps, vecs = pair
         flt = {"entity_type": "class"}
@@ -331,14 +362,50 @@ class TestPlanTable:
     @pytest.mark.parametrize("flag", ["LATTICE_INT4", "LATTICE_PQ",
                                       "LATTICE_SHARDED"])
     def test_unported_modes_raise(self, cuda_store, monkeypatch, flag):
-        """LATTICE_PQ / LATTICE_SHARDED still raise; LATTICE_INT4 is ported
-        and now plans "int4" (tests/test_torch_port_int4.py)."""
+        """LATTICE_PQ still raises, and LATTICE_SHARDED with more than one
+        CUDA device (one device: test_sharded_flag_on_one_device_falls_
+        through); LATTICE_INT4 is ported and now plans "int4"
+        (tests/test_torch_port_int4.py)."""
         monkeypatch.setenv(flag, "1")
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
         if flag == "LATTICE_INT4":
             assert cuda_store._plan_search(256, 10, None, "auto") == "int4"
             return
         with pytest.raises(NotImplementedError):
             cuda_store._plan_search(256, 10, None, "auto")
+
+    @pytest.mark.parametrize("batch, k", [(1, 10), (256, 10), (1, 64),
+                                          (256, 65)])
+    def test_sharded_flag_on_one_device_falls_through(self, cuda_store,
+                                                      monkeypatch, batch, k):
+        """As the JAX store plans "sharded" only with more than one device,
+        the flag on one card plans exactly what the table plans without it,
+        and a forced "sharded" still raises (the plan is not ported)."""
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        want = cuda_store._plan_search(batch, k, None, "auto")
+        monkeypatch.setenv("LATTICE_SHARDED", "1")
+        assert cuda_store._plan_search(batch, k, None, "auto") == want
+        with pytest.raises(NotImplementedError):
+            cuda_store._resolve_plan(batch, k, None, "sharded")
+
+    def test_sharded_flag_plans_as_the_jax_store(self, pair, monkeypatch):
+        """One input through both stores with the flag set: the JAX store
+        plans "sharded" on the tests' 8 host devices, and falls through
+        when `jax.devices` gives one; the port, with one device (or none:
+        the CPU), plans the same method."""
+        import jax
+        js, ps, vecs = pair
+        monkeypatch.setenv("LATTICE_SHARDED", "1")
+        assert js._plan_search(4, 5, None, "auto") == "sharded"
+        one = jax.devices()[:1]
+        monkeypatch.setattr(jax, "devices", lambda *a, **kw: one)
+        j_plan = js._plan_search(4, 5, None, "auto")
+        assert j_plan != "sharded"
+        for count in (0, 1):
+            monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+            assert ps._plan_search(4, 5, None, "auto") == j_plan
+        got = ps.search(vecs[:4], k=5)
+        _assert_same_hits(js.search(vecs[:4], k=5), got)
 
     @pytest.mark.parametrize("method", ["refined", "pq", "int4", "sharded"])
     def test_unported_forced_methods_raise(self, pair, method):

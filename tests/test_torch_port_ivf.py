@@ -736,6 +736,8 @@ class TestPlanTable:
     def test_forced_modes_preempt_ivf(self, cuda):
         s, _ = _clustered_store(256, 32)
         called = self._never_build(s, cuda)
+        # "sharded" is planned only on more than one device, as in JAX
+        cuda.setattr(torch.cuda, "device_count", lambda: 2)
         for flag in ("LATTICE_INT4", "LATTICE_PQ", "LATTICE_SHARDED"):
             cuda.setenv(flag, "1")
             if flag == "LATTICE_INT4":  # ported: the capacity tier serves
