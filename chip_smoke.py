@@ -27,8 +27,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bf16 and f32, unit-normal q/k/v, sm_scale 0.125, mask lengths drawn
    from [1, L] and (B=128) one row fully masked: max abs error <= 1e-2
    (bf16) / 1e-4 (f32), all finite; moving the masked keys and values by
-   +-100 changes no row with a live key by more than 1e-6. The same at
-   ragged (B, L, H) in {(3, 8, 2), (3, 100, 2), (5, 333, 4)}.
+   +-100 changes no row with a live key by more than 1e-6; two calls on
+   the same input bit-identical. The same at ragged (B, L, H) in {(3, 8,
+   2), (3, 100, 2), (5, 333, 4)}, and at L in {100, 333, 512}, B in {1,
+   5, 128}, H=12 on masks that are not prefixes: every key live, the first
+   64 or 128 keys masked, Bernoulli(0.5) holes, one live key at L - 1.
    Kernel B on `merge_cases` (the CPU tests' adversarial lists: ties,
    NEG_INF rows, pads past the live candidates, m = k1, k1 = 512, equal
    and signed-zero scores; and, split over blocks, pads, 600,000
@@ -112,7 +115,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 4c. Encoder timings (information only): chunks/s at B=128, L=512 on
    device-resident ids (CUDA events) with the achieved TFLOP/s, the host
    tokenizer per batch, B=1 query encode and `search_code` p50 (host
-   clock), `paired_attention` beside its plain version at B=128, L=512.
+   clock); a device trace of the encoder (`utils/tracing.py`): busy ms
+   per batch, idle share, `paired_attention`'s share, time by kernel
+   class; `paired_attention` beside its plain version at B=128, L=512 and
+   beside `F.scaled_dot_product_attention` (same additive bias) there on
+   the random-length and on an all-live mask, at B=128 for L in {64, 128,
+   256} and at B=1, L=64, each with the bound of the key tiles its mask
+   needs.
 In 4a, 4d, 4b and after 3e, kernel B is held bit-equal to its plain
 version on the lists each path gives it (A and C at k1=16, B in {1,
 256}; D at k1 in {80, 512}, B in {1, 256}, and a shuffled copy; `ivf_probe`
@@ -584,45 +593,68 @@ def phase_merge_kernel(err: dict) -> None:
         raise AssertionError("merge_candidates took k1 past MAX_K1_LONG")
 
 
+def attention_mask(b: int, ln: int, kind: str, gen: torch.Generator
+                   ) -> torch.Tensor:
+    """A [b, ln] int32 key mask: "prefix" (a length drawn from [1, ln] per
+    row), "live" (every key), "first64" / "first128" (the first 64 / 128
+    keys masked, the rest live), "holes" (each key live with probability
+    0.5) or "last" (only key ln - 1 live)."""
+    pos = torch.arange(ln, device="cuda")[None, :]
+    if kind == "prefix":
+        lengths = torch.randint(1, ln + 1, (b,), device="cuda", generator=gen)
+        mask = pos < lengths[:, None]
+    elif kind == "holes":
+        mask = torch.rand((b, ln), device="cuda", generator=gen) < 0.5
+    else:
+        mask = {"live": pos >= 0, "first64": pos >= 64, "first128": pos >= 128,
+                "last": pos == ln - 1}[kind].expand(b, ln)
+    return mask.to(torch.int32).contiguous()
+
+
+ATTN_MASKS = ("live", "first64", "first128", "holes", "last")
+
+
 def attention_inputs(b: int, ln: int, dtype: torch.dtype,
                      gen: torch.Generator, fully_masked: bool,
-                     heads: int = ATTN_HEADS):
-    """Unit-normal q/k/v [b, ln, heads * 64] and a prefix mask of a length
-    drawn from [1, ln] per row; the last row is fully masked if asked."""
+                     heads: int = ATTN_HEADS, kind: str = "prefix"):
+    """Unit-normal q/k/v [b, ln, heads * 64] and a mask of `kind`
+    (`attention_mask`); the last row is fully masked if asked."""
     shape = (b, ln, heads * 64)
     q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
-    lengths = torch.randint(1, ln + 1, (b,), device="cuda", generator=gen)
-    mask = (torch.arange(ln, device="cuda")[None, :]
-            < lengths[:, None]).to(torch.int32)
+    mask = attention_mask(b, ln, kind, gen)
     if fully_masked:
         mask[-1] = 0
     return q, k, v, mask
 
 
 def check_attention(b: int, ln: int, heads: int, dtype: torch.dtype,
-                    tol: float, gen: torch.Generator) -> float:
+                    tol: float, gen: torch.Generator,
+                    kind: str = "prefix") -> float:
     """One `paired_attention` call against its plain version (max abs
-    error <= tol, all finite); then the masked keys and values move by
-    +-100 and no row with a live key may change by more than 1e-6."""
+    error <= tol, all finite), a second call bit-identical to the first;
+    then the masked keys and values move by +-100 and no row with a live
+    key may change by more than 1e-6."""
     from lattice_tpu_torch.ops import attention as attn
-    q, k, v, mask = attention_inputs(b, ln, dtype, gen, b > 1, heads)
+    q, k, v, mask = attention_inputs(b, ln, dtype, gen, b > 1, heads, kind)
     out = attn.paired_attention(q, k, v, mask, SM_SCALE)
     torch.cuda.synchronize()
     ref = attn.paired_attention_plain(q, k, v, mask, SM_SCALE)
     e = (out - ref).abs().max().item()
-    where = f"{dtype} B={b} L={ln} H={heads}"
+    where = f"{dtype} B={b} L={ln} H={heads} mask {kind}"
     require(out.shape == ref.shape and out.dtype == torch.float32
             and bool(torch.isfinite(out).all()),
             f"paired_attention: bad output {where}")
     require(e <= tol, f"paired_attention: max abs error {e:.3g} > {tol} "
             f"{where}")
+    require(torch.equal(attn.paired_attention(q, k, v, mask, SM_SCALE), out),
+            f"paired_attention: two calls differ {where}")
     dead = mask == 0
     k[dead] += 100.0
     v[dead] -= 100.0
     out2 = attn.paired_attention(q, k, v, mask, SM_SCALE)
     live = mask.sum(1) > 0
-    moved = (out2[live] - out[live]).abs().max().item()
+    moved = (out2[live] - out[live]).abs().max().item() if live.any() else 0.0
     require(moved <= 1e-6, f"paired_attention: masked keys moved a live "
             f"row by {moved:.3g} {where}")
     require(bool(torch.isfinite(out2).all()),
@@ -633,7 +665,10 @@ def check_attention(b: int, ln: int, heads: int, dtype: torch.dtype,
 def phase_attention_kernel(err: dict) -> None:
     """`paired_attention` against its plain version, bf16 and f32, at the
     encoder's widths (H=12, every length bucket), and at ragged lengths
-    and fewer heads (partial key and query tiles)."""
+    and fewer heads (partial key and query tiles); then every mask of
+    ATTN_MASKS (non-prefix masks: whole key tiles masked ahead of live
+    ones, holes, one live key in a partial last tile) at L in {100, 333,
+    512}, B in {1, 5, 128}, H=12, the last row fully masked where B > 1."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
         for b in (1, 128):
@@ -648,6 +683,15 @@ def phase_attention_kernel(err: dict) -> None:
         err["paired_attention"] = max(err["paired_attention"], worst)
         log(f"kernels ok: paired_attention {dtype} (B, L, H) in {ragged}, "
             f"max abs error {worst:.3g}")
+        for kind in ATTN_MASKS:
+            worst = max(check_attention(b, ln, ATTN_HEADS, dtype, tol, gen,
+                                        kind)
+                        for b in (1, 5, 128) for ln in (100, 333, 512))
+            err["paired_attention"] = max(err["paired_attention"], worst)
+            log(f"kernels ok: paired_attention {dtype} mask {kind}, B in "
+                f"(1, 5, 128), L in (100, 333, 512), H={ATTN_HEADS}: max abs "
+                f"error {worst:.3g}, two calls bit-identical, masked-key "
+                f"move <= 1e-6")
 
 
 def phase_probe_kernel(err: dict) -> None:
@@ -867,32 +911,91 @@ def phase_encoder_timings(ctx: dict, kernels_ms: dict, smi: str) -> None:
     ctx["enc_p50"], ctx["search_code_p50"] = enc_p50, search_p50
     log(f"B=1 query encode p50 {enc_p50:.3f} ms (L buckets {sorted(lengths)})"
         f"; B=1 search_code p50 {search_p50:.3f} ms ({smi})")
+    phase_encoder_trace(model, ids, mask, smi)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    q, k, v, m = attention_inputs(ENC_BATCH, ENC_LEN, torch.bfloat16, gen,
-                                  True)
-    # the library's fused attention on the same function: heads split out,
-    # the key mask as the additive -1e9 bias the kernel applies
-    split = [x.view(ENC_BATCH, ENC_LEN, ATTN_HEADS, 64).transpose(1, 2)
-             for x in (q, k, v)]
-    bias = ((1.0 - m.to(torch.bfloat16)) * -1e9)[:, None, None, :]
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        *split, attn_mask=bias, scale=SM_SCALE), 20)
-    attn_flop = 4 * ENC_BATCH * cfg.hidden_size * ENC_LEN ** 2
-    # q, k, v in bf16 and the mask read once, the f32 context written once
-    attn_bytes = (3 * q.numel() * q.element_size() + m.numel() * 4
-                  + q.numel() * 4)
-    row = kernel_row(
-        cuda_ms(lambda: attn.paired_attention(q, k, v, m, SM_SCALE), 20),
-        cuda_ms(lambda: attn.paired_attention_plain(q, k, v, m, SM_SCALE),
-                3, 1),
-        bound(attn_bytes, attn_flop, "bf16"), lib)
-    log(f"kernel paired_attention bf16 B={ENC_BATCH} L={ENC_LEN} "
-        f"H={ATTN_HEADS}: {row['ms']:.4f} ms "
-        f"({attn_flop / row['ms'] / 1e9:.1f} TFLOP/s), plain "
-        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}), scaled_dot_product_attention {lib:.4f} ms "
-        f"({smi})")
-    kernels_ms["paired_attention"] = row
+    # the timing input of the table (mask lengths drawn from [1, L], the
+    # last row fully masked), then every key live, then the other length
+    # buckets and the query encode's (B=1, L=64)
+    for b, ln, kind in ((ENC_BATCH, ENC_LEN, "prefix"),
+                        (ENC_BATCH, ENC_LEN, "live"), (ENC_BATCH, 64, "prefix"),
+                        (ENC_BATCH, 128, "prefix"), (ENC_BATCH, 256, "prefix"),
+                        (1, 64, "prefix")):
+        q, k, v, m = attention_inputs(b, ln, torch.bfloat16, gen,
+                                      kind == "prefix" and b > 1, kind=kind)
+        # the library's fused attention on the same function: heads split
+        # out, the key mask as the additive -1e9 bias the kernel applies
+        split = [x.view(b, ln, ATTN_HEADS, 64).transpose(1, 2)
+                 for x in (q, k, v)]
+        bias = ((1.0 - m.to(torch.bfloat16)) * -1e9)[:, None, None, :]
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            *split, attn_mask=bias, scale=SM_SCALE), 20)
+        attn_bytes, attn_flop = attention_work(m, ATTN_HEADS)
+        main = (b, ln, kind) == (ENC_BATCH, ENC_LEN, "prefix")
+        row = kernel_row(
+            cuda_ms(lambda: attn.paired_attention(q, k, v, m, SM_SCALE), 20),
+            cuda_ms(lambda: attn.paired_attention_plain(q, k, v, m, SM_SCALE),
+                    3, 1) if main else None,
+            bound(attn_bytes, attn_flop, "bf16"), lib)
+        plain = f"plain {row['plain_ms']:.4f} ms, " if main else ""
+        log(f"kernel paired_attention bf16 B={b} L={ln} H={ATTN_HEADS} mask "
+            f"{kind}: {row['ms']:.4f} ms ({attn_flop / row['ms'] / 1e9:.1f} "
+            f"TFLOP/s of the products its mask needs), {plain}bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+            f"{attn_bytes / 1e9:.4f} GB, {attn_flop / 1e9:.2f} GFLOP), "
+            f"scaled_dot_product_attention {lib:.4f} ms ({smi})")
+        if main:
+            kernels_ms["paired_attention"] = row
+
+
+def attention_work(mask: torch.Tensor, heads: int) -> tuple[float, float]:
+    """Bytes and operations that bf16 `paired_attention` needs on `mask`:
+    q and the mask read once, the K and V rows of every 64-key tile that
+    holds a live key (of every tile, for a row without one), the f32
+    context written once; both products over the keys of those tiles."""
+    b, ln = mask.shape
+    tiles = -(-ln // 64)
+    live = torch.zeros((b, tiles * 64), dtype=torch.bool, device=mask.device)
+    live[:, :ln] = mask > 0
+    live = live.view(b, tiles, 64).any(-1)
+    run = live | ~live.any(1, keepdim=True)
+    width = (ln - 64 * torch.arange(tiles, device=mask.device)).clamp(max=64)
+    keys = (run * width).sum().item()
+    w = heads * 64
+    n_bytes = 2 * b * ln * w + 2 * 2 * keys * w + 4 * b * ln + 4 * b * ln * w
+    return n_bytes, 4 * w * ln * keys
+
+
+def phase_encoder_trace(model, ids: torch.Tensor, mask: torch.Tensor,
+                        smi: str, n: int = 4) -> None:
+    """A `utils/tracing.py` device trace of `n` encoder forwards on
+    device-resident ids: busy ms per batch, the idle share of the traced
+    window, `paired_attention`'s share of busy time, and the time by
+    kernel class."""
+    from lattice_tpu_torch.utils.tracing import (categorize_device_trace,
+                                                 device_trace,
+                                                 summarize_device_trace)
+    where = str(Path(__file__).resolve().parent / "build" / "traces"
+                / "encoder")
+    model.encode_device(ids, mask)
+    torch.cuda.synchronize()
+    with device_trace(where):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            model.encode_device(ids, mask)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    summ = summarize_device_trace(where, "GPU", top=1 << 20)
+    require("error" not in summ and summ["total_ms"] > 0,
+            f"encoder trace: {summ.get('error', 'no device time')}")
+    busy = summ["total_ms"]
+    attn_ms = sum(ms for name, ms, _ in summ["ops"] if "paired_attn_" in name)
+    cats = categorize_device_trace(where)["categories"]
+    log(f"encoder trace, {n} forwards B={ENC_BATCH} L={ENC_LEN}: device busy "
+        f"{busy / n:.3f} ms per batch, idle {1 - busy / wall:.4f} of the "
+        f"traced window ({wall / n:.3f} ms per batch under the profiler); "
+        f"paired_attention {attn_ms / n:.4f} ms per batch = "
+        f"{attn_ms / busy:.4f} of busy time; by kernel class (ms over {n} "
+        f"batches): {cats} ({smi})")
 
 
 def probe_plain_chunked(q, probe, data, ids, k, max_batch=32):

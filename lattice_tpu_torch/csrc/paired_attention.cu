@@ -1,4 +1,4 @@
-// Paired self-attention kernel for Hopper (sm_90a), plain C interface.
+// Paired self-attention kernels for Hopper (sm_90a), plain C interface.
 //
 // paired_attention replaces `_paired_attn_kernel` via `paired_attention`
 // (lattice_tpu/ops/attention.py:42, :71). For batch row b, head h and
@@ -11,31 +11,57 @@
 // masked sees equal scores (-1e9 absorbs a unit-scale score in f32) and
 // comes out as the mean of V, finite, as in the reference.
 //
-// What bounds it on the H100: at the encoder's shape (B=128, L=512, H=12)
-// one call is 4*B*L^2*H*64 = 103 GFLOP against ~0.5 GB of bf16 q/k/v and
-// f32 out: the products, not the bytes. The bf16 kernel (the serving path)
-// therefore runs both products on tensor cores and never writes the [L, L]
-// scores to device memory:
-// - one block per (64-query tile, head, batch row); 4 warps of 16 queries;
-// - K and V tiles of 64 keys stream through shared memory as 16-byte
-//   cp.async copies of the 128-byte head slices, double buffered so the
-//   next tile's copy overlaps this tile's products; shared rows are padded
-//   to 144 bytes so the ldmatrix reads are free of bank conflicts;
-// - QK^T and PV with mma.sync m16n8k16 (bf16 in, f32 accumulate); the
-//   score fragments are reused in registers as the A operand of PV;
-// - an online softmax in f32 registers (running max and sum per row, the
-//   context rescaled when the max grows). The TPU kernel's full-row
-//   softmax held an [L, L] tile in VMEM, which does not fit a block here;
-//   the two differ only in rounding;
-// - p is rounded to bf16 for the PV product (the reference's rounding
-//   point) while the denominator sums the f32 p.
-// Keys past L are excluded outright (-inf, zero-filled rows); masked keys
-// keep -1e9 and no tile is skipped, so all-masked rows stay right.
+// What bounds the bf16 kernel (the serving path) on the H100, at the
+// encoder's shape (B=128, L=512, H=12, every key live):
+// - bytes: bf16 q/k/v and the int32 mask read once, the f32 context
+//   written once: 0.50 GB, 0.1503 ms at 3.35 TB/s;
+// - operations: 4*B*H*L^2*64 = 103 GFLOP, 0.1042 ms at 989 TFLOP/s;
+// - exps: B*H*L^2 = 402.7 M, ~0.11 ms at 16 a clock on each of 132 SMs,
+//   as much as the products, so the softmax must hide behind them.
+// What the design does about each:
+// - one block per (128-query tile, head, batch row): K/V cross L2 L/128
+//   times, and the [L, L] scores never leave registers;
+// - K/V tiles of 64 keys come by TMA (3-D maps over (W, L, B), boxes of
+//   64 columns x 64 rows, 128-byte swizzle, which is the layout a 128-byte
+//   swizzled wgmma descriptor reads; rows past L read as zeros) into a
+//   ring of STAGES slots with full and empty mbarriers. Thread 0 issues
+//   every load: the first STAGES tiles at the start, then each tile into
+//   the slot that the tile STAGES before it leaves, once every consumer
+//   warp has released it, so loads run STAGES - 1 tiles ahead. A separate
+//   producer warp would only add a ninth warp to the block;
+// - two consumer warpgroups of 64 queries run both products on wgmma
+//   (bf16 in, f32 accumulate): S = Q K^T as m64n64k16 from shared memory,
+//   both K-major; O += P V as m64n64k16 with P from registers (the S
+//   accumulator's layout is the A fragment's, so it converts in place) and
+//   V, stored [key][d], read through the descriptor's transpose bit;
+// - the softmax costs one FFMA and one ex2 a score: s2 = dot *
+//   (sm_scale * log2 e) + neg * log2 e, p = 2^(s2 - max s2), with each
+//   row's running max and sum in f32 registers. Tile j's QK^T and tile
+//   j - 1's PV are issued as two groups and waited together; the softmax
+//   overlaps the products of the SM's other warpgroups (two blocks of two
+//   at <= 128 registers). Waiting one group apart, so that tile j's
+//   softmax ran beside tile j - 1's PV in the same warpgroup, made ptxas
+//   serialize the wgmmas (C7513) and measured slower on the H100;
+// - key tiles whose 64 keys are all masked are skipped when the batch row
+//   has a live key. That is exact: the row max is then at least the live
+//   key's score, a masked score sits near -1.44e9 in log2 units, so its
+//   2^(s2 - max) is 0 in f32, and the tile would add zeros to O and the
+//   sum and leave the max as it is. A row with no live key skips nothing:
+//   its answer is the mean of V over every key. The mask need not be a
+//   prefix; all threads read it once per block, and a ballot per warp marks
+//   the live tiles.
+// Rounding points: f32 scores, max, exps and sums; p rounded to bf16 for
+// the PV product (the reference's point) while the sum adds the f32 p;
+// the context divided once by the sum and stored as f32, 16-byte rows
+// through shared memory. The TPU kernel's full-row softmax held an [L, L]
+// tile in VMEM, which does not fit here; the online softmax differs from
+// it only in rounding. Keys past L are excluded outright (a -inf bias on
+// zero-filled rows).
 // The f32 entry (the dtype="float32" configuration, not the serving path)
-// is a plain FMA kernel with the same tiling: one thread per query row, K
-// and V tiles in shared memory, f32 throughout.
-// Simple first: no wgmma, TMA or warp specialisation.
+// is a plain FMA kernel: one thread per query row, K and V tiles in shared
+// memory, f32 throughout.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -43,13 +69,10 @@
 namespace {
 
 constexpr int D = 64;                 // head dim (ops/attention.py HEAD_DIM)
-constexpr int BM = 64;                // queries per block
+constexpr int BM = 64;                // f32 kernel: queries per block
 constexpr int BN = 64;                // keys per tile
 constexpr int MAX_L = 512;            // ops/attention.py MAX_LEN
-constexpr int THREADS = 128;          // bf16 kernel: 4 warps x 16 queries
-constexpr int LDS = D + 8;            // padded shared row, bf16 elements
 constexpr float MASKED = -1e9f;
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -57,222 +80,393 @@ __device__ __forceinline__ float key_bias(const int* mask_row, int key, int L) {
   return key < L ? (mask_row[key] > 0 ? 0.f : MASKED) : neg_inf();
 }
 
-// ---- bf16: tensor cores ------------------------------------------------------
+// ---- bf16: wgmma products, a TMA-fed K/V ring --------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;        // 0 bytes read: the 16 are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
+constexpr int WG_ROWS = 64;                    // queries of a consumer warpgroup
+constexpr int CONSUMERS = 2;                   // consumer warpgroups a block
+constexpr int QT = CONSUMERS * WG_ROWS;        // queries a block
+constexpr int THREADS = 128 * CONSUMERS;
+constexpr int STAGES = 4;                      // K/V ring slots
+constexpr int MAX_TILES = MAX_L / BN;
+constexpr int TILE = BN * D * 2;               // bytes of one 64 x 64 bf16 tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float MASKED2 = MASKED * LOG2E;      // the masked bias in log2 units
+constexpr unsigned FULL = 0xffffffffu;
+
+// shared memory from a 1024-byte aligned base (the 128-byte swizzle repeats
+// every 8 rows of 128 bytes)
+constexpr int SM_Q = 0;                                   // [CONSUMERS] tiles
+constexpr int SM_K = SM_Q + CONSUMERS * TILE;             // [STAGES] tiles
+constexpr int SM_V = SM_K + STAGES * TILE;                // [STAGES] tiles
+constexpr int SM_NEG = SM_V + STAGES * TILE;              // [MAX_L] f32
+constexpr int SM_LIVE = SM_NEG + MAX_L * 4;               // [MAX_TILES] flags
+constexpr int SM_LIST = SM_LIVE + MAX_TILES * 4;          // tiles run, count
+constexpr int SM_BAR = SM_LIST + (MAX_TILES + 2) * 4;     // q, full[], empty[]
+constexpr int SMEM = SM_BAR + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// one box of a 3-D map into shared memory; completion counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(c2), "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
-                                              const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+// K and V rows [r0, r0 + 64) of head h, batch row b, into ring slot st
+__device__ __forceinline__ void load_kv(uint32_t base, const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int h, int r0,
+                                        int b, int st, uint32_t bar_full) {
+  mbar_expect_tx(bar_full + 8 * st, 2 * TILE);
+  tma_load(base + SM_K + st * TILE, tk, h * D, r0, b, bar_full + 8 * st);
+  tma_load(base + SM_V + st * TILE, tv, h * D, r0, b, bar_full + 8 * st);
 }
 
-// c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<unsigned*>(&v);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows [r0, r0 + 64) of one head's [L, 64] slice (row stride W) into a
-// padded shared tile; rows past L are zero-filled, so a masked product
-// never meets garbage.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int L, int W) {
+// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
+// address, leading and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// K-major 64 x 64 tile (rows of 128 bytes): one k16 step is 32 bytes on
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return smem_desc(addr, 16, 1024);
+}
+
+// V [key][d] as the B operand of P V (N-major): a k16 step is 16 rows on.
+// N = 64 is one swizzle atom, so only the 8-row stride (1024) is read;
+// both offsets carry it.
+__device__ __forceinline__ uint64_t nmajor_desc(uint32_t addr) {
+  return smem_desc(addr, 1024, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits for every committed wgmma group of this warpgroup
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins accumulator registers at this point of the program, so that no
+// access to them moves across the asynchronous wgmma that owns them.
+__device__ __forceinline__ void hold(float (&d)[32]) {
 #pragma unroll
-  for (int it = 0; it < BN * (D / 8) / THREADS; ++it) {
-    const int i = it * THREADS + threadIdx.x;
-    const int r = i >> 3, c = (i & 7) * 8;
-    const bool ok = r0 + r < L;
-    cp_async16(dst + r * LDS + c, src + (size_t)(ok ? r0 + r : 0) * W + c,
-               ok);
-  }
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t; an A or C
-// register pair covers row g (regs 0, 1) or g + 8 (regs 2, 3), columns
-// 2t and 2t + 1 (A's regs 2, 3 the same columns + 8); a B register covers
-// column g, rows 2t and 2t + 1 (+ 8 for the second).
-__global__ void __launch_bounds__(THREADS)
-paired_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
+__device__ __forceinline__ void hold(uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(p[i / 4][i % 4])::"memory");
+}
+
+#define ACC32(d)                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define REGS32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both K-major in shared memory;
+// acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d[64 x 64] += A[64 x 16] (bf16 pairs in registers) . B[16 x 64], B
+// N-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// S of this warpgroup's 64 queries against one K tile: four k16 steps
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint64_t dq,
+                                         uint32_t kt) {
+  const uint64_t dk = kmajor_desc(kt);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+  wg_commit();
+}
+
+// O += P . V over one tile: P's k16 step kk is keys [16kk, 16kk + 16)
+__device__ __forceinline__ void issue_pv(float (&o)[32],
+                                         const uint32_t (&p)[4][4],
+                                         uint32_t vt) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, p[kk], nmajor_desc(vt + kk * 2048));
+  wg_commit();
+}
+
+// Accumulator layout (PTX ISA, wgmma .m64nNk16 D): in warp w of the
+// warpgroup, lane 4g + t holds d[4i + r] at row 16w + g + 8 (r >> 1),
+// column 8i + 2t + (r & 1). One tile's scores become probabilities in
+// place: s2 = dot * scale2 + nb (log2 units), the running max m and the
+// per-lane partial sum l of rows g and g + 8 updated, a0 and a1 the factors
+// that rescale what came before.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], const float* nb,
+                                             float scale2, int t4, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& a0, float& a1) {
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 n = *reinterpret_cast<const float2*>(nb + 8 * i + 2 * t4);
+    s[4 * i] = fmaf(s[4 * i], scale2, n.x);
+    s[4 * i + 1] = fmaf(s[4 * i + 1], scale2, n.y);
+    s[4 * i + 2] = fmaf(s[4 * i + 2], scale2, n.x);
+    s[4 * i + 3] = fmaf(s[4 * i + 3], scale2, n.y);
+    mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+  // the first tile run holds a key < L, so the max is finite from there on
+  // and 2^(-inf - max) = 0 clears the empty start
+  a0 = ex2(m0 - mx0);
+  a1 = ex2(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    s[4 * i] = ex2(s[4 * i] - m0);
+    s[4 * i + 1] = ex2(s[4 * i + 1] - m0);
+    s[4 * i + 2] = ex2(s[4 * i + 2] - m1);
+    s[4 * i + 3] = ex2(s[4 * i + 3] - m1);
+    ps0 += s[4 * i] + s[4 * i + 1];
+    ps1 += s[4 * i + 2] + s[4 * i + 3];
+  }
+  l0 = l0 * a0 + ps0;
+  l1 = l1 * a1 + ps1;
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+paired_attn_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
                         const int* __restrict__ mask, int L, int W,
-                        float scale, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][LDS]
-  __nv_bfloat16* ks = qs + BM * LDS;                           // [2][BN][LDS]
-  __nv_bfloat16* vs = ks + 2 * BN * LDS;                       // [2][BN][LDS]
-  float* neg = reinterpret_cast<float*>(vs + 2 * BN * LDS);    // [tiles*BN]
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
+                        float scale2, float* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  float* neg2 = reinterpret_cast<float*>(sm + SM_NEG);
+  int* live = reinterpret_cast<int*>(sm + SM_LIVE);
+  int* list = reinterpret_cast<int*>(sm + SM_LIST);  // list[MAX_TILES] = count
+  const uint32_t bar_q = base + SM_BAR;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * STAGES;
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_tiles = (L + BN - 1) / BN;
-  const size_t head = (size_t)b * L * W + (size_t)h * D;
-  const __nv_bfloat16* qh = q + head;
-  const __nv_bfloat16* kh = k + head;
-  const __nv_bfloat16* vh = v + head;
+  // consumer warpgroups with a query row < L
+  const int active = min(CONSUMERS, (L - q0 + WG_ROWS - 1) / WG_ROWS);
 
-  for (int j = threadIdx.x; j < n_tiles * BN; j += THREADS)
-    neg[j] = key_bias(mask + (size_t)b * L, j, L);
-  load_tile(qs, qh, q0, L, W);
-  load_tile(ks, kh, 0, L, W);
-  load_tile(vs, vh, 0, L, W);
-  cp_async_commit();
-  cp_async_wait_all();
+  if (tid < MAX_TILES) live[tid] = 0;
   __syncthreads();
-
-  // this warp's 16 query rows as A fragments, one per 16-wide d step
-  unsigned qf[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                        kk * 16 + (lane >> 4) * 8);
-
-  float o[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = neg_inf(), m1 = neg_inf(), l0 = 0.f, l1 = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile(ks + (cur ^ 1) * BN * LDS, kh, (t + 1) * BN, L, W);
-      load_tile(vs + (cur ^ 1) * BN * LDS, vh, (t + 1) * BN, L, W);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* kt = ks + cur * BN * LDS;
-    const __nv_bfloat16* vt = vs + cur * BN * LDS;
-
-    // s = q . k^T over this tile's 64 keys: 8 fragments of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        unsigned r[4];
-        ldsm_x4(r, kt + (nn * 16 + (lane & 7) + (lane >> 4) * 8) * LDS +
-                       kk * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * nn], qf[kk], r[0], r[1]);
-        mma16816(s[2 * nn + 1], qf[kk], r[2], r[3]);
-      }
-    }
-
-    // scale, mask, and the running row max (rows g and g + 8)
-    const float* nt = neg + t * BN;
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float n0 = nt[j * 8 + 2 * t4], n1 = nt[j * 8 + 2 * t4 + 1];
-      s[j][0] = s[j][0] * scale + n0;
-      s[j][1] = s[j][1] * scale + n1;
-      s[j][2] = s[j][2] * scale + n0;
-      s[j][3] = s[j][3] * scale + n1;
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
-    // key 0 is in the first tile, so the max is finite from there on and
-    // exp(-inf - max) = 0 clears the empty start
-    const float a0 = expf(m0 - mx0), a1 = expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = expf(s[j][0] - m0);
-      s[j][1] = expf(s[j][1] - m0);
-      s[j][2] = expf(s[j][2] - m1);
-      s[j][3] = expf(s[j][3] - m1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * a0 + ps0;     // per-lane partial sums; reduced at the end
-    l1 = l1 * a1 + ps1;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[j][0] *= a0;
-      o[j][1] *= a0;
-      o[j][2] *= a1;
-      o[j][3] *= a1;
-    }
-
-    // o += bf16(p) . v: the score fragments of keys [16kk, 16kk + 16) are
-    // the A fragment of step kk
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < 4; ++dd) {
-        unsigned r[4];
-        ldsm_x4_trans(r, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  LDS + dd * 16 + (lane >> 4) * 8);
-        mma16816(o[2 * dd], pa, r[0], r[1]);
-        mma16816(o[2 * dd + 1], pa, r[2], r[3]);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
+  // each key's bias in log2 units and each tile's liveness; the 32 keys of
+  // a warp lie in one tile
+  const int* mrow = mask + (size_t)b * L;
+  for (int j = tid; j < n_tiles * BN; j += THREADS) {
+    const bool on = j < L && mrow[j] > 0;
+    neg2[j] = j < L ? (on ? 0.f : MASKED2) : neg_inf();
+    if (__ballot_sync(FULL, on) && lane == 0) live[j / BN] = 1;
   }
+  __syncthreads();
+  if (tid == 0) {
+    // the tiles to run: the live ones, or every one for a row without a
+    // live key
+    int any = 0, n = 0;
+    for (int t = 0; t < n_tiles; ++t) any |= live[t];
+    for (int t = 0; t < n_tiles; ++t)
+      if (live[t] || !any) list[n++] = t;
+    list[MAX_TILES] = n;
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * active);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int count = list[MAX_TILES];
+
+  // thread 0 issues every TMA load: Q and the ring's first STAGES tiles
+  // here, each later tile into the slot that the tile STAGES before it
+  // leaves (below)
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, active * TILE);
+    for (int w = 0; w < active; ++w)
+      tma_load(base + SM_Q + w * TILE, &tq, h * D, q0 + w * WG_ROWS, b, bar_q);
+    for (int n = 0; n < min(count, STAGES); ++n)
+      load_kv(base, &tk, &tv, h, list[n] * BN, b, n, bar_full);
+  }
+  const int wg = warp >> 2;
+  if (wg >= active) return;
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint64_t dq = kmajor_desc(base + SM_Q + wg * TILE);
+  float s[32], o[32];
+  uint32_t p[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) p[i / 4][i % 4] = 0u;
+  float m0 = neg_inf(), m1 = neg_inf(), l0 = 0.f, l1 = 0.f;
+  mbar_wait(bar_q, 0);
+
+  for (int n = 0; n < count; ++n) {
+    const int st = n % STAGES, prev = (n + STAGES - 1) % STAGES;
+    mbar_wait(bar_full + 8 * st, (n / STAGES) & 1);
+    // o and p are final before the first wgmma of the group: an access
+    // between the two issues would serialize them
+    hold(s);
+    hold(o);
+    hold(p);
+    issue_qk(s, dq, base + SM_K + st * TILE);
+    if (n > 0) issue_pv(o, p, base + SM_V + prev * TILE);  // the last tile's PV
+    wg_wait();
+    hold(s);
+    hold(o);
+    hold(p);
+    if (n > 0) {  // the last tile's slot is read: refill it
+      if (lane == 0) mbar_arrive(bar_empty + 8 * prev);
+      if (tid == 0 && n - 1 + STAGES < count) {
+        mbar_wait(bar_empty + 8 * prev, ((n - 1) / STAGES) & 1);
+        load_kv(base, &tk, &tv, h, list[n - 1 + STAGES] * BN, b, prev,
+                bar_full);
+      }
+      __syncwarp();
+    }
+    float a0, a1;
+    softmax_tile(s, neg2 + list[n] * BN, scale2, t4, m0, m1, l0, l1, a0, a1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      o[4 * i] *= a0;
+      o[4 * i + 1] *= a0;
+      o[4 * i + 2] *= a1;
+      o[4 * i + 3] *= a1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  }
+  const int last = (count - 1) % STAGES;
+  hold(o);
+  issue_pv(o, p, base + SM_V + last * TILE);
+  wg_wait();
+  hold(o);
 
   l0 += __shfl_xor_sync(FULL, l0, 1);
   l0 += __shfl_xor_sync(FULL, l0, 2);
   l1 += __shfl_xor_sync(FULL, l1, 1);
   l1 += __shfl_xor_sync(FULL, l1, 2);
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  float* ob = out + head;
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  // the context through this warpgroup's Q slot, 32 columns at a time; the
+  // 16-byte chunks of row r sit at chunk ^ (r & 7), so neither the
+  // fragment writes nor the row reads conflict
+  float* stg = reinterpret_cast<float*>(sm + SM_Q + wg * TILE);
+  const int r0 = 16 * (warp & 3) + g, wt = tid & 127;  // r0 & 7 == g
+  float* ob = out + (size_t)b * L * W + h * D;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = j * 8 + 2 * t4;
-    if (row0 < L)
-      *reinterpret_cast<float2*>(ob + (size_t)row0 * W + c) =
-          make_float2(o[j][0] / l0, o[j][1] / l0);
-    if (row1 < L)
-      *reinterpret_cast<float2*>(ob + (size_t)row1 * W + c) =
-          make_float2(o[j][2] / l1, o[j][3] / l1);
+  for (int half = 0; half < 2; ++half) {
+    named_sync(1 + wg);
+#pragma unroll
+    for (int i = 4 * half; i < 4 * half + 4; ++i) {
+      const int c = 8 * i + 2 * t4 - 32 * half;
+      const int at = (((c >> 2) ^ g) << 2) | (c & 3);
+      *reinterpret_cast<float2*>(stg + r0 * 32 + at) =
+          make_float2(o[4 * i] * i0, o[4 * i + 1] * i0);
+      *reinterpret_cast<float2*>(stg + (r0 + 8) * 32 + at) =
+          make_float2(o[4 * i + 2] * i1, o[4 * i + 3] * i1);
+    }
+    named_sync(1 + wg);
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int idx = it * 128 + wt, r = idx >> 3, c = idx & 7;
+      const int row = q0 + wg * WG_ROWS + r;
+      if (row < L)
+        *reinterpret_cast<float4*>(ob + (size_t)row * W + 32 * half + 4 * c) =
+            *reinterpret_cast<const float4*>(stg + r * 32 + ((c ^ (r & 7)) << 2));
+    }
   }
 }
 
@@ -381,6 +575,49 @@ bool bad_shape(int B, int L, int H) {
          H > 65535;
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda function, found through the runtime
+// so that this library does not link libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over one of q/k/v [B, L, W] bf16 (innermost first: W, L, B)
+// in boxes of 64 columns x 64 rows of one batch row, 128-byte swizzled;
+// rows past L read as zeros, which a 2-D map over B * L rows would not give.
+bool head_map(CUtensorMap* map, const void* x, int B, int L, int W) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)L * W * 2};
+  const cuuint32_t box[3] = {D, BN, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
@@ -391,18 +628,19 @@ int lt_paired_attention_bf16(const void* q, const void* k, const void* v,
                              const void* mask, int B, int L, int H,
                              float scale, void* out, void* stream) {
   if (bad_shape(B, L, H)) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (L + BN - 1) / BN;
-  const size_t smem = (size_t)(BM + 4 * BN) * LDS * sizeof(__nv_bfloat16) +
-                      (size_t)n_tiles * BN * sizeof(float);
+  const int W = H * D;
+  CUtensorMap tq, tk, tv;
+  if (!head_map(&tq, q, B, L, W) || !head_map(&tk, k, B, L, W) ||
+      !head_map(&tv, v, B, L, W))
+    return (int)cudaErrorInvalidValue;
   auto kern = paired_attn_bf16_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_tiles, H, B);
-  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(mask), L,
-      H * D, scale, static_cast<float*>(out));
+  const dim3 grid((L + QT - 1) / QT, H, B);
+  kern<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<const int*>(mask), L, W, scale * LOG2E,
+      static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

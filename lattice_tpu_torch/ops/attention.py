@@ -5,17 +5,32 @@ full-row softmax self-attention over q/k/v [B, L, H*64] in the layout the
 Q/K/V projections produce (head h in columns [64h, 64h + 64)), so no
 transpose feeds it; out is the f32 context in the same layout. It is the
 hand-written CUDA kernel `csrc/paired_attention.cu`, which replaces
-`_paired_attn_kernel` (attention.py:42). The kernel's design and what
-bounds it on the H100 are written at the head of the CUDA source: both
-products on tensor cores (bf16) and the [L, L] scores never in device
-memory.
+`_paired_attn_kernel` via `paired_attention` (attention.py:42, :71).
+
+What bounds the bf16 kernel on the H100 at the encoder's shape (B=128,
+L=512, H=12, every key live): bytes 0.1503 ms (q/k/v and the mask read
+once, the f32 context written once, at 3.35 TB/s), operations 0.1042 ms
+(103 GFLOP at 989 TFLOP/s), and B*H*L^2 = 402.7 M exps, ~0.11 ms at the
+special-function units' 16 a clock per SM. What the design does (details
+at the head of the CUDA source): a block of 128 queries streams K/V tiles
+of 64 keys through a TMA-fed ring, so K/V cross L2 L/128 times and the
+scores never leave registers; both products run on `wgmma`; each score
+costs one FFMA and one `ex2` (scale and bias folded in log2 units), and a
+tile's softmax runs while the tensor cores do the previous tile's PV.
+
+Key tiles whose 64 keys are all masked are skipped when the batch row has
+a live key. That is exact: the row max is then at least the live key's
+score, a masked score sits ~1e9 below it, so its exp is 0 in f32 and the
+tile adds zeros and leaves the max as it is. A row with no live key runs
+every tile: its answer is the mean of V over all keys.
 
 `paired_attention_plain` is the same function in torch, with the kernel's
 rounding points: f32 scores, `s * sm_scale + neg` with neg 0 / -1e9 from
 `mask > 0`, a full-row max and exp, p rounded to the input dtype before
-the PV product, and the context divided by the f32 sum of p. The wrapper
-takes it only for tensors on the CPU; a CUDA tensor launches the kernel or
-raises `KernelError`.
+the PV product, and the context divided by the f32 sum of p. The kernel's
+online softmax differs from it only in rounding. The wrapper takes it only
+for tensors on the CPU; a CUDA tensor launches the kernel or raises
+`KernelError`.
 """
 
 from __future__ import annotations

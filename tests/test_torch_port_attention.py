@@ -106,6 +106,111 @@ def test_lengths_match_jax(ln):
                                _jax(q, k, v, mask, jnp.float32), atol=2e-4)
 
 
+def _mask(kind, b, ln, seed):
+    """Masks that are not prefixes (the card's kernel skips the 64-key
+    tiles that hold no live key): the first 64 or 128 keys masked,
+    Bernoulli(0.5) holes, or one live key at L - 1 (a partial last tile
+    when L is not a multiple of 64). The last row is fully masked."""
+    pos = np.arange(ln)[None, :]
+    mask = {"first64": pos >= 64, "first128": pos >= 128,
+            "holes": np.random.default_rng(seed).random((b, ln)) < 0.5,
+            "last": pos == ln - 1}[kind]
+    mask = np.broadcast_to(mask, (b, ln)).astype(np.int32).copy()
+    mask[-1] = 0
+    return mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind, ln", [("first64", 192), ("first128", 192),
+                                      ("holes", 192), ("last", 100),
+                                      ("last", 150)])
+def test_non_prefix_masks_match_jax(kind, ln, dtype):
+    q, k, v, _ = _inputs(seed=ln, ln=ln)
+    mask = _mask(kind, B, ln, seed=ln)
+    jdt, tol = ((jnp.float32, 2e-4) if dtype == torch.float32
+                else (jnp.bfloat16, 2e-3))
+    got = _port(q, k, v, mask, dtype)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _jax(q, k, v, mask, jdt), atol=tol)
+    if dtype == torch.float32:
+        live = mask.sum(1) > 0
+        np.testing.assert_allclose(
+            got[live], attention_oracle(q, k, v, mask, SCALE)[live],
+            atol=tol)
+
+
+def _attend(q, k, v, mask, sm_scale):
+    """`paired_attention_plain`'s arithmetic step for step, with K, V and
+    the mask of their own length (not Q's)."""
+    neg = torch.where(mask > 0, 0.0, attn.MASKED).to(torch.float32)
+    s = attn._heads(q) @ attn._heads(k).transpose(-1, -2)
+    s = s * sm_scale + neg[:, None, None, :]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    c = p.to(v.dtype).float() @ attn._heads(v)
+    return (c / p.sum(dim=-1, keepdim=True)).transpose(1, 2).reshape(q.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropping_all_masked_key_tiles_is_exact(dtype):
+    """The invariant the card's tile skip rests on: in a row with a live
+    key, a whole 64-key tile of masked keys adds exp(-1e9 - max) = 0 to
+    every sum, so dropping it from K, V and the mask changes nothing. In a
+    row with no live key every key counts (the mean of V), so dropping a
+    tile changes the output and the kernel must run every tile there."""
+    ln = 192
+    q, k, v, _ = _inputs(seed=13, ln=ln)
+    mask = _mask("holes", B, ln, seed=13)
+    mask[0, :64] = 0                  # tile 0 masked, tiles 1 and 2 live
+    mask[1, :64] = mask[1, 128:] = 0  # only tile 1 live
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    mask = torch.from_numpy(mask)
+    out = attn.paired_attention(q, k, v, mask, SCALE)
+    torch.testing.assert_close(_attend(q, k, v, mask, SCALE), out,
+                               rtol=0, atol=0)
+    np.testing.assert_allclose(
+        out.numpy(), _jax(*(x.float().numpy() for x in (q, k, v)),
+                          mask.numpy(),
+                          jnp.float32 if dtype == torch.float32
+                          else jnp.bfloat16),
+        atol=2e-4 if dtype == torch.float32 else 2e-3)
+    for row, drop in ((0, [0]), (1, [0, 2]), (2, [0])):
+        keep = torch.cat([torch.arange(64 * t, 64 * t + 64)
+                          for t in range(ln // 64) if t not in drop])
+        less = _attend(q[row:row + 1], k[row:row + 1, keep],
+                       v[row:row + 1, keep], mask[row:row + 1, keep], SCALE)
+        diff = (less - out[row:row + 1]).abs().max().item()
+        if row < 2:
+            assert diff <= 1e-6, (row, diff)
+        else:
+            assert diff > 1e-3, (row, diff)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_all_masked_row_at_encoder_score_range(dtype):
+    """Unit-normal q/k at the encoder's scale and longest length: the
+    -1e9 bias absorbs every score (|dot * 0.125| stays far below half an
+    f32 ulp of 1e9, 32), so all scores of a row without a live key are
+    equal and the row is the mean of V, as the card's folded
+    `dot * scale * log2 e + bias * log2 e` relies on."""
+    ln = attn.MAX_LEN
+    q, k, v, _ = _inputs(seed=17, b=2, ln=ln)
+    mask = np.ones((2, ln), np.int32)
+    mask[1] = 0
+    got = _port(q, k, v, mask, dtype)
+    qt, kt, vt = (torch.from_numpy(x).to(dtype).float().numpy()
+                  for x in (q, k, v))
+    dots = np.einsum("lhd,mhd->hlm", qt[1].reshape(ln, -1, 64),
+                     kt[1].reshape(ln, -1, 64)) * SCALE
+    assert 1.0 < np.abs(dots).max() < 32.0
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[1], np.broadcast_to(vt[1].mean(0),
+                                                       (ln, W)), atol=1e-5)
+    np.testing.assert_allclose(
+        got, _jax(q, k, v, mask,
+                  jnp.float32 if dtype == torch.float32 else jnp.bfloat16),
+        atol=2e-4 if dtype == torch.float32 else 2e-3)
+
+
 def test_cpu_tensors_launch_nothing():
     before = _build.launch_counts()["paired_attention"]
     q, k, v, mask = _inputs()
