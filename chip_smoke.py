@@ -5,13 +5,19 @@ NVIDIA card.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 1. Device: require CUDA; print the card and its power limit; build the
-   kernels of `lattice_tpu_torch/csrc/` and print the build time.
+   kernels of `lattice_tpu_torch/csrc/` and print the build time, and
+   kernel D's registers and local memory per thread (`cuobjdump`).
 2. Kernels against their plain versions on the card, at N in {4099,
    1048576}, B in {1, 16, 256}, k in {1, 10, 64}, with masked rows.
    int8 (kernel C + B): first-stage ids identical, scores within 1 ulp.
    int4 (kernel D + B) at the `Int4View` widths (k1 = max(k, 16) and
    max(8k, 32): up to 512) and at d = 100: ids identical, scores
-   bit-equal; kernel B alone on D's lists, bit-equal; k1 = 513 refused.
+   bit-equal; kernel B alone on D's lists, bit-equal; the same on
+   `selection_cases` (the CPU tests' adversarial inputs of D's selection:
+   ties across tile and chunk edges, scores rising and falling with the
+   row id, whole chunks invalid, fewer live rows than k1) at 20,000 rows,
+   B in {1, 70}, k1 in SELECTION_K1 (1 ... 512, both instances of D);
+   k1 = 513 refused.
    `fused_topk` (A + B at k), `refined_topk` (A + B at 16 + rescore) and
    `fused_topk_int8` (C + B at k) against their plain chains.
    bf16 (kernel A + B): first-stage ids agree on >= 99.9% of slots and
@@ -63,7 +69,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (`_int4_dirty` stays False) and the new rows are found.
 4d. Timings: "int4" and "refined" QPS at B=256 and p50 at B=1; kernel D
    at B in {1, 256} beside its plain version, its bound and the bare int8
-   product; kernel D (and C) at B=256 by list length, k1 in {16, 80, 512}.
+   product; kernel D (and C) at B in {256, 1} by list length, k1 in {16,
+   80, 128, 512}, beside the int4 floor (its probe at that B) and the
+   selection share; D on rows whose scores rise with the row id (every
+   tile beats every list), timed once.
 3f. The dissection path on the same store, its int8 and int4 views and
    the 256 queries (`lattice_tpu_torch/tools/dissect.py`): `score_probe`
    at every (type, mode, tile) the round-2 scripts timed, each held to its
@@ -146,6 +155,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -276,7 +286,32 @@ def phase_device() -> tuple[str, str]:
     lib = _build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({_build.library_path()}, {lib._name})")
+    log_kernel_d_resources()
     return name, smi
+
+
+def log_kernel_d_resources() -> None:
+    """Registers, stack and local memory (spills) per thread of kernel D's
+    three instances (serial: 64 queries a block, lists <= 16; batched: 64
+    queries, lists <= 128; 32 queries, <= 512), as `cuobjdump
+    --dump-resource-usage` reads them from the built library."""
+    from lattice_tpu_torch.ops import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    lines = subprocess.run(
+        [str(tool), "--dump-resource-usage", str(_build.library_path())],
+        capture_output=True, text=True, check=True, timeout=120
+    ).stdout.splitlines()
+    found = 0
+    for name, usage in zip(lines, lines[1:]):
+        inst = (re.search(r"scan_topk_int4_kernelILi(\d+)ELi(\d+)E", name)
+                or re.search(r"scan_topk_kernelILi3ELi(\d+)ELi(\d+)E", name))
+        if inst:
+            found += 1
+            kind = ("batched, lists <= " + inst[2] if "int4" in name
+                    else "serial")
+            log(f"kernel D, {kind}, {inst[1]} queries a block: "
+                f"{' '.join(usage.split()[:5])}")
+    require(found == 3, f"cuobjdump shows {found} instances of kernel D")
 
 
 def phase_kernels(err: dict) -> None:
@@ -377,6 +412,13 @@ def phase_kernels(err: dict) -> None:
         for k in (1, 10, 64):
             check_int4(qv, qs, ep, eps, valid, k, err, f"d={d} b={b}")
     log(f"kernels ok: scan_topk_int4 d={d}")
+    for name, *arrays in selection_cases(SEED + 9):
+        qv, qs, ep, eps, valid = (torch.from_numpy(a).cuda() for a in arrays)
+        for b in (1, qv.shape[0]):
+            check_int4(qv[:b].contiguous(), qs[:b].contiguous(), ep, eps,
+                       valid, K, err, f"{name} b={b}", SELECTION_K1)
+        log(f"kernels ok: scan_topk_int4 on {name} (N={ep.shape[0]}, "
+            f"k1 in {SELECTION_K1})")
     try:
         scan.scan_topk_int4(qv, qs, ep, eps, valid, scan.MAX_K1_LONG + 1)
     except KernelError as exc:
@@ -385,14 +427,15 @@ def phase_kernels(err: dict) -> None:
         raise AssertionError("scan_topk_int4 took k1 past MAX_K1_LONG")
 
 
-def check_int4(qv, qs, ep, eps, valid, k: int, err: dict, where: str) -> None:
+def check_int4(qv, qs, ep, eps, valid, k: int, err: dict, where: str,
+               k1s: tuple[int, ...] = ()) -> None:
     """Kernel D + B against its plain version at the widths `Int4View`
-    asks for k (the first stage alone, and 8k for a rescore): ids
-    identical, scores bit-equal; kernel B alone on D's lists."""
+    asks for k (the first stage alone, and 8k for a rescore), or at `k1s`:
+    ids identical, scores bit-equal; kernel B alone on D's lists."""
     from lattice_tpu_torch.ops import scan_topk as scan
     n = ep.shape[0]
-    for k1 in sorted({scan.first_stage_width(k, n),
-                      scan.int4_first_stage_width(k, n)}):
+    for k1 in k1s or sorted({scan.first_stage_width(k, n),
+                             scan.int4_first_stage_width(k, n)}):
         s, i = scan.scan_topk_int4(qv, qs, ep, eps, valid, k1)
         torch.cuda.synchronize()
         ps, pi = scan.scan_topk_int4_plain(qv, qs, ep, eps, valid, k1)
@@ -497,6 +540,45 @@ def merge_cases(seed: int, large: bool = False
         cases.append(("B=200, two blocks a query",
                       rng.normal(size=(200, 20_000)).astype(np.float32),
                       ids(200, 20_000), 80))
+    return cases
+
+
+SELECTION_K1 = (1, 16, 31, 32, 33, 80, 128, 129, 200, 512)
+
+
+def selection_cases(seed: int, n: int = 20_000, b: int = 70, d: int = 256
+                    ) -> list[tuple]:
+    """Adversarial inputs of kernel D's selection, (name, q values [b, d]
+    i8, q scales [b] f32, packed rows [n, d/2] i8, row scales [n] f32,
+    valid [n] bool), made from a seed with numpy: the CPU tests hold the
+    plain version to JAX's `int4_topk` on small ones, the card holds
+    kernels D + B to the plain version at every k1 of SELECTION_K1 (both
+    instances of D; at these n every block's chunk is a few tiles)."""
+    rng = np.random.default_rng(seed)
+    qv = rng.integers(-127, 128, size=(b, d)).astype(np.int8)
+    qs = rng.uniform(0.5, 1.5, size=b).astype(np.float32) / 127
+    ep = rng.integers(-128, 128, size=(n, d // 2)).astype(np.int8)
+    es = rng.uniform(0.01, 0.02, size=n).astype(np.float32)
+    live = np.ones(n, bool)
+    rows = np.arange(n)
+    # every row a copy of one of 7 (equal bytes and scales): each score
+    # recurs every 7 rows, across every tile and chunk edge
+    cases = [("ties across tile and chunk edges", qv, qs, ep[rows % 7],
+              es[rows % 7], live)]
+    # every dimension +1 (bytes 0x19), queries positive: the score follows
+    # the row scale, so each tile beats the list (the gate's worst case)
+    ones = np.full((n, d // 2), 0x19, np.int8)
+    qpos = np.abs(qv).clip(1).astype(np.int8)
+    rise = (0.01 * (1 + rows / n)).astype(np.float32)
+    cases.append(("scores rising with row id", qpos, qs, ones, rise, live))
+    cases.append(("scores falling with row id", qpos, qs, ones, rise[::-1]
+                  .copy(), live))
+    # long invalid runs (whole chunks), the tail included
+    holes = ~((rows >= n // 8) & (rows < n // 2)) & (rows < n - 700)
+    cases.append(("chunks entirely invalid", qv, qs, ep, es, holes))
+    few = np.zeros(n, bool)
+    few[rng.choice(n, 20, replace=False)] = True
+    cases.append(("fewer live rows than k1", qv, qs, ep, es, few))
     return cases
 
 
@@ -1468,20 +1550,41 @@ def phase_int4_timings(ctx: dict, kernels_ms: dict, err: dict,
                         kk, "shuffled kernel D lists", err)
         del cs, ci
     # what the list length costs: kernel D, and kernel C on the int8 view,
-    # at B=256 over k1 = 16 (the first stage alone), 80 (8k at k=10) and
-    # 512 (8k at k=64, D only)
-    q = q256.contiguous()
-    qv, qs = quant.quantize_rows_device(q)
+    # at B=256 and B=1 over k1 = 16 (the first stage alone), 80 (8k at
+    # k=10), 128 (8k at k=16, where D stages fewer candidates a query) and
+    # 512 (8k at k=64, D only), beside the int4 floor (its probe at the
+    # same B) and the selection share (D ms - floor ms) / D ms
+    from lattice_tpu_torch.ops.probe import score_probe
+    from lattice_tpu_torch.tools.dissect import FLOOR_TILE
     i8 = store._quant
-    sweep = {k1: (cuda_ms(lambda: scan.scan_blocks_int4(
-        qv, qs, view.values, view.scales, valid, k1), 3, 1),
-                  cuda_ms(lambda: scan.scan_blocks_int8(
-        qv, qs, i8.values, i8.scales, valid, k1), 3, 1)
-                  if k1 <= scan.MAX_K1 else None)
-             for k1 in (16, 80, 512)}
-    log("kernel D (C) at B=256 by list length: " + ", ".join(
-        f"k1={k1}: {d_ms:.4f} ms ({c_ms})" for k1, (d_ms, c_ms)
-        in sweep.items()) + f" ({smi})")
+    for b in (256, 1):
+        qv, qs = quant.quantize_rows_device(q256[:b].contiguous())
+        floor = cuda_ms(lambda: score_probe(qv, view.values, tile=FLOOR_TILE),
+                        5)
+        sweep = {k1: (cuda_ms(lambda: scan.scan_blocks_int4(
+            qv, qs, view.values, view.scales, valid, k1), 3, 1),
+                      cuda_ms(lambda: scan.scan_blocks_int8(
+            qv, qs, i8.values, i8.scales, valid, k1), 3, 1)
+                      if k1 <= scan.MAX_K1 else None)
+                 for k1 in (16, 80, 128, 512)}
+        log(f"kernel D (C) at B={b} by list length, int4 floor "
+            f"{floor:.4f} ms: " + ", ".join(
+                f"k1={k1}: {d_ms:.4f} ms, selection "
+                f"{(d_ms - floor) / d_ms:.1%} ({c_ms})"
+                for k1, (d_ms, c_ms) in sweep.items()) + f" ({smi})")
+    # the gate's worst case, timed once: every dimension +1 and positive
+    # queries, row scales rising with the row id, so every tile beats
+    # every list (kernel D at B=256, k1=80)
+    qv, qs = quant.quantize_rows_device(q256)
+    qpos = qv.abs().clamp(min=1).to(torch.int8)
+    ones = torch.full_like(view.values, 0x19)
+    rise = torch.linspace(0.01, 0.02, n, device="cuda")
+    live = torch.ones_like(valid)
+    ms = cuda_ms(lambda: scan.scan_blocks_int4(qpos, qs, ones, rise, live,
+                                               k1), 3, 1)
+    log(f"kernel D on rows whose scores rise with the row id, B=256 "
+        f"k1={k1}: {ms:.4f} ms ({smi})")
+    del ones, rise, live
 
 
 def phase_dissect_path(ctx: dict) -> None:

@@ -30,15 +30,24 @@
 // 32 * 132 * 4 = 16.5 KB, tiles 2 + 8 KB, scales and validity < 1 KB:
 // ~155 KB. At k1 <= 128 it keeps kernel C's 64 queries (~110 KB). The
 // wrapper (`scan_blocks_int4`) makes that choice and passes it as `bq`, and
-// sizes its row chunks for it; each instance refuses another count.
+// sizes its row chunks for it; each instance refuses another count. Kernel
+// D also stages up to 32 candidates per query (8 bytes each) beside its
+// list, fewer where 32 would cost a block an SM (`staging_cap`).
 //
-// Selection (topk_select.cuh, shared with ivf_probe.cu) is exact at the
-// precision of the scores: each block keeps one
+// Selection is exact at the precision of the scores: each block keeps one
 // sorted running top-k1 list per query in shared memory, ordered by
 // (score descending, row id ascending), which is the order `lax.top_k`
 // gives. Invalid rows score NEG_INF (-1e30) and still take part, so that
 // with fewer live rows than k1 the padded slots carry NEG_INF and the
 // lowest invalid row ids, exactly as the plain version's stable sort does.
+// Kernels A and C fold each 32 scores with `offer` (topk_select.cuh,
+// shared with ivf_probe.cu): one ballot against the list's k1-th entry,
+// then one serial insertion (ceil(k1 / 32) ballots to place it, a shift of
+// the tail) per candidate that beats it. Past k1 = SERIAL_K1, kernel D
+// stages the candidates that beat it and merges a sorted batch of up to 32
+// at a time (batch_select.cuh, `scan_topk_int4_kernel`), so that it costs
+// one ballot per 32 scores plus about one merge per 32 kept candidates; up
+// to SERIAL_K1 it is scan_topk_kernel's int4 instance with `offer`.
 //
 // What bounds it on the H100: one pass over E. At 1M x 768 that is
 // 1.61 GB of bf16 (~0.48 ms at 3.35 TB/s), 0.81 GB of int8 or 0.40 GB of
@@ -49,13 +58,19 @@
 // becomes the loop over row tiles inside the block); row tiles of 128 go
 // through the tensor cores (wmma m16n16k16, bf16 -> f32 and s8 -> s32;
 // f32 rows on CUDA-core FMA), the [64, 128] score tile lands in shared
-// memory, and one warp per query folds it into the running list. After
-// the first tiles, a tile rarely beats a list's k1-th entry, so selection
-// costs one ballot per 32 scores. Each block writes its lists once; kernel
-// B merges the n_chunks lists of each query. The loads set the time, so
-// each thread issues all of its 16-byte loads of a k step's query and row
-// tiles before it stores any of them (6-15% faster than one load at a
-// time on an H100). Even so the scans read rows at about half the card's
+// memory, and each warp folds a quarter of the queries into their running
+// lists while the block's tensor cores wait. The number of candidates that
+// beat a full list is not small: for rows in random order a top-k1 over a
+// chunk of R rows takes about k1 (1 + ln(R / k1)) of them per query
+// (~450 at k1 = 80 and R = 8,064, corpus A at B=256). Inserted one at a
+// time, they set kernel D's time at k1 = 80 (71% of it over its probe);
+// in batches, the loads and products do, and the staging code costs the
+// tile loop cycles of its own (see score_tile_int4), which is why short
+// lists keep `offer`. Each block writes its lists once; kernel B merges
+// the n_chunks lists of each query. The loads set the time at short
+// lists, so each thread issues all of its 16-byte loads of a k step's
+// query and row tiles before it stores any of them (6-15% faster than one
+// load at a time on an H100). Even so the scans read rows at about half the card's
 // bandwidth at B=1. No double buffering, TMA or wgmma yet: simple and
 // exact first. The loads and products of a row tile are `score_tile`
 // (scan_tile.cuh), which the score-floor probe (score_probe.cu) runs too,
@@ -65,11 +80,18 @@
 #include <stdint.h>
 
 #include "scan_tile.cuh"
+#include "batch_select.cuh"
 #include "topk_select.cuh"
 
 namespace {
 
 constexpr int BQ_LONG = 32;     // queries per block of kernel D past MAX_K1
+// Kernel D keeps serial insertion (`offer`, the scan_topk_kernel instance)
+// up to this list length and stages and merges in batches past it. At
+// k1 = 16 the batched kernel was 2% slower on corpus A at B=256 and 17%
+// slower at B=1 and at 4M x 768, B=1024; at k1 = 24 it was 4% faster at
+// B=256 (tools/kernel_d_ab.py; PERF.md section 6).
+constexpr int SERIAL_K1 = 16;
 
 template <int MODE, int BQ_>
 size_t scan_smem_bytes(int k1) {
@@ -202,6 +224,186 @@ int launch_scan(const void* q, const void* qs, const void* e, const void* es,
   return (int)cudaGetLastError();
 }
 
+// Kernel D: the same tile loop as scan_topk_kernel over packed int4 rows,
+// with the batched selection of batch_select.cuh: each query has a
+// staging buffer of `cap` entries (Bs, Bi; its fill in Bn) beside its list.
+template <int BQ_>
+size_t scan_int4_smem_bytes(int k1, int cap) {
+  return scan_smem_bytes<MODE_I4, BQ_>(k1) +
+         2 * round_up((size_t)BQ_ * cap * 4) + round_up(BQ_ * 4);
+}
+
+// Kernel D's call of score_tile, out of line. Inlined beside the staging
+// code, the same loads and products took more cycles a tile on an H100
+// (PERF.md section 6); out of line, with merge_buffer out of line
+// too, the batched kernel came within 2% of the serial one at k1 = 16 on
+// corpus A at B=256. It runs under the kernel's register cap, as the int4
+// probe does, and finds the tiles where the kernel lays them out.
+template <int BQ_>
+__device__ __noinline__ void score_tile_int4(const signed char* q,
+                                             const signed char* e, int q0,
+                                             int B, int row0, int r_end,
+                                             int d, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  signed char* Qs = reinterpret_cast<signed char*>(smem);
+  signed char* Es = Qs + round_up(BQ_ * Cfg<MODE_I4>::BK);
+  float* Sc = reinterpret_cast<float*>(smem + tile_bytes<MODE_I4, BQ_>());
+  score_tile<MODE_I4, BQ_>(q, e, Qs, Es, Sc, q0, B, row0, r_end, d, vec);
+}
+
+template <int BQ_, int KMAX>
+__global__ void __maxnreg__((SCAN_REGS<MODE_I4, BQ_>))
+scan_topk_int4_kernel(const signed char* __restrict__ q,
+                      const float* __restrict__ qs,
+                      const signed char* __restrict__ e,
+                      const float* __restrict__ es,
+                      const uint8_t* __restrict__ valid, int B, int n, int d,
+                      int k1, int cap, int rows_per_chunk, int n_chunks,
+                      int vec, float* __restrict__ cand_s,
+                      int* __restrict__ cand_i) {
+  constexpr int BQ = BQ_;
+  constexpr int QW = BQ / 4;  // queries each warp selects for
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunk = blockIdx.x, q0 = blockIdx.y * BQ;
+  const int chunk_lo = chunk * rows_per_chunk;
+  const int chunk_hi = min(chunk_lo + rows_per_chunk, n);
+
+  unsigned char* p = smem + tile_bytes<MODE_I4, BQ>();  // score_tile's
+  const int* Sci = reinterpret_cast<const int*>(p);
+  p += round_up(BQ * SC_LD * 4);
+  float* esc = reinterpret_cast<float*>(p);
+  p += round_up(BN * 4);
+  float* qsc = reinterpret_cast<float*>(p);
+  p += round_up(BQ * 4);
+  float* Ls = reinterpret_cast<float*>(p);
+  p += round_up((size_t)BQ * k1 * 4);
+  int* Li = reinterpret_cast<int*>(p);
+  p += round_up((size_t)BQ * k1 * 4);
+  float* Bs = reinterpret_cast<float*>(p);
+  p += round_up((size_t)BQ * cap * 4);
+  int* Bi = reinterpret_cast<int*>(p);
+  p += round_up((size_t)BQ * cap * 4);
+  int* Bn = reinterpret_cast<int*>(p);
+  p += round_up(BQ * 4);
+  uint8_t* Vs = reinterpret_cast<uint8_t*>(p);
+
+  for (int i = threadIdx.x; i < BQ * k1; i += THREADS) {
+    Ls[i] = neg_infinity();
+    Li[i] = EMPTY_ID;
+  }
+  for (int i = threadIdx.x; i < BQ; i += THREADS) {
+    qsc[i] = q0 + i < B ? qs[q0 + i] : 0.f;
+    Bn[i] = 0;
+  }
+
+  for (int row0 = chunk_lo; row0 < chunk_hi; row0 += BN) {
+    for (int c = threadIdx.x; c < BN; c += THREADS) {
+      int row = row0 + c;
+      Vs[c] = row < chunk_hi ? valid[row] : 0;
+      esc[c] = row < chunk_hi ? es[row] : 0.f;
+    }
+
+    score_tile_int4<BQ>(q, e, q0, B, row0, chunk_hi, d, vec);
+    __syncthreads();
+
+    // selection: warp w stages queries [w QW, (w + 1) QW) of the tile
+    for (int qq = 0; qq < QW; ++qq) {
+      const int qi = warp * QW + qq;
+      if (q0 + qi >= B) break;
+      float* ls = Ls + qi * k1;
+      int* li = Li + qi * k1;
+      float* bs = Bs + qi * cap;
+      int* bi = Bi + qi * cap;
+      int cnt = Bn[qi];
+      float ts = ls[k1 - 1];
+      int ti = li[k1 - 1];
+#pragma unroll
+      for (int c0 = 0; c0 < BN; c0 += 32) {
+        const int c = c0 + lane, row = row0 + c;
+        const bool in = row < chunk_hi;
+        float s = NEG_INF;
+        if (in && Vs[c])
+          s = __fmul_rn(__fmul_rn((float)Sci[qi * SC_LD + c], qsc[qi]),
+                        esc[c]);
+        stage<KMAX>(ls, li, k1, bs, bi, cap, cnt, ts, ti, s, row, in, lane);
+      }
+      if (lane == 0) Bn[qi] = cnt;
+    }
+    __syncthreads();
+  }
+
+  for (int qq = 0; qq < QW; ++qq) {
+    const int qi = warp * QW + qq;
+    if (q0 + qi >= B) break;
+    if (Bn[qi] > 0)
+      merge_buffer<KMAX>(Ls + qi * k1, Li + qi * k1, k1, Bs + qi * cap,
+                         Bi + qi * cap, Bn[qi], lane);
+    const size_t base = ((size_t)(q0 + qi) * n_chunks + chunk) * k1;
+    for (int j = lane; j < k1; j += 32) {
+      cand_s[base + j] = Ls[qi * k1 + j];
+      cand_i[base + j] = Li[qi * k1 + j];
+    }
+  }
+}
+
+// Staging entries per query at list length k1: SEL_CAP, or the most that
+// keeps as many blocks on an SM as the lists alone allow (at 64 queries a
+// block, 32 entries keep two blocks an SM up to k1 of about 100; at
+// k1 = 128 only a few entries do). Known per k1 after its first launch.
+template <int BQ_, int KMAX>
+cudaError_t staging_cap(int k1, int* cap) {
+  static int known[KMAX + 1];
+  if (known[k1] > 0) {
+    *cap = known[k1];
+    return cudaSuccess;
+  }
+  auto kern = scan_topk_int4_kernel<BQ_, KMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)scan_int4_smem_bytes<BQ_>(k1, SEL_CAP));
+  if (err != cudaSuccess) return err;
+  int lists_only = 0, c = SEL_CAP;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &lists_only, kern, THREADS, scan_int4_smem_bytes<BQ_>(k1, 0));
+  for (; err == cudaSuccess && c > 1; --c) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kern, THREADS, scan_int4_smem_bytes<BQ_>(k1, c));
+    if (blocks >= lists_only) break;
+  }
+  if (err != cudaSuccess) return err;
+  *cap = known[k1] = c;
+  return cudaSuccess;
+}
+
+template <int BQ_, int KMAX>
+int launch_scan_int4(const void* q, const void* qs, const void* e,
+                     const void* es, const void* valid, int B, int n, int d,
+                     int k1, int bq, int rows_per_chunk, int n_chunks,
+                     int vec, void* cand_s, void* cand_i, void* stream) {
+  if (B < 1 || n < 1 || d < 1 || d % 2 != 0 || k1 < 1 || k1 > KMAX ||
+      bq != BQ_ || rows_per_chunk < BN || rows_per_chunk % BN != 0 ||
+      n_chunks < 1 || (size_t)(n_chunks - 1) * rows_per_chunk >= (size_t)n ||
+      (size_t)n_chunks * rows_per_chunk < (size_t)n)
+    return (int)cudaErrorInvalidValue;
+  int cap = 0;
+  cudaError_t err = staging_cap<BQ_, KMAX>(k1, &cap);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = scan_int4_smem_bytes<BQ_>(k1, cap);
+  auto kern = scan_topk_int4_kernel<BQ_, KMAX>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_chunks, (B + BQ_ - 1) / BQ_);
+  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const signed char*>(q), static_cast<const float*>(qs),
+      static_cast<const signed char*>(e), static_cast<const float*>(es),
+      static_cast<const uint8_t*>(valid), B, n, d, k1, cap, rows_per_chunk,
+      n_chunks, vec, static_cast<float*>(cand_s), static_cast<int*>(cand_i));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -240,11 +442,15 @@ int lt_scan_topk_int4(const void* q, const void* qs, const void* e,
                       const void* es, const void* valid, int B, int n, int d,
                       int k1, int bq, int rows_per_chunk, int n_chunks,
                       int vec, void* cand_s, void* cand_i, void* stream) {
-  if (bq == BQ)
+  if (bq == BQ && k1 <= SERIAL_K1)
     return launch_scan<MODE_I4>(q, qs, e, es, valid, B, n, d, k1, bq,
                                 rows_per_chunk, n_chunks, vec, cand_s, cand_i,
                                 stream);
-  return launch_scan<MODE_I4, BQ_LONG, MAX_K1_LONG>(
+  if (bq == BQ)
+    return launch_scan_int4<BQ, MAX_K1>(q, qs, e, es, valid, B, n, d, k1, bq,
+                                        rows_per_chunk, n_chunks, vec, cand_s,
+                                        cand_i, stream);
+  return launch_scan_int4<BQ_LONG, MAX_K1_LONG>(
       q, qs, e, es, valid, B, n, d, k1, bq, rows_per_chunk, n_chunks, vec,
       cand_s, cand_i, stream);
 }

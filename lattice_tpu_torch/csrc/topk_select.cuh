@@ -6,9 +6,12 @@
 // MAX_K1_LONG), ordered by (score descending, id ascending): the order
 // `lax.top_k` gives when the id is a row id or a position. Empty slots hold
 // (-inf, EMPTY_ID), so they rank after every offered candidate, NEG_INF
-// (-1e30) ones included. After the first entries a batch of 32 candidates
-// rarely beats the list's last entry, so selection costs one ballot per 32
-// candidates.
+// (-1e30) ones included. `offer` costs one ballot per 32 candidates plus,
+// for each candidate that beats the list's last entry, one serial
+// `warp_insert` (ceil(k1 / 32) ballots and a shift of the tail). That is
+// cheap only once the list is full and rarely beaten: over R rows in random
+// order about k1 (1 + ln(R / k1)) candidates beat it. Kernel D batches
+// them instead (batch_select.cuh).
 
 #pragma once
 

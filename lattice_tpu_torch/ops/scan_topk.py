@@ -31,7 +31,9 @@ approximated one exact function in different ways.
 What bounds them on the H100 and how the design answers it is written at
 the head of the CUDA source. In short: one read of the rows (1.61 GB of
 bf16, 0.81 GB of int8 at 1M x 768), the products on tensor cores, and a
-selection that after the first tiles costs one warp ballot per 32 scores.
+selection that costs one warp ballot per 32 scores plus, for each score
+that beats the list, an insertion (A, C) or a share of a batched merge
+(D).
 
 The TPU kernels' selection was lossy (128 strided bins of ~1e-3 packed
 keys; about 0.2 pp of recall at 1M). Here selection is exact at the

@@ -30,6 +30,8 @@ from lattice_tpu_torch.ops import quant
 from lattice_tpu_torch.ops import scan_topk as scan
 from lattice_tpu_torch.ops import topk as topk_ops
 
+from chip_smoke import selection_cases
+
 t = torch.from_numpy
 PACKED_RES = 2e-3   # the TPU kernel's packed-key score resolution
 
@@ -130,6 +132,48 @@ def test_plain_kernel_d_ties_and_padding_match_jax():
             *map(jnp.asarray, (qv, qs, ep, es, vmask)), 16)
         np.testing.assert_array_equal(i.numpy(), np.asarray(j_i))
         np.testing.assert_array_equal(s.numpy(), np.asarray(j_s))
+
+
+SELECTION_CASES = {c[0]: c[1:] for c in selection_cases(11, n=900, b=5,
+                                                        d=64)}
+
+
+@pytest.mark.parametrize("k", [1, 33, 129])
+@pytest.mark.parametrize("name", sorted(SELECTION_CASES))
+def test_plain_kernel_d_equals_jax_on_selection_cases(name, k):
+    """`chip_smoke.selection_cases` (ties across tile and chunk edges,
+    rising and falling scores, invalid chunks, fewer live rows than k1),
+    which the card holds kernels D + B to: the plain version equals JAX's
+    `int4_topk`, and the wrapper takes it for CPU tensors."""
+    arrays = SELECTION_CASES[name]
+    s, i = quant.int4_topk(*map(t, arrays), k)
+    j_s, j_i = jax_quant.int4_topk(*map(jnp.asarray, arrays), k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(j_i))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(j_s))
+    s2, i2 = scan.scan_topk_int4(*map(t, arrays), k)
+    assert torch.equal(s2, s) and torch.equal(i2, i)
+
+
+def test_selection_cases_are_what_they_say():
+    """Each case has the property it is named for."""
+    cases = selection_cases(11, n=900, b=5, d=64)
+    assert len({c[0] for c in cases}) == len(cases) == 5
+    for name, qv, qs, ep, es, valid in cases:
+        assert qv.dtype == ep.dtype == np.int8 and valid.dtype == bool
+        assert ep.shape == (900, 32) and es.shape == valid.shape == (900,)
+        acc = qv.astype(np.int32) @ quant.unpack_int4(t(ep)).numpy().T
+        scores = acc.astype(np.float32) * qs[:, None] * es[None, :]
+        if name.startswith("ties"):
+            assert len(np.unique(scores[0])) <= 7
+            assert np.array_equal(scores[:, :7], scores[:, 7:14])
+        elif name.startswith("scores rising"):
+            assert (np.diff(scores, axis=1) >= 0).all()
+        elif name.startswith("scores falling"):
+            assert (np.diff(scores, axis=1) <= 0).all()
+        elif name.startswith("chunks"):
+            assert not valid[200:400].any() and not valid[-700:].any()
+        else:
+            assert valid.sum() == 20 < 33
 
 
 def _planted(n, d, rows, seed):
