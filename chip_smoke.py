@@ -5,11 +5,17 @@ NVIDIA card.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 1. Device: require CUDA; print the card and its power limit; build the
-   kernels of `lattice_tpu_torch/csrc/` and print the build time, and
-   kernel D's registers and local memory per thread (`cuobjdump`).
+   kernels of `lattice_tpu_torch/csrc/` and print the build time, and the
+   registers and local memory per thread (`cuobjdump`) of kernel D's
+   instances, of kernel C's two wgmma instances and of its int8 probe's.
 2. Kernels against their plain versions on the card, at N in {4099,
    1048576}, B in {1, 16, 256}, k in {1, 10, 64}, with masked rows.
-   int8 (kernel C + B): first-stage ids identical, scores within 1 ulp.
+   int8 (kernel C + B): first-stage ids identical, scores bit-equal; the
+   same on C's wgmma route at N in {4099, 1048576}, d in {256, 768,
+   1024}, B in {1, 63, 64, 65, 127, 128, 129, 256, 300}, k1 in {1, 16,
+   33, 64, 128} (both instances), on its wmma route at d = 100 and with
+   misaligned queries or rows, and on `int8_cases` (ties across tile and
+   chunk edges, invalid chunks, fewer live rows than k1) at B in {1, 130}.
    int4 (kernel D + B) at the `Int4View` widths (k1 = max(k, 16) and
    max(8k, 32): up to 512) and at d = 100: ids identical, scores
    bit-equal; kernel B alone on D's lists, bit-equal; the same on
@@ -44,9 +50,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    candidates with negative ids, B=200): ids equal and scores bit-equal
    to its plain version on CPU copies; k1 = 513 refused.
    `score_probe` at every type and mode on 64 queries x 262,144 rows (+ a
-   ragged tail of 100) x 768 at tiles 2048 and 8192, and 16 x 4,133 x 100
-   at tile 256: int8 and int4 bit-equal, bf16 rawmax within 1e-4, bf16
-   pack within one score step of the key and equal on >= 99.9% of bins.
+   ragged tail of 100) x 768 at tiles 2048 and 8192, 300 x 65,636 x 1024
+   at tile 2048 (int8 at kernel C's instances for k1 = 16 and 80), and 16
+   x 4,133 x 100 at tile 256: int8 and int4 bit-equal, bf16 rawmax within
+   1e-4, bf16 pack within one score step of the key and equal on >= 99.9%
+   of bins.
 3a. The flat-tier path: 1,048,576 x 768 rows around 1024 centers at
    spread 0.35 (`bench.py`'s headline corpus, near-isotropic: the noise
    norm is ~9.7x the center's), from a seed, through `VectorIndexer` ->
@@ -60,7 +68,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 4a. Timings on that store (information only), CUDA events after warm-up:
    `search_device` QPS at B=256 and p50 latency at B=1 for "quantized"
    and "pallas"; each scan kernel beside its plain version, its bound and
-   the bare PyTorch product at B in {1, 256}.
+   the bare PyTorch product at B in {1, 256}; kernel C's wmma route on the
+   same inputs.
 3d. The int4 tier on the same store: with `LATTICE_INT4=1` the auto plan
    serves "int4" (kernel D + B at 8k = 80 candidates + exact rescore) at
    B=1 and B=256 with recall@10 >= 0.98 against the exact f32 scan; a
@@ -78,10 +87,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at every (type, mode, tile) the round-2 scripts timed, each held to its
    plain version as in phase 2 on the same inputs; kernels A, C and
    D at k1 in {16, 80} beside their floors (the selection share is scan ms
-   minus probe ms over scan ms); the library product of each type;
-   `binned_topk` at B in {8, 32, 64, 128, 256}; one device-trace summary
-   (torch.profiler) each of a "quantized", an "int4" and a forced
-   "refined" `search_device` call. The store is freed after it.
+   minus probe ms over scan ms; C's over the probe at the instance it
+   ran); the library product of each type; `binned_topk`, and kernel C at
+   k1 = 16 beside the int8 probe, at B in {1, 8, 32, 64, 128, 256}; one
+   device-trace summary (torch.profiler) each of a "quantized", an "int4"
+   and a forced "refined" `search_device` call. The store is freed after
+   it.
 3b. The IVF path, after the first store is freed: a second 1,048,576 x 768
    store at spread 0.06 from the same centers (`bench.py`'s clustered
    corpus), with payloads. The first B=1 text query builds the IVF
@@ -286,32 +297,43 @@ def phase_device() -> tuple[str, str]:
     lib = _build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({_build.library_path()}, {lib._name})")
-    log_kernel_d_resources()
+    log_scan_resources()
     return name, smi
 
 
-def log_kernel_d_resources() -> None:
-    """Registers, stack and local memory (spills) per thread of kernel D's
+def log_scan_resources() -> None:
+    """Registers, stack and local memory (spills) per thread, as `cuobjdump
+    --dump-resource-usage` reads them from the built library, of kernel D's
     three instances (serial: 64 queries a block, lists <= 16; batched: 64
-    queries, lists <= 128; 32 queries, <= 512), as `cuobjdump
-    --dump-resource-usage` reads them from the built library."""
+    queries, lists <= 128; 32 queries, <= 512), kernel C's two wgmma
+    instances (128 and 64 queries a block) and its int8 probe's four (the
+    same two, rawmax and pack)."""
     from lattice_tpu_torch.ops import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     lines = subprocess.run(
         [str(tool), "--dump-resource-usage", str(_build.library_path())],
         capture_output=True, text=True, check=True, timeout=120
     ).stdout.splitlines()
-    found = 0
+    found = {"D": 0, "C": 0, "probe": 0}
     for name, usage in zip(lines, lines[1:]):
-        inst = (re.search(r"scan_topk_int4_kernelILi(\d+)ELi(\d+)E", name)
-                or re.search(r"scan_topk_kernelILi3ELi(\d+)ELi(\d+)E", name))
-        if inst:
-            found += 1
+        regs = " ".join(usage.split()[:5])
+        if inst := (re.search(r"scan_topk_int4_kernelILi(\d+)ELi(\d+)E", name)
+                    or re.search(r"scan_topk_kernelILi3ELi(\d+)ELi(\d+)E",
+                                 name)):
+            found["D"] += 1
             kind = ("batched, lists <= " + inst[2] if "int4" in name
                     else "serial")
-            log(f"kernel D, {kind}, {inst[1]} queries a block: "
-                f"{' '.join(usage.split()[:5])}")
-    require(found == 3, f"cuobjdump shows {found} instances of kernel D")
+            log(f"kernel D, {kind}, {inst[1]} queries a block: {regs}")
+        elif inst := re.search(r"scan_topk_int8_wg_kernelILi(\d+)E", name):
+            found["C"] += 1
+            log(f"kernel C (wgmma), {inst[1]} queries a block: {regs}")
+        elif inst := re.search(r"score_probe_int8_wg_kernelILi(\d+)ELb(\d)E",
+                               name):
+            found["probe"] += 1
+            log(f"int8 probe (wgmma), {inst[1]} queries a block, "
+                f"{'pack' if inst[2] == '1' else 'rawmax'}: {regs}")
+    require(found == {"D": 3, "C": 2, "probe": 4},
+            f"cuobjdump shows these instances: {found}")
 
 
 def phase_kernels(err: dict) -> None:
@@ -331,16 +353,8 @@ def phase_kernels(err: dict) -> None:
             for k in (1, 10, 64):
                 # kernel C + B: exact integer dot, identical selection
                 k1 = scan.int8_first_stage_width(k, n)
-                s, i = scan.scan_topk_int8(qv, qs, ev, es, valid, k1)
-                torch.cuda.synchronize()
-                ps, pi = scan.scan_topk_int8_plain(qv, qs, ev, es, valid, k1)
-                ulp = (torch.nextafter(ps, torch.full_like(ps, float("inf")))
-                       - ps).abs()
-                require(torch.equal(i, pi), f"int8 ids differ n={n} b={b} k={k}")
-                require(bool(((s - ps).abs() <= ulp).all()),
-                        f"int8 scores beyond 1 ulp n={n} b={b} k={k}")
-                err["scan_topk_int8"] = max(err["scan_topk_int8"],
-                                            (s - ps).abs().max().item())
+                check_int8(qv, qs, ev, es, valid, (k1,), err,
+                           f"n={n} b={b} k={k}")
                 # kernel B alone on kernel C's lists
                 cs, ci = scan.scan_blocks_int8(qv, qs, ev, es, valid, k1)
                 ms_, mi = scan.merge_candidates(cs, ci, k1)
@@ -425,6 +439,82 @@ def phase_kernels(err: dict) -> None:
         log(f"scan_topk_int4 refuses k1 past MAX_K1_LONG: {exc}")
     else:
         raise AssertionError("scan_topk_int4 took k1 past MAX_K1_LONG")
+
+
+INT8_BATCHES = (1, 63, 64, 65, 127, 128, 129, 256, 300)
+INT8_K1 = (1, 16, 33, 64, 128)     # 1 ... 32: 128 queries a block past B=64
+INT8_DIMS = (256, 768, 1024)
+
+
+def check_int8(qv, qs, ev, es, valid, k1s: tuple[int, ...], err: dict,
+               where: str) -> None:
+    """Kernels C + B against the plain version at each k1 of `k1s`: ids
+    equal and scores bit-equal (exact i32 sums, then the same two f32
+    products in the same order)."""
+    from lattice_tpu_torch.ops import scan_topk as scan
+    for k1 in k1s:
+        s, i = scan.scan_topk_int8(qv, qs, ev, es, valid, k1)
+        torch.cuda.synchronize()
+        ps, pi = scan.scan_topk_int8_plain(qv, qs, ev, es, valid, k1)
+        require(torch.equal(i, pi) and same_bits(s, ps),
+                f"scan_topk_int8 differs from its plain version ({where}, "
+                f"k1={k1}): ids agree on {(i == pi).float().mean().item():.6f}"
+                f", scores on {(s == ps).float().mean().item():.6f}")
+        err["scan_topk_int8"] = max(err["scan_topk_int8"],
+                                    (s - ps).abs().max().item())
+
+
+def phase_int8_kernel(err: dict) -> None:
+    """Kernel C + B bit-equal to its plain version on its wgmma route at
+    n in {4099, 1048576}, d in INT8_DIMS, B in INT8_BATCHES, k1 in INT8_K1
+    (both instances: 128 queries a block at B > 64 and k1 <= 32, else 64);
+    on its wmma route at d = 100 and with 16-byte misaligned queries or
+    rows; and on `int8_cases` (ties across tile and chunk edges, chunks
+    entirely invalid, fewer live rows than k1) at B in {1, 130}."""
+    from lattice_tpu_torch.ops import quant, scan_topk as scan
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    for n in (4099, N_ROWS):
+        for d in INT8_DIMS:
+            ev, es = quant.quantize_rows_device(normalize(torch.randn(
+                n, d, device="cuda", generator=gen)))
+            valid = torch.rand(n, device="cuda", generator=gen) > 0.1
+            for b in INT8_BATCHES:
+                qv, qs = quant.quantize_rows_device(normalize(torch.randn(
+                    b, d, device="cuda", generator=gen)))
+                require(scan.int8_route(qv, ev) == "lt_scan_topk_int8",
+                        f"kernel C took its wmma route at d={d}")
+                check_int8(qv, qs, ev, es, valid, INT8_K1, err,
+                           f"wgmma, n={n} d={d} b={b}")
+            log(f"kernels ok: scan_topk_int8 (wgmma) n={n} d={d}, B in "
+                f"{INT8_BATCHES}, k1 in {INT8_K1}: bit-equal")
+            del ev, es, valid
+    n = 4099
+    for d, shift in ((100, 0), (DIM, 1), (DIM, 0)):
+        ev, es = quant.quantize_rows_device(normalize(torch.randn(
+            n, d, device="cuda", generator=gen)))
+        valid = torch.rand(n, device="cuda", generator=gen) > 0.1
+        if d == DIM and not shift:  # rows 8 bytes past a 16-byte boundary
+            buf = torch.empty(n * d + 16, dtype=torch.int8, device="cuda")
+            ev = buf[8:8 + n * d].view(n, d).copy_(ev)
+        for b in (1, 65, 256):
+            qv, qs = quant.quantize_rows_device(normalize(torch.randn(
+                b, d, device="cuda", generator=gen)))
+            if shift:  # queries `shift` bytes past a 16-byte boundary
+                buf = torch.empty(b * d + 16, dtype=torch.int8, device="cuda")
+                qv = buf[shift:shift + b * d].view(b, d).copy_(qv)
+            require(scan.int8_route(qv, ev) == "lt_scan_topk_int8_scalar",
+                    f"kernel C took its wgmma route at d={d}, shift={shift}")
+            check_int8(qv, qs, ev, es, valid, INT8_K1, err,
+                       f"wmma route, d={d} b={b} shift={shift}")
+        log(f"kernels ok: scan_topk_int8 (wmma route) d={d}"
+            f"{' misaligned' if d == DIM else ''}: bit-equal")
+    for name, *arrays in int8_cases(SEED + 11):
+        qv, qs, ev, es, valid = (torch.from_numpy(a).cuda() for a in arrays)
+        for b in (1, qv.shape[0]):
+            check_int8(qv[:b].contiguous(), qs[:b].contiguous(), ev, es,
+                       valid, INT8_K1, err, f"{name} b={b}")
+        log(f"kernels ok: scan_topk_int8 on {name} (N={ev.shape[0]}, "
+            f"k1 in {INT8_K1}): bit-equal")
 
 
 def check_int4(qv, qs, ep, eps, valid, k: int, err: dict, where: str,
@@ -579,6 +669,33 @@ def selection_cases(seed: int, n: int = 20_000, b: int = 70, d: int = 256
     few = np.zeros(n, bool)
     few[rng.choice(n, 20, replace=False)] = True
     cases.append(("fewer live rows than k1", qv, qs, ep, es, few))
+    return cases
+
+
+def int8_cases(seed: int, n: int = 20_000, b: int = 130, d: int = 768
+               ) -> list[tuple]:
+    """Adversarial inputs of kernel C, (name, q values [b, d] i8, q scales
+    [b] f32, rows [n, d] i8, row scales [n] f32, valid [n] bool), made from
+    a seed with numpy: the CPU tests hold the plain version and the
+    emulated chunking to JAX's `int8_topk` on small ones, the card holds
+    kernels C + B to the plain version (both instances of C)."""
+    rng = np.random.default_rng(seed)
+    qv = rng.integers(-127, 128, size=(b, d)).astype(np.int8)
+    qs = rng.uniform(0.5, 1.5, size=b).astype(np.float32) / 127
+    ev = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+    es = rng.uniform(0.5, 1.5, size=n).astype(np.float32) / 127
+    live = np.ones(n, bool)
+    rows = np.arange(n)
+    # every row a copy of one of 7 (equal bytes and scales): each score
+    # recurs every 7 rows, across every tile and chunk edge
+    cases = [("ties across tile and chunk edges", qv, qs, ev[rows % 7],
+              es[rows % 7], live)]
+    # long invalid runs (whole chunks), the tail included
+    holes = ~((rows >= n // 8) & (rows < n // 2)) & (rows < n - 700)
+    cases.append(("chunks entirely invalid", qv, qs, ev, es, holes))
+    few = np.zeros(n, bool)
+    few[rng.choice(n, 20, replace=False)] = True
+    cases.append(("fewer live rows than k1", qv, qs, ev, es, few))
     return cases
 
 
@@ -779,9 +896,12 @@ def phase_attention_kernel(err: dict) -> None:
 def phase_probe_kernel(err: dict) -> None:
     """`score_probe` against its plain version on the card, at every type
     and mode, by `dissect.check_probe`: 64 queries x 262,144 + 100 rows x
-    768 at tiles 2048 and 8192 (the 100 tail rows must be dropped), and 16
+    768 at tiles 2048 and 8192 (the 100 tail rows must be dropped), 300
+    queries x 65,636 rows x 1024 at tile 2048 (three query tiles, the last
+    partial; int8 at kernel C's instances for k1 = 16 and 80), and 16
     queries x 4,133 rows x 100 at tile 256 (scalar loads, a partial query
-    tile). int8 and int4 bit-equal (exact integer sums); bf16 rawmax within
+    tile; int8 on kernel C's wmma route). int8 and int4 bit-equal (exact
+    integer sums); bf16 rawmax within
     1e-4, as kernel A's scores are held; bf16 pack within one score step of
     the key and equal on >= 99.9% of bins. The dissection path holds the
     probe again at its own shapes (several tiles per block, four query
@@ -790,7 +910,9 @@ def phase_probe_kernel(err: dict) -> None:
     from lattice_tpu_torch.tools.dissect import check_probe
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     for b, n, d, tiles in ((PROBE_QUERIES, PROBE_ROWS + 100, DIM,
-                            (2048, 8192)), (16, 4133, 100, (256,))):
+                            (2048, 8192)), (300, (1 << 16) + 100, 1024,
+                                            (2048,)),
+                           (16, 4133, 100, (256,))):
         emb = normalize(torch.randn(n, d, device="cuda", generator=gen)
                         ).to(torch.bfloat16)
         q = normalize(torch.randn(b, d, device="cuda", generator=gen))
@@ -800,12 +922,16 @@ def phase_probe_kernel(err: dict) -> None:
                  ("int4", qv, quant.quantize_rows_int4_device(emb)[0]))
         for tile in tiles:
             for kind, qq, rows in cases:
-                for mode in ("rawmax",) if kind == "int4" else probe.MODES:
-                    out = probe.score_probe(qq, rows, tile=tile, mode=mode)
+                modes = ("rawmax",) if kind == "int4" else probe.MODES
+                k1s = (16, 80) if kind == "int8" and b > 64 else (16,)
+                for mode, k1 in ((m, k) for m in modes for k in k1s):
+                    out = probe.score_probe(qq, rows, tile=tile, mode=mode,
+                                            k1=k1)
                     torch.cuda.synchronize()
                     ref = probe.score_probe_plain(qq, rows, tile=tile,
                                                   mode=mode)
-                    where = f"{kind} {mode} B={b} N={n} d={d} tile={tile}"
+                    where = (f"{kind} {mode} B={b} N={n} d={d} tile={tile}"
+                             + (f" as for k1={k1}" if len(k1s) > 1 else ""))
                     require(out.shape == (b, n // tile * 128),
                             f"score_probe: shape {tuple(out.shape)} {where}")
                     e, same = check_probe(out, ref, kind, mode, tile, where)
@@ -1477,6 +1603,16 @@ def phase_timings(ctx: dict, kernels_ms: dict, err: dict, smi: str) -> None:
                 cuda_ms(lambda: torch._int_mm(qv, view.values.T), 10)
                 if b > 16 else None),
         }
+        # kernel C's wmma route (the PR 1-10 kernel, which now serves only
+        # shapes TMA cannot read) on the same inputs
+        ptrs = (qv.data_ptr(), qs.data_ptr(), view.values.data_ptr(),
+                view.scales.data_ptr(), valid.data_ptr())
+        wmma_ms = cuda_ms(lambda: scan._launch_scan(
+            scan.SCAN_TOPK_INT8, "lt_scan_topk_int8_scalar", k1, b, n, DIM, 1,
+            ptrs, valid.device), 10)
+        log(f"kernel scan_topk_int8 B={b} k1={k1}: wgmma route "
+            f"{rows['scan_topk_int8']['ms']:.4f} ms, wmma route on the same "
+            f"inputs {wmma_ms:.4f} ms ({smi})")
         # kernel B on the lists of the "pallas" / "refined" (A) and the
         # "quantized" (C) plans
         check_merge(cs, ci, k1, "kernel A lists", err)
@@ -1801,6 +1937,7 @@ def main() -> int:
     t_start = time.perf_counter()
     err = {k.name: 0.0 for k in _build.KERNELS}
     phase_kernels(err)
+    phase_int8_kernel(err)
     phase_merge_kernel(err)
     phase_ivf_kernels(err)
     phase_attention_kernel(err)

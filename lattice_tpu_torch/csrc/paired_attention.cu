@@ -66,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper_async.cuh"
+
 namespace {
 
 constexpr int D = 64;                 // head dim (ops/attention.py HEAD_DIM)
@@ -104,46 +106,6 @@ constexpr int SM_LIST = SM_LIVE + MAX_TILES * 4;          // tiles run, count
 constexpr int SM_BAR = SM_LIST + (MAX_TILES + 2) * 4;     // q, full[], empty[]
 constexpr int SMEM = SM_BAR + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
-
-// one box of a 3-D map into shared memory; completion counted on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-        "r"(c2), "r"(bar) : "memory");
-}
-
 // K and V rows [r0, r0 + 64) of head h, batch row b, into ring slot st
 __device__ __forceinline__ void load_kv(uint32_t base, const CUtensorMap* tk,
                                         const CUtensorMap* tv, int h, int r0,
@@ -168,37 +130,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
-// address, leading and stride byte offsets, each in 16-byte units
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
-}
-
-// K-major 64 x 64 tile (rows of 128 bytes): one k16 step is 32 bytes on
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return smem_desc(addr, 16, 1024);
-}
-
 // V [key][d] as the B operand of P V (N-major): a k16 step is 16 rows on.
 // N = 64 is one swizzle atom, so only the 8-row stride (1024) is read;
 // both offsets carry it.
 __device__ __forceinline__ uint64_t nmajor_desc(uint32_t addr) {
   return smem_desc(addr, 1024, 1024);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// waits for every committed wgmma group of this warpgroup
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // Pins accumulator registers at this point of the program, so that no
@@ -573,33 +509,6 @@ paired_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 bool bad_shape(int B, int L, int H) {
   return B < 1 || B > 65535 || L < 1 || L > MAX_L || H < 2 || H % 2 != 0 ||
          H > 65535;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a libcuda function, found through the runtime
-// so that this library does not link libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A 3-D map over one of q/k/v [B, L, W] bf16 (innermost first: W, L, B)

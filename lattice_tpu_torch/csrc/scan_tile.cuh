@@ -1,5 +1,6 @@
-// The per-tile product of the flat scans, shared by the scan kernels A, C
-// and D (scan_topk.cu) and the score-floor probe (score_probe.cu).
+// The per-tile product of the flat scans, shared by the scan kernels A and
+// D, kernel C where its shape keeps it off the wgmma main loop
+// (scan_wg.cuh), and the score-floor probe of each (score_probe.cu).
 //
 // `score_tile` computes one [BQ_, BN] block of scores: the queries
 // [q0, q0 + BQ_) against the rows [row0, row0 + BN) (rows at or past r_end
@@ -39,8 +40,8 @@ constexpr int MODE_I4 = 3;
 // score-floor probe, in one place: how many registers a thread holds decides
 // how many of its loads stay in flight and how the compiler schedules them,
 // so the probe must run at its scan's budget for scan ms minus probe ms to be
-// the selection's cost. 128 for A and C and 144 for D at 64 queries a block
-// are what nvcc 12.8 gives the scans uncapped (`cuobjdump
+// the selection's cost. 128 for A and C's scalar route and 144 for D at 64
+// queries a block are what nvcc 12.8 gives the scans uncapped (`cuobjdump
 // --dump-resource-usage`; D takes 140 under its cap); a redesign that wants
 // more raises them here, for the scan and its probe at once. The f32 scan
 // and kernel D's 32-query instance have no probe and no cap (255).
@@ -48,6 +49,19 @@ template <int MODE, int BQ_>
 constexpr int SCAN_REGS = BQ_ != BQ || MODE == MODE_F32 ? 255
                           : MODE == MODE_I4             ? 144
                                                         : 128;
+
+// Kernel C on wgmma and its int8 probe (scan_wg.cuh): one budget for every
+// warp of a block of WARPS warps (the producer, MMA and epilogue warps of
+// the same instance alike; no `setmaxnreg` split, which would not lift
+// the cap ptxas compiles a wgmma under). An SM's registers are four files
+// of 16,384, one per scheduler, and a block's warps are dealt out to them
+// in turn, so ceil(WARPS / 4) warps share one: a thread may hold at most
+// 16,384 / (32 ceil(WARPS / 4)), rounded down to the allocation unit of 8,
+// or the block does not launch. That is 72 for the 128-query instance's
+// 25 warps and 80 for the 64-query instance's 21. The loads are TMA's and
+// hold no registers, so the budget does not set the load schedule.
+template <int WARPS>
+constexpr int SCAN_REGS_WG = 16384 / (32 * ((WARPS + 3) / 4)) / 8 * 8;
 
 // How a packed int4 byte's low nibble reads. NIB_BIASED: v + 8, the layout
 // `quantize_rows_int4` writes ((b & 0xF) - 8). NIB_SIGNED: two's

@@ -7,7 +7,11 @@
 // Kernel C, scan_topk_int8: replaces `_binned_kernel_int8` (same file):
 //   q int8 [B, d], q-scales f32 [B], E int8 [N, d], e-scales f32 [N].
 //   score = (f32(i32 dot) * qs) * es, the plain version's order, so the
-//   scores agree bit for bit.
+//   scores agree bit for bit. Two routes, chosen by shape alone (ops/
+//   scan_topk.py `int8_route`): where d % 16 == 0 and q and E are 16-byte
+//   aligned (every store's view), `scan_topk_int8_wg_kernel` below, on
+//   scan_wg.cuh's wgmma main loop; any other shape, scan_topk_kernel's
+//   wmma tile loop (`lt_scan_topk_int8_scalar`).
 // Kernel D, scan_topk_int4: replaces `_binned_kernel_int4_hoistq` and its
 //   sibling bodies (same file) via `binned_topk_int4`: q int8 [B, d],
 //   q-scales f32 [B], packed rows int8 [N, d/2] (low nibble + 8 = dims
@@ -53,33 +57,54 @@
 // 1.61 GB of bf16 (~0.48 ms at 3.35 TB/s), 0.81 GB of int8 or 0.40 GB of
 // packed int4; at B=256 the 403 G products ask for tensor cores (int8 and
 // int4 at 1,979 TOP/s: ~0.21 ms, which bounds kernel D; at 4M x 768,
-// B=1024, its 6.6 TOP take 3.33 ms against 0.48 ms of bytes). Design: a block
-// owns 64 queries and a contiguous run of rows (the TPU's sequential grid
-// becomes the loop over row tiles inside the block); row tiles of 128 go
-// through the tensor cores (wmma m16n16k16, bf16 -> f32 and s8 -> s32;
+// B=1024, its 6.6 TOP take 3.33 ms against 0.48 ms of bytes).
+//
+// Kernels A and D, and C's wmma route: a block owns 64 queries and a
+// contiguous run of rows (the TPU's sequential grid becomes the loop over
+// row tiles inside the block), about four blocks an SM; row tiles of 128
+// go through the tensor cores (wmma m16n16k16, bf16 -> f32 and s8 -> s32;
 // f32 rows on CUDA-core FMA), the [64, 128] score tile lands in shared
 // memory, and each warp folds a quarter of the queries into their running
-// lists while the block's tensor cores wait. The number of candidates that
-// beat a full list is not small: for rows in random order a top-k1 over a
-// chunk of R rows takes about k1 (1 + ln(R / k1)) of them per query
-// (~450 at k1 = 80 and R = 8,064, corpus A at B=256). Inserted one at a
-// time, they set kernel D's time at k1 = 80 (71% of it over its probe);
-// in batches, the loads and products do, and the staging code costs the
-// tile loop cycles of its own (see score_tile_int4), which is why short
-// lists keep `offer`. Each block writes its lists once; kernel B merges
-// the n_chunks lists of each query. The loads set the time at short
-// lists, so each thread issues all of its 16-byte loads of a k step's
-// query and row tiles before it stores any of them (6-15% faster than one
-// load at a time on an H100). Even so the scans read rows at about half the card's
-// bandwidth at B=1. No double buffering, TMA or wgmma yet: simple and
-// exact first. The loads and products of a row tile are `score_tile`
-// (scan_tile.cuh), which the score-floor probe (score_probe.cu) runs too,
-// so a scan's time minus its probe's is what its selection costs.
+// lists while the block's tensor cores wait. The loads and products of a
+// row tile are `score_tile` (scan_tile.cuh): each thread issues all of its
+// 16-byte loads of a k step's query and row tiles before it stores any
+// (6-15% faster than one load at a time on an H100), then the block syncs,
+// runs the products and syncs again, so no load is in flight while the
+// products run, and the queries are loaded again for every row tile.
+// That serial tile is what bounds them: A's floor at 1M x 768, B=256 is
+// 10.6% of its bound (PERF.md section 5).
+//
+// Kernel C on wgmma (scan_wg.cuh) takes that loop apart for Hopper: one
+// block an SM (128 queries a block past B = 64 at k1 <= 32, else 64, so
+// at B=256 a chunk is read by two blocks instead of four), a producer warp
+// that keeps TMA loads of the rows and queries in flight in a ring, MMA
+// warpgroups on wgmma m64n64k32 s8 that store each 64-row tile's sums and
+// go on to the next tile, and the selection in 16 epilogue warps of its
+// own, so that the tensor cores and the loads run through it. What bounds
+// C then is the selection: each epilogue warp folds its queries' lists
+// with `offer`, whose every step waits on a shared-memory read of the
+// list's tail, and at B=256, k1=16 the scan runs at about 1.4 times its
+// floor, the int8 probe on the same main loop. That floor is set by L2:
+// the rows cross it once per query tile and the streamed queries once per
+// 64-row slab (PERF.md section 6, PR 11).
+//
+// The number of candidates that beat a full list is not small: for rows
+// in random order a top-k1 over a chunk of R rows takes about
+// k1 (1 + ln(R / k1)) of them per query (~450 at k1 = 80 and R = 8,064,
+// corpus A at B=256). Inserted one at a time, they set kernel D's time at
+// k1 = 80 (71% of it over its probe); in batches, the loads and products
+// do, and the staging code costs the tile loop cycles of its own (see
+// score_tile_int4), which is why short lists keep `offer`. Each block
+// writes its lists once; kernel B merges the n_chunks lists of each query.
+// A scan's time minus its probe's (score_probe.cu, the same loads and
+// products with a bin max in place of the lists) is what its selection
+// costs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "scan_tile.cuh"
+#include "scan_wg.cuh"
 #include "batch_select.cuh"
 #include "topk_select.cuh"
 
@@ -90,7 +115,7 @@ constexpr int BQ_LONG = 32;     // queries per block of kernel D past MAX_K1
 // up to this list length and stages and merges in batches past it. At
 // k1 = 16 the batched kernel was 2% slower on corpus A at B=256 and 17%
 // slower at B=1 and at 4M x 768, B=1024; at k1 = 24 it was 4% faster at
-// B=256 (tools/kernel_d_ab.py; PERF.md section 6).
+// B=256 (tools/kernel_ab.py; PERF.md section 6).
 constexpr int SERIAL_K1 = 16;
 
 template <int MODE, int BQ_>
@@ -404,6 +429,164 @@ int launch_scan_int4(const void* q, const void* qs, const void* e,
   return (int)cudaGetLastError();
 }
 
+// ---- kernel C on wgmma: the selection epilogue of wg_scan -----------------
+
+// Shared memory of kernel C's epilogue past wg_scan's score tile: two lists
+// of k1 entries per query.
+template <int BQ_>
+size_t int8_epi_bytes(int k1) {
+  return 2 * round_up((size_t)BQ_ * k1 * 4);
+}
+
+// An epilogue warp of kernel C folds each stored tile (its NQ queries x
+// 64 rows of raw i32 sums) into its queries' lists with `offer`, exactly
+// as scan_topk_kernel does: score = (f32(sum) * qs) * es, NEG_INF where
+// the row is invalid, rows past the chunk not offered; each query's two
+// scores are made before its two offers. Each lane keeps the row scales
+// and validity of its 2 columns of the tile (loaded one tile ahead) and
+// the scale of one of the warp's NQ queries.
+template <int KMAX, int NQ>
+struct SelectEpi {
+  float* Ls;               // this warp's NQ lists (k1 entries each)
+  int* Li;
+  const float* es;
+  const uint8_t* valid;
+  float* cand_s;           // this warp's first query's lists of this chunk
+  int* cand_i;
+  size_t ld;               // between two queries' lists: n_chunks * k1
+  int k1, row_hi, live, lane;  // live: this warp's queries < B (<= NQ)
+  float qsr;                   // scale of query lane % NQ of the warp
+  bool ahead = false;          // esn / vn hold the tile about to come
+  float esn[2];
+  int vn[2];
+
+  __device__ __forceinline__ void fetch(int row0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = row0 + 32 * j + lane;
+      const bool in = row < row_hi;
+      esn[j] = in ? __ldg(es + row) : 0.f;
+      vn[j] = in ? valid[row] : 0;
+    }
+  }
+
+  __device__ __forceinline__ void tile(const int* S, int row0) {
+    if (!ahead) fetch(row0);
+    float esr[2];
+    int vr[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      esr[j] = esn[j];
+      vr[j] = vn[j];
+    }
+    fetch(row0 + WG_BN);  // the next tile's, while this one is folded
+    ahead = true;
+    for (int qq = 0; qq < live; ++qq) {
+      const float qsv = __shfl_sync(FULL, qsr, qq);
+      float s[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = 32 * j + lane;
+        s[j] = NEG_INF;
+        if (row0 + c < row_hi && vr[j])
+          s[j] = __fmul_rn(__fmul_rn((float)S[qq * WG_SC_LD + c], qsv),
+                           esr[j]);
+      }
+      float* ls = Ls + qq * k1;
+      int* li = Li + qq * k1;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = row0 + 32 * j + lane;
+        offer<KMAX>(ls, li, k1, s[j], row, row < row_hi, lane);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish() {
+    for (int qq = 0; qq < live; ++qq)
+      for (int j = lane; j < k1; j += 32) {
+        cand_s[qq * ld + j] = Ls[qq * k1 + j];
+        cand_i[qq * ld + j] = Li[qq * k1 + j];
+      }
+  }
+};
+
+// Kernel C: BQ_ queries [q0, q0 + BQ_) against the rows of one chunk,
+// loads and products by wg_scan, the selection in its epilogue warps.
+template <int BQ_>
+__global__ void __maxnreg__((WgCfg<BQ_>::REGS))
+scan_topk_int8_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap rmap,
+                         const float* __restrict__ qs,
+                         const float* __restrict__ es,
+                         const uint8_t* __restrict__ valid, int B, int n,
+                         int d, int k1, int rows_per_chunk, int n_chunks,
+                         float* __restrict__ cand_s,
+                         int* __restrict__ cand_i) {
+  using C = WgCfg<BQ_>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = wg_smem_base(smem_raw);
+  const int chunk = blockIdx.x, q0 = blockIdx.y * BQ_;
+  const int chunk_lo = chunk * rows_per_chunk;
+  const int chunk_hi = min(chunk_lo + rows_per_chunk, n);
+  const int lane = threadIdx.x & 31, e = (threadIdx.x >> 5) - C::MMA_WARPS;
+  constexpr int NQ = C::EPI_Q;
+  SelectEpi<C::KMAX, NQ> epi;
+  if (e >= 0 && e < C::EPI_WARPS) {  // an epilogue warp: queries NQ e ...
+    unsigned char* p = sm + C::RING + WG_BAR_BYTES +
+                       round_up((size_t)BQ_ * WG_SC_LD * 4);
+    const int qe = q0 + NQ * e;
+    epi.Ls = reinterpret_cast<float*>(p) + NQ * e * k1;
+    epi.Li = reinterpret_cast<int*>(p + round_up((size_t)BQ_ * k1 * 4)) +
+             NQ * e * k1;
+    for (int i = lane; i < NQ * k1; i += 32) {
+      epi.Ls[i] = neg_infinity();
+      epi.Li[i] = EMPTY_ID;
+    }
+    epi.es = es;
+    epi.valid = valid;
+    epi.ld = (size_t)n_chunks * k1;
+    epi.cand_s = cand_s + ((size_t)qe * n_chunks + chunk) * k1;
+    epi.cand_i = cand_i + ((size_t)qe * n_chunks + chunk) * k1;
+    epi.k1 = k1;
+    epi.row_hi = chunk_hi;
+    epi.live = max(0, min(NQ, B - qe));
+    epi.lane = lane;
+    epi.qsr = qe + lane % NQ < B ? qs[qe + lane % NQ] : 0.f;
+  }
+  wg_scan<BQ_>(&rmap, &qmap, sm, q0, B, chunk_lo, chunk_hi, d, epi);
+}
+
+// `vec` must be 1: this route needs 16-byte rows and pointers (the wrapper
+// sends other shapes to lt_scan_topk_int8_scalar); `bq` names the instance.
+template <int BQ_>
+int launch_scan_int8_wg(const void* q, const void* qs, const void* e,
+                        const void* es, const void* valid, int B, int n,
+                        int d, int k1, int bq, int rows_per_chunk,
+                        int n_chunks, int vec, void* cand_s, void* cand_i,
+                        void* stream) {
+  if (B < 1 || n < 1 || k1 < 1 || k1 > WgCfg<BQ_>::KMAX || bq != BQ_ ||
+      vec != 1 || rows_per_chunk < BN || rows_per_chunk % BN != 0 ||
+      n_chunks < 1 || (size_t)(n_chunks - 1) * rows_per_chunk >= (size_t)n ||
+      (size_t)n_chunks * rows_per_chunk < (size_t)n)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, rmap;
+  if (!int8_maps(&qmap, &rmap, q, e, B, n, d))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wg_smem_bytes<BQ_>(int8_epi_bytes<BQ_>(k1));
+  auto kern = scan_topk_int8_wg_kernel<BQ_>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_chunks, (B + BQ_ - 1) / BQ_);
+  kern<<<grid, WgCfg<BQ_>::THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      qmap, rmap, static_cast<const float*>(qs), static_cast<const float*>(es),
+      static_cast<const uint8_t*>(valid), B, n, d, k1, rows_per_chunk,
+      n_chunks, static_cast<float*>(cand_s), static_cast<int*>(cand_i));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -428,10 +611,27 @@ int lt_scan_topk_f32(const void* q, const void* e, const void* valid, int B,
                                stream);
 }
 
+// kernel C: bq = BQ_WIDE takes lists up to K1_WIDE, bq = 64 up to MAX_K1;
+// d % 16 == 0 and 16-byte aligned q and e (vec = 1)
 int lt_scan_topk_int8(const void* q, const void* qs, const void* e,
                       const void* es, const void* valid, int B, int n, int d,
                       int k1, int bq, int rows_per_chunk, int n_chunks,
                       int vec, void* cand_s, void* cand_i, void* stream) {
+  if (bq == BQ_WIDE)
+    return launch_scan_int8_wg<BQ_WIDE>(q, qs, e, es, valid, B, n, d, k1, bq,
+                                        rows_per_chunk, n_chunks, vec, cand_s,
+                                        cand_i, stream);
+  return launch_scan_int8_wg<64>(q, qs, e, es, valid, B, n, d, k1, bq,
+                                 rows_per_chunk, n_chunks, vec, cand_s,
+                                 cand_i, stream);
+}
+
+// kernel C for every other shape: the wmma tile loop of scan_topk_kernel
+int lt_scan_topk_int8_scalar(const void* q, const void* qs, const void* e,
+                             const void* es, const void* valid, int B, int n,
+                             int d, int k1, int bq, int rows_per_chunk,
+                             int n_chunks, int vec, void* cand_s,
+                             void* cand_i, void* stream) {
   return launch_scan<MODE_I8>(q, qs, e, es, valid, B, n, d, k1, bq,
                               rows_per_chunk, n_chunks, vec, cand_s, cand_i,
                               stream);

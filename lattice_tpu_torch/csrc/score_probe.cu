@@ -27,22 +27,33 @@
 // over the rows (1.61 GB of bf16, 0.81 GB of int8, 0.40 GB of packed int4
 // at 1M x 768) and, at B=256, 403 G products (0.41 ms at 989 TFLOP/s in
 // bf16, 0.20 ms at 1,979 TOP/s in int8); the [B, N/tile * 128] f32 output
-// adds 67 MB at tile 2048. Design: the same blocks, loads and wmma
-// products as kernels A, C and D (`score_tile`, scan_tile.cuh), so that a
-// scan's time minus its probe's is what its selection costs. A block owns
-// 64 queries and a run of whole probe tiles; each warp maxes its own
-// fragments of a row tile's scores into the running bin max it keeps in
-// the shared score tile (a wmma load, an element-wise max, a store: the
-// accumulator layout is the same on both sides, so no element needs its
-// position), and the block writes [64, 128] once per probe tile. In pack
-// mode a fragment element only knows its row tile i, so the running max
-// holds (key bits) | (i << 7) and the column j joins at the write:
-// max over i of (a_i | j) = (max over i of a_i) | j when no a_i has a bit
-// below 7.
+// adds 67 MB at tile 2048. Design: the loads and products of its scan, so
+// that a scan's time minus its probe's is what its selection costs.
+// - bf16 and int4, and int8 on kernel C's wmma route: the same blocks,
+//   loads and wmma products as kernels A, D and C's wmma route
+//   (`score_tile`, scan_tile.cuh). A block owns 64 queries and a run of
+//   whole probe tiles; each warp maxes its own fragments of a row tile's
+//   scores into the running bin max it keeps in the shared score tile (a
+//   wmma load, an element-wise max, a store: the accumulator layout is the
+//   same on both sides, so no element needs its position), and the block
+//   writes [64, 128] once per probe tile.
+// - int8 where kernel C runs on wgmma (d % 16 == 0, 16-byte aligned):
+//   kernel C's main loop itself (scan_wg.cuh: the instance C takes at the
+//   caller's k1, one block an SM, the TMA producer, the MMA warps that
+//   store each tile's i32 sums, the register budget), with C's epilogue
+//   warps folding the stored tiles into a running bin max in registers
+//   instead of selecting. That loop is no longer serial: what bounds the
+//   floor is L2, which the rows cross once per query tile and the
+//   streamed queries once per 64-row slab (PERF.md section 6, PR 11).
+// In pack mode a fragment element only knows its row tile i, so the
+// running max holds (key bits) | (i << 7) and the column j joins at the
+// write: max over i of (a_i | j) = (max over i of a_i) | j when no a_i has
+// a bit below 7.
 
 #include <climits>
 
 #include "scan_tile.cuh"
+#include "scan_wg.cuh"
 
 namespace {
 
@@ -181,6 +192,109 @@ int launch_probe(const void* q, const void* e, int B, int n, int d, int tile,
   return (int)cudaGetLastError();
 }
 
+// ---- int8 on wgmma: kernel C's main loop with a bin-max epilogue ---------
+
+// An epilogue warp of the int8 probe folds each stored tile (its NQ
+// queries x 64 rows of raw i32 sums) into the running max over the
+// 128-row tiles i of the current probe tile: bin j of 128 takes row j of
+// each 128-row tile, so the 64-row tile of parity p holds bins 64 p + c.
+// Each lane holds bins 64 p + 32 h + lane (h < 2) of the NQ queries in
+// registers and writes them when the probe tile ends: the i32 sum, or its
+// key without the column (maxed as i32), with the bin j or'd in at the
+// write, as FoldMax does.
+template <bool PACK, int NQ>
+struct FoldMaxWg {
+  float* out;  // this warp's first query's row of the output
+  size_t out_ld;
+  int ptile, row_lo, live, lane;  // ptile: rows of a probe tile
+  int mx[NQ][4];                  // [query][2 p + h]
+
+  __device__ __forceinline__ void tile(const int* S, int row0) {
+    const int r = row0 - row_lo, per = ptile / BN;
+    const int i = r / BN % per, p = r / WG_BN % 2;
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      if (qq >= live) break;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {  // b = 2 p + h: this tile's two
+        if (b / 2 != p) continue;
+        const int x = S[qq * WG_SC_LD + 32 * (b % 2) + lane];
+        const int v = PACK ? key_of(__int2float_rn(x), i) : x;
+        mx[qq][b] = i > 0 ? max(mx[qq][b], v) : v;
+      }
+    }
+    if (i != per - 1 || p != 1) return;
+    float* o = out + (size_t)(row0 / ptile) * BN;
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      if (qq >= live) break;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = 32 * b + lane;  // 64 p + 32 h + lane, b = 2 p + h
+        o[qq * out_ld + j] = __int2float_rn(PACK ? mx[qq][b] | j : mx[qq][b]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish() const {}
+};
+
+// The probe runs kernel C's instance, chunking, register budget, MMA and
+// producer warps and reserves the shared memory of C at k1 = 16, so that
+// it too runs one block an SM; only the epilogue warps' work differs.
+template <int BQ_, bool PACK>
+__global__ void __maxnreg__((WgCfg<BQ_>::REGS))
+score_probe_int8_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap rmap, int B,
+                           int d, int tile, int n_tiles, int tiles_per_chunk,
+                           float* __restrict__ out) {
+  using C = WgCfg<BQ_>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = wg_smem_base(smem_raw);
+  const int q0 = blockIdx.y * BQ_;
+  const int t_lo = blockIdx.x * tiles_per_chunk;
+  const int t_hi = min(t_lo + tiles_per_chunk, n_tiles);
+  const int e = (threadIdx.x >> 5) - C::MMA_WARPS;  // epilogue warp index
+  constexpr int NQ = C::EPI_Q;
+  FoldMaxWg<PACK, NQ> epi;
+  epi.out_ld = (size_t)n_tiles * BN;
+  epi.out = out + (size_t)(q0 + NQ * max(e, 0)) * epi.out_ld;
+  epi.ptile = tile;
+  epi.row_lo = t_lo * tile;
+  epi.live = max(0, min(NQ, B - q0 - NQ * max(e, 0)));
+  epi.lane = threadIdx.x & 31;
+  wg_scan<BQ_>(&rmap, &qmap, sm, q0, B, t_lo * tile, t_hi * tile, d, epi);
+}
+
+constexpr int PROBE_K1 = 16;   // the list length whose smem the probe reserves
+
+template <int BQ_, bool PACK>
+int launch_probe_int8_wg(const void* q, const void* e, int B, int n, int d,
+                         int tile, int tiles_per_chunk, int n_chunks, int bq,
+                         int vec, void* out, void* stream) {
+  const int n_tiles = tile >= BN ? n / tile : 0;
+  if (B < 1 || tile < BN || tile % BN != 0 || n_tiles < 1 || bq != BQ_ ||
+      vec != 1 || tiles_per_chunk < 1 || n_chunks < 1 ||
+      (n_chunks - 1) * tiles_per_chunk >= n_tiles ||
+      n_chunks * tiles_per_chunk < n_tiles)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, rmap;
+  if (!int8_maps(&qmap, &rmap, q, e, B, n, d))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      wg_smem_bytes<BQ_>(2 * round_up((size_t)BQ_ * PROBE_K1 * 4));
+  auto kern = score_probe_int8_wg_kernel<BQ_, PACK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_chunks, (B + BQ_ - 1) / BQ_);
+  kern<<<grid, WgCfg<BQ_>::THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(qmap, rmap, B, d, tile, n_tiles,
+                                              tiles_per_chunk,
+                                              static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -198,10 +312,31 @@ int lt_score_probe_bf16(const void* q, const void* e, int B, int n, int d,
                                                vec, out, stream);
 }
 
-// q int8 [B, d], rows int8 [n, d]
+// q int8 [B, d], rows int8 [n, d], d % 16 == 0 and 16-byte aligned (vec =
+// 1): kernel C's main loop; bq = BQ_WIDE or 64, as kernel C chose
 int lt_score_probe_int8(const void* q, const void* e, int B, int n, int d,
                         int tile, int tiles_per_chunk, int n_chunks, int bq,
                         int pack, int vec, void* out, void* stream) {
+  if (bq == BQ_WIDE)
+    return pack ? launch_probe_int8_wg<BQ_WIDE, true>(
+                      q, e, B, n, d, tile, tiles_per_chunk, n_chunks, bq, vec,
+                      out, stream)
+                : launch_probe_int8_wg<BQ_WIDE, false>(
+                      q, e, B, n, d, tile, tiles_per_chunk, n_chunks, bq, vec,
+                      out, stream);
+  return pack ? launch_probe_int8_wg<64, true>(q, e, B, n, d, tile,
+                                               tiles_per_chunk, n_chunks, bq,
+                                               vec, out, stream)
+              : launch_probe_int8_wg<64, false>(q, e, B, n, d, tile,
+                                                tiles_per_chunk, n_chunks, bq,
+                                                vec, out, stream);
+}
+
+// every other int8 shape: kernel C's scalar route's score_tile
+int lt_score_probe_int8_scalar(const void* q, const void* e, int B, int n,
+                               int d, int tile, int tiles_per_chunk,
+                               int n_chunks, int bq, int pack, int vec,
+                               void* out, void* stream) {
   return pack ? launch_probe<MODE_I8, true>(q, e, B, n, d, tile,
                                             tiles_per_chunk, n_chunks, bq,
                                             vec, out, stream)

@@ -41,7 +41,8 @@ from lattice_tpu_torch.core.errors import KernelError
 from lattice_tpu_torch.ops import _build
 from lattice_tpu_torch.ops.scan_topk import (BN, BQ, PLAIN_BLOCK, _aligned,
                                              _check, _chunking, _on_cpu,
-                                             _stream)
+                                             _sm_count, _stream, int8_plan,
+                                             int8_route)
 from lattice_tpu_torch.ops.topk import full_f32
 
 MODES = ("rawmax", "pack")
@@ -135,11 +136,13 @@ def score_probe_plain(q: torch.Tensor, rows: torch.Tensor, *, tile: int,
 
 
 def score_probe(q: torch.Tensor, rows: torch.Tensor, *, tile: int,
-                mode: str = "rawmax") -> torch.Tensor:
+                mode: str = "rawmax", k1: int = 16) -> torch.Tensor:
     """[B, (N // tile) * 128] f32 bin maxima of q against rows; the type
     from `rows` (bf16; int8; packed int8 with q twice as wide). On the card
-    the kernel runs at its scan's register budget (A, C or D), so that the
-    two differ only by the selection."""
+    the kernel runs its scan's loads and products at its register budget
+    (A, C or D), so that the two differ only by the selection. int8 takes
+    kernel C's route for the shape and, on the wgmma route, the instance
+    and chunking kernel C takes at list length `k1`."""
     kind = _check_args(q, rows, tile, mode)
     if _on_cpu(q, rows):
         return score_probe_plain(q, rows, tile=tile, mode=mode)
@@ -154,12 +157,18 @@ def score_probe(q: torch.Tensor, rows: torch.Tensor, *, tile: int,
     unit = {"bf16": 8, "int8": 16, "int4": 32}[kind]   # dims per 16 bytes
     vec = int(d % unit == 0 and _aligned(q, rows))
     # the scans' chunking over one 128-row stand-in per probe tile: whole
-    # probe tiles per block, about four blocks per SM
-    rows_per_chunk, n_chunks = _chunking(n_tiles * BN, b, q.device)
-    per = rows_per_chunk // BN
+    # probe tiles per block
+    entry, bq = f"lt_score_probe_{kind}", BQ
+    if kind == "int8" and int8_route(q, rows) == "lt_scan_topk_int8":
+        bq, rows_per_chunk, n_chunks = int8_plan(n_tiles * BN, b, k1,
+                                                 _sm_count(q.device))
+    else:
+        entry += "_scalar" if kind == "int8" else ""
+        rows_per_chunk, n_chunks = _chunking(n_tiles * BN, b, q.device)
     with torch.cuda.device(q.device):
         SCORE_PROBE.launch(
-            f"lt_score_probe_{kind}", q.data_ptr(), rows.data_ptr(), b, n, d,
-            tile, per, n_chunks, BQ, int(mode == "pack" and kind != "int4"),
-            vec, out.data_ptr(), _stream(q.device))
+            entry, q.data_ptr(), rows.data_ptr(), b, n, d, tile,
+            rows_per_chunk // BN, n_chunks, bq,
+            int(mode == "pack" and kind != "int4"), vec, out.data_ptr(),
+            _stream(q.device))
     return out

@@ -13,6 +13,11 @@ Port of `lattice_tpu/ops/pallas_topk.py`. Four hand-written CUDA kernels
 - `scan_topk_int8` (kernel C) replaces `_binned_kernel_int8` (:466) via
   `binned_topk_int8` (:720): the i8·i8 -> i32 dot, times the query and
   row scales, masked, selected like kernel A and finished by kernel B.
+  Where d % 16 == 0 and the int8 queries and rows are 16-byte aligned
+  (every store's view) it runs on `wgmma` from a TMA ring
+  (`csrc/scan_wg.cuh`), one block an SM, 128 or 64 queries a block
+  (`int8_plan`); any other shape takes its wmma tile loop
+  (`lt_scan_topk_int8_scalar`). The shape alone picks the route.
 - `scan_topk_int4` (kernel D) replaces the packed-int4 bodies of
   `binned_topk_int4` (:980): `_binned_kernel_int4_hoistq` (:894, its
   default), `_binned_kernel_int4` (:938), `_fma` (:843) and `_matmul`
@@ -61,10 +66,16 @@ from lattice_tpu_torch.ops.topk import (NEG_INF, blocked_topk,
                                         flat_topk_blocked, full_f32,
                                         l2_normalize_t, stable_topk)
 
-# must match csrc/scan_topk.cu
+# must match csrc/scan_topk.cu and csrc/scan_wg.cuh
 BQ = 64          # queries per block
 BQ_LONG = 32     # queries per block of kernel D past MAX_K1
+BQ_WIDE = 128    # queries per block of kernel C's wide instance
+K1_WIDE = 32     # longest list of that instance
 BN = 128         # rows per tile
+WG_BK = 128      # int8 dims of one k slab of kernel C's ring
+WG_BN = 64       # rows of one of kernel C's tiles
+WG_SC_LD = WG_BN + 8  # row stride of kernel C's score tile
+SMEM_MAX = 232_448  # shared memory one block may have on the H100
 MAX_K1 = 128     # longest first-stage list a block keeps per query
 MAX_K1_LONG = 512  # longest list of kernels D and B
 MERGE_CAP = 16384  # candidates one block of kernel B holds
@@ -136,15 +147,59 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _chunking(n: int, b: int, device: torch.device, bq: int = BQ
-              ) -> tuple[int, int]:
-    """(rows per block, number of row chunks): about four blocks per SM
-    over the whole grid, each chunk a whole number of 128-row tiles."""
-    sms = _sm_count(device)
-    q_tiles = -(-b // bq)
-    target = max(1, -(-4 * sms // q_tiles))
+def _rows_per_chunk(n: int, target: int) -> tuple[int, int]:
+    """(rows per block, number of row chunks) for about `target` chunks,
+    each a whole number of 128-row tiles, none empty."""
     rows = max(BN, -(-(-(-n // target)) // BN) * BN)
     return rows, -(-n // rows)
+
+
+def _chunking(n: int, b: int, device: torch.device, bq: int = BQ
+              ) -> tuple[int, int]:
+    """Chunks of kernels A, D and C's scalar route: about four blocks per
+    SM over the whole grid."""
+    q_tiles = -(-b // bq)
+    return _rows_per_chunk(n, max(1, -(-4 * _sm_count(device) // q_tiles)))
+
+
+def int8_block_queries(b: int, k1: int) -> int:
+    """Kernel C's instance: 128 queries a block (two MMA warpgroups on one
+    row tile) for lists up to K1_WIDE when the batch fills more than 64;
+    else 64 (one MMA warpgroup), which holds lists up to MAX_K1 in shared
+    memory and wastes no warpgroup on a small batch. Both have 16
+    selection warps."""
+    return BQ_WIDE if b > BQ and k1 <= K1_WIDE else BQ
+
+
+def int8_smem_bytes(bq: int, k1: int) -> int:
+    """Kernel C's dynamic shared memory (`scan_wg.cuh`, `int8_epi_bytes`):
+    alignment slack, the ring (6 stages at 128 queries, 8 at 64: a row
+    slab of 64 x 128 bytes and a 64 x 128 query slab per warpgroup),
+    its mbarriers, the i32 score tile and two lists of k1 per query."""
+    def up(x):
+        return -(-x // 128) * 128
+    stages = 6 if bq == BQ_WIDE else 8
+    ring = stages * (WG_BN * WG_BK + bq // BQ * BQ * WG_BK)
+    return 1024 + ring + 256 + up(bq * WG_SC_LD * 4) + 2 * up(bq * k1 * 4)
+
+
+def int8_plan(n: int, b: int, k1: int, sms: int) -> tuple[int, int, int]:
+    """(queries per block, rows per chunk, chunks) of kernel C's wgmma
+    route: one block an SM, so the grid is at most one wave (sms // query
+    tiles chunks; 66 of ~15,900 rows at 1M, B=256) and each row is read
+    by as few blocks as the batch has query tiles."""
+    bq = int8_block_queries(b, k1)
+    q_tiles = -(-b // bq)
+    return (bq, *_rows_per_chunk(n, max(1, sms // q_tiles)))
+
+
+def int8_route(q_values: torch.Tensor, e_values: torch.Tensor) -> str:
+    """Kernel C's entry by shape: the wgmma route where TMA can read the
+    int8 queries and rows (d % 16 == 0, 16-byte aligned), else the wmma
+    tile loop."""
+    d = q_values.shape[1]
+    return ("lt_scan_topk_int8" if d % 16 == 0 and _aligned(q_values, e_values)
+            else "lt_scan_topk_int8_scalar")
 
 
 def _stream(device: torch.device) -> int:
@@ -289,12 +344,14 @@ def _check_scan_shapes(b: int, d: int, e: torch.Tensor, valid: torch.Tensor,
 
 def _launch_scan(kernel: _build.Kernel, entry: str, k1: int, b: int, n: int,
                  d: int, vec: int, pointers: tuple, device: torch.device,
-                 bq: int = BQ) -> tuple[torch.Tensor, torch.Tensor]:
+                 bq: int = BQ, chunks: tuple[int, int] | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of kernel A, C or D with `bq` queries per block:
     per-chunk sorted lists, [B, n_chunks * k1] scores and row ids, for
     kernel B to merge. The entry refuses a `bq` its instance does not
-    have, so the chunking here always matches the kernel's grid."""
-    rows, n_chunks = _chunking(n, b, device, bq)
+    have, so the chunking here always matches the kernel's grid. `chunks`
+    (rows per chunk, chunks) defaults to `_chunking`'s."""
+    rows, n_chunks = chunks or _chunking(n, b, device, bq)
     cand_s = torch.empty((b, n_chunks * k1), dtype=torch.float32,
                          device=device)
     cand_i = torch.empty((b, n_chunks * k1), dtype=torch.int32, device=device)
@@ -328,7 +385,8 @@ def scan_blocks_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
                      e_values: torch.Tensor, e_scales: torch.Tensor,
                      valid: torch.Tensor, k1: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel C alone on CUDA tensors: the unmerged per-chunk lists."""
+    """Kernel C alone on CUDA tensors: the unmerged per-chunk lists, from
+    the route `int8_route` names for the shape."""
     _check(q_values, "q_values", torch.int8, 2)
     _check(q_scales, "q_scales", torch.float32, 1)
     _check(e_values, "e_values", torch.int8, 2)
@@ -338,11 +396,16 @@ def scan_blocks_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
     if q_scales.shape != (b,) or e_scales.shape != (n,):
         raise KernelError(f"scan_topk_int8: scales {tuple(q_scales.shape)} "
                           f"{tuple(e_scales.shape)} for B={b}, N={n}")
-    vec = int(d % 16 == 0 and _aligned(q_values, e_values))
-    return _launch_scan(
-        SCAN_TOPK_INT8, "lt_scan_topk_int8", k1, b, n, d, vec,
-        (q_values.data_ptr(), q_scales.data_ptr(), e_values.data_ptr(),
-         e_scales.data_ptr(), valid.data_ptr()), e_values.device)
+    pointers = (q_values.data_ptr(), q_scales.data_ptr(), e_values.data_ptr(),
+                e_scales.data_ptr(), valid.data_ptr())
+    device = e_values.device
+    entry = int8_route(q_values, e_values)
+    if entry == "lt_scan_topk_int8":
+        bq, rows, n_chunks = int8_plan(n, b, k1, _sm_count(device))
+        return _launch_scan(SCAN_TOPK_INT8, entry, k1, b, n, d, 1, pointers,
+                            device, bq, (rows, n_chunks))
+    return _launch_scan(SCAN_TOPK_INT8, entry, k1, b, n, d, 0, pointers,
+                        device)
 
 
 def scan_blocks_int4(q_values: torch.Tensor, q_scales: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Time kernel D of one or more checkouts on one card, in one call.
+"""Time kernels C and D of one or more checkouts on one card, in one call.
 
-    python lattice_tpu_torch/tools/kernel_d_ab.py [--k1 16,80,128,512]
+    python lattice_tpu_torch/tools/kernel_ab.py [--k1 16,80,128,512]
         [--k1-4m 16,80] [--skip-4m] CHECKOUT [CHECKOUT ...]
 
 A checkout is a directory that holds `lattice_tpu_torch/` (this one, or a
@@ -8,15 +8,18 @@ A checkout is a directory that holds `lattice_tpu_torch/` (this one, or a
 process of its own, one after another, so that kernels built from
 different sources never share a process. Each process builds its
 checkout's kernels, makes corpus A (1,048,576 x 768 rows around 1,024
-centers at spread 0.35, seed 0, packed to int4) and times with CUDA
-events, on the card:
+centers at spread 0.35, seed 0, quantized to int8 and packed to int4) and
+times with CUDA events, on the card, at B=256 and B=1:
 
-- the int4 probe (`score_probe` at tile 2048, rawmax): the floor;
-- `scan_blocks_int4` (kernel D alone) at each k1 of --k1, at B=256 and B=1;
-- unless --skip-4m, corpus D (4,194,304 x 768 rows from the same centers,
-  B=1024): the probe and kernel D at each k1 of --k1-4m;
+- the int8 probe (`score_probe` at tile 2048, rawmax): kernel C's floor;
+- `scan_blocks_int8` (kernel C alone) at k1 = 16 (the plans' width; 128
+  queries a block at B=256) and 64 (64 queries a block);
+- the int4 probe (kernel D's floor) and `scan_blocks_int4` (kernel D
+  alone) at each k1 of --k1;
+- unless --skip-4m, corpus D (4,194,304 x 768 rows from the same
+  centers, B=1024): the int4 probe and kernel D at each k1 of --k1-4m;
 
-and prints one line `kernel_d_ab {json}` with the card's name and power
+and prints one line `kernel_ab {json}` with the card's name and power
 limit. Run the checkouts to compare as A, B, B, A in one call: numbers
 from different calls are not comparable.
 """
@@ -35,6 +38,7 @@ N_ROWS = 1 << 20
 N_CAP = 1 << 22
 DIM = 768
 BLOCK = 1 << 17
+C_K1 = (16, 64)
 
 
 def _ints(text: str) -> list[int]:
@@ -50,14 +54,23 @@ def _rows(torch, centers, n, gen):
     return x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
 
 
-def _packed(torch, quant, centers, n, gen):
+def _views(torch, quant, centers, n, gen, int8: bool = True):
+    """Corpus rows as int8 (unless `int8` is false: None) and packed int4
+    views, each (values, scales), quantized block by block from the same
+    bf16 rows."""
     packed = torch.empty((n, DIM // 2), dtype=torch.int8, device="cuda")
     scales = torch.empty((n,), dtype=torch.float32, device="cuda")
+    values8 = (torch.empty((n, DIM), dtype=torch.int8, device="cuda")
+               if int8 else None)
+    scales8 = torch.empty_like(scales) if int8 else None
     for lo in range(0, n, BLOCK):
+        rows = _rows(torch, centers, BLOCK, gen).to(torch.bfloat16)
         packed[lo:lo + BLOCK], scales[lo:lo + BLOCK] = (
-            quant.quantize_rows_int4_device(
-                _rows(torch, centers, BLOCK, gen).to(torch.bfloat16)))
-    return packed, scales
+            quant.quantize_rows_int4_device(rows))
+        if int8:
+            values8[lo:lo + BLOCK], scales8[lo:lo + BLOCK] = (
+                quant.quantize_rows_device(rows))
+    return (values8, scales8), (packed, scales)
 
 
 def measure(checkout: str, k1s: list[int], k1s_4m: list[int]) -> dict:
@@ -86,19 +99,26 @@ def measure(checkout: str, k1s: list[int], k1s_4m: list[int]) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     centers = torch.randn(1024, DIM, device="cuda", generator=gen)
     centers = centers / centers.norm(dim=1, keepdim=True)
-    packed, scales = _packed(torch, quant, centers, N_ROWS, gen)
+    (values8, scales8), (packed, scales) = _views(torch, quant, centers,
+                                                   N_ROWS, gen)
     valid = torch.ones(N_ROWS, dtype=torch.bool, device="cuda")
     qv, qs = quant.quantize_rows_device(_rows(torch, centers, 256, gen))
     for b in (256, 1):
         qb, sb = qv[:b].contiguous(), qs[:b].contiguous()
+        out[f"floor8_b{b}"] = ms(lambda: score_probe(qb, values8, tile=2048),
+                                 5)
+        for k1 in C_K1:
+            out[f"c_b{b}_k{k1}"] = ms(lambda: scan.scan_blocks_int8(
+                qb, sb, values8, scales8, valid, k1), 5)
         out[f"floor_b{b}"] = ms(lambda: score_probe(qb, packed, tile=2048), 5)
         for k1 in k1s:
             out[f"d_b{b}_k{k1}"] = ms(lambda: scan.scan_blocks_int4(
                 qb, sb, packed, scales, valid, k1), 5)
-    del packed, scales, valid
+    del values8, scales8, packed, scales, valid
     torch.cuda.empty_cache()
     if k1s_4m:
-        packed, scales = _packed(torch, quant, centers, N_CAP, gen)
+        _, (packed, scales) = _views(torch, quant, centers, N_CAP, gen,
+                                     int8=False)
         valid = torch.ones(N_CAP, dtype=torch.bool, device="cuda")
         qv, qs = quant.quantize_rows_device(_rows(torch, centers, 1024, gen))
         out["floor_4m"] = ms(lambda: score_probe(qv, packed, tile=2048), 3)
@@ -123,7 +143,7 @@ def main(argv: list[str] | None = None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip()
-        print("kernel_d_ab " + json.dumps(out), flush=True)
+        print("kernel_ab " + json.dumps(out), flush=True)
         return 0
     rc = 0
     for checkout in args.checkouts:
