@@ -7,9 +7,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. Device: require CUDA; print the card and its power limit; build the
    kernels of `lattice_tpu_torch/csrc/` and print the build time, and the
    registers and local memory per thread (`cuobjdump`) of kernel D's
-   instances, of kernel C's two wgmma instances and of its int8 probe's.
+   instances, of kernels A's and C's two wgmma instances each (no local
+   memory allowed) and of their probes' four each.
 2. Kernels against their plain versions on the card, at N in {4099,
    1048576}, B in {1, 16, 256}, k in {1, 10, 64}, with masked rows.
+   bf16 (kernel A + B) on A's wgmma route at the sweep of C's below (N in
+   {4099, 1048576}, d in {256, 768, 1024}, B in {1, 63, ..., 300}, k1 in
+   {1, 16, 33, 64, 128}), on its wmma route at d = 100 and with
+   misaligned queries or rows, and on `bf16_cases` (ties across tile and
+   chunk edges, invalid chunks, fewer live rows than k1) at B in {1, 130}:
+   ids agree on >= 99.9% of each sweep's slots, every slot whose id
+   differs a rounding tie (within 1e-5), scores within 1e-4; on the ties,
+   ids equal and tied rows ranked by the lower id.
    int8 (kernel C + B): first-stage ids identical, scores bit-equal; the
    same on C's wgmma route at N in {4099, 1048576}, d in {256, 768,
    1024}, B in {1, 63, 64, 65, 127, 128, 129, 256, 300}, k1 in {1, 16,
@@ -51,10 +60,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    to its plain version on CPU copies; k1 = 513 refused.
    `score_probe` at every type and mode on 64 queries x 262,144 rows (+ a
    ragged tail of 100) x 768 at tiles 2048 and 8192, 300 x 65,636 x 1024
-   at tile 2048 (int8 at kernel C's instances for k1 = 16 and 80), and 16
-   x 4,133 x 100 at tile 256: int8 and int4 bit-equal, bf16 rawmax within
-   1e-4, bf16 pack within one score step of the key and equal on >= 99.9%
-   of bins.
+   at tile 2048 (bf16 and int8 at kernel A's and C's instances for k1 =
+   16 and 80), and 16 x 4,133 x 100 at tile 256: int8 and int4 bit-equal,
+   bf16 rawmax within 1e-4, bf16 pack within one score step of the key and
+   equal on >= 99.9% of bins.
 3a. The flat-tier path: 1,048,576 x 768 rows around 1024 centers at
    spread 0.35 (`bench.py`'s headline corpus, near-isotropic: the noise
    norm is ~9.7x the center's), from a seed, through `VectorIndexer` ->
@@ -150,14 +159,15 @@ at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
 the queue full, so the host's issue is not counted) and back to back.
 Launch counts are zeroed just before each of 3a, 3d, 3f, 3b, 3e and 3c
 and read just after it; each path's kernels, and every registered kernel, must
-have launched.
+have launched, and the C entries each path must have run with them (kernel
+A's and C's wgmma routes on corpus A, the bf16 and int8 probes' in 3f).
 
 The line before the last is the kernel table as JSON: per kernel its
-launches on those paths, its largest error against its plain version, its
-time, its plain version's time, its bound (the larger of its bytes over
-3.35 TB/s and its operations over the H100's dense peak for their type,
-from this run's shapes) and the time of one PyTorch call computing the
-same function where one exists. The last line is
+launches on those paths (and by C entry), its largest error against its
+plain version, its time, its plain version's time, its bound (the larger
+of its bytes over 3.35 TB/s and its operations over the H100's dense peak
+for their type, from this run's shapes) and the time of one PyTorch call
+computing the same function where one exists. The last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -305,16 +315,17 @@ def log_scan_resources() -> None:
     """Registers, stack and local memory (spills) per thread, as `cuobjdump
     --dump-resource-usage` reads them from the built library, of kernel D's
     three instances (serial: 64 queries a block, lists <= 16; batched: 64
-    queries, lists <= 128; 32 queries, <= 512), kernel C's two wgmma
-    instances (128 and 64 queries a block) and its int8 probe's four (the
-    same two, rawmax and pack)."""
+    queries, lists <= 128; 32 queries, <= 512), the two wgmma instances
+    (128 and 64 queries a block) of kernels A and C, and the four of each
+    of their probes (the same two, rawmax and pack). A's and C's wgmma
+    instances must use no local memory."""
     from lattice_tpu_torch.ops import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     lines = subprocess.run(
         [str(tool), "--dump-resource-usage", str(_build.library_path())],
         capture_output=True, text=True, check=True, timeout=120
     ).stdout.splitlines()
-    found = {"D": 0, "C": 0, "probe": 0}
+    found = {"D": 0, "A": 0, "C": 0, "bf16 probe": 0, "int8 probe": 0}
     for name, usage in zip(lines, lines[1:]):
         regs = " ".join(usage.split()[:5])
         if inst := (re.search(r"scan_topk_int4_kernelILi(\d+)ELi(\d+)E", name)
@@ -324,15 +335,21 @@ def log_scan_resources() -> None:
             kind = ("batched, lists <= " + inst[2] if "int4" in name
                     else "serial")
             log(f"kernel D, {kind}, {inst[1]} queries a block: {regs}")
-        elif inst := re.search(r"scan_topk_int8_wg_kernelILi(\d+)E", name):
-            found["C"] += 1
-            log(f"kernel C (wgmma), {inst[1]} queries a block: {regs}")
-        elif inst := re.search(r"score_probe_int8_wg_kernelILi(\d+)ELb(\d)E",
+        elif inst := re.search(r"scan_topk_(bf16|int8)_wg_kernelILi(\d+)E",
                                name):
-            found["probe"] += 1
-            log(f"int8 probe (wgmma), {inst[1]} queries a block, "
-                f"{'pack' if inst[2] == '1' else 'rawmax'}: {regs}")
-    require(found == {"D": 3, "C": 2, "probe": 4},
+            kernel = "A" if inst[1] == "bf16" else "C"
+            found[kernel] += 1
+            log(f"kernel {kernel} (wgmma), {inst[2]} queries a block: {regs}")
+            require(re.search(r"LOCAL:0\b", usage) is not None,
+                    f"kernel {kernel} ({inst[2]} queries) uses local "
+                    f"memory: {regs}")
+        elif inst := re.search(
+                r"score_probe_(bf16|int8)_wg_kernelILi(\d+)ELb(\d)E", name):
+            found[f"{inst[1]} probe"] += 1
+            log(f"{inst[1]} probe (wgmma), {inst[2]} queries a block, "
+                f"{'pack' if inst[3] == '1' else 'rawmax'}: {regs}")
+    require(found == {"D": 3, "A": 2, "C": 2, "bf16 probe": 4,
+                      "int8 probe": 4},
             f"cuobjdump shows these instances: {found}")
 
 
@@ -517,6 +534,122 @@ def phase_int8_kernel(err: dict) -> None:
             f"k1 in {INT8_K1}): bit-equal")
 
 
+TIE_TOL = 1e-5     # two f32 sums of the same bf16 products, any order
+
+
+def check_bf16(q, emb, valid, k1s: tuple[int, ...], err: dict, where: str,
+               ties: bool = False) -> tuple[int, int]:
+    """Kernels A + B against the plain version at each k1 of `k1s`: scores
+    within 1e-4 (bf16 products summed in another order), and every slot
+    whose id differs from the plain version's is a rounding tie: its row is
+    live, its score is its exact score and the plain version's score at
+    that slot within TIE_TOL. Returns (slots whose ids agree, slots), which
+    the caller holds to >= 99.9% over its sweep (one swap is 0.2% of a
+    list of 1,024). With `ties` (every row live, row r a copy of row
+    r % 7), ids equal the plain version's and every run of equal scores
+    holds one group's rows from its lowest id up, in steps of 7."""
+    from lattice_tpu_torch.ops import scan_topk as scan
+    same_ids = slots = 0
+    for k1 in k1s:
+        s, i = scan.scan_topk(q, emb, valid, k1)
+        torch.cuda.synchronize()
+        ps, pi = scan.scan_topk_plain(q, emb, valid, k1)
+        e = (s - ps).abs().max().item()
+        require(e < 1e-4, f"scan_topk differs from its plain version "
+                f"({where}, k1={k1}): max score error {e:.3g}")
+        off = i != pi
+        if bool(off.any()):
+            rows = i[off].long()
+            qb = q.to(torch.bfloat16).float()[off.nonzero()[:, 0]]
+            exact = (qb * emb[rows].float()).sum(dim=1)
+            gap = torch.maximum((exact - s[off]).abs(), (s[off] - ps[off]).abs())
+            require(bool(valid[rows].all()) and gap.max().item() <= TIE_TOL,
+                    f"scan_topk ({where}, k1={k1}): {int(off.sum())} ids "
+                    f"differ from the plain version's, not by rounding "
+                    f"(largest gap {gap.max().item():.3g})")
+        if ties:
+            same = s[:, 1:] == s[:, :-1]
+            lowest = torch.where(same, i[:, 1:] == i[:, :-1] + 7,
+                                 i[:, 1:] < 7)
+            require(torch.equal(i, pi) and bool(lowest.all())
+                    and bool((i[:, 0] < 7).all()),
+                    f"tied rows not ranked by the lower id ({where}, "
+                    f"k1={k1})")
+        err["scan_topk"] = max(err["scan_topk"], e)
+        same_ids += int((~off).sum())
+        slots += off.numel()
+    return same_ids, slots
+
+
+def require_agree(counts: tuple[int, int], where: str) -> None:
+    """Ids agree with the plain version's on >= 99.9% of a sweep's slots."""
+    require(counts[0] >= 0.999 * counts[1],
+            f"scan_topk ids agree with the plain version on "
+            f"{counts[0] / counts[1]:.6f} of the slots of {where}")
+
+
+def phase_bf16_kernel(err: dict) -> None:
+    """Kernel A + B against its plain version on its wgmma route at n in
+    {4099, 1048576}, d in INT8_DIMS, B in INT8_BATCHES, k1 in INT8_K1
+    (both instances: 128 queries a block at B > 64 and k1 <= 32, else 64);
+    on its wmma route at d = 100 and with 16-byte misaligned queries or
+    rows; and on `bf16_cases` (ties across tile and chunk edges, chunks
+    entirely invalid, fewer live rows than k1) at B in {1, 130}, where
+    tied rows rank by the lower id."""
+    from lattice_tpu_torch.ops import scan_topk as scan
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for n in (4099, N_ROWS):
+        for d in INT8_DIMS:
+            emb = normalize(torch.randn(n, d, device="cuda", generator=gen)
+                            ).to(torch.bfloat16)
+            valid = torch.rand(n, device="cuda", generator=gen) > 0.1
+            counts = [0, 0]
+            for b in INT8_BATCHES:
+                q = normalize(torch.randn(b, d, device="cuda", generator=gen))
+                require(scan.bf16_route(q, emb) == "lt_scan_topk_bf16",
+                        f"kernel A took its wgmma route at d={d}")
+                c = check_bf16(q, emb, valid, INT8_K1, err,
+                               f"wgmma, n={n} d={d} b={b}")
+                counts = [counts[0] + c[0], counts[1] + c[1]]
+            require_agree(counts, f"n={n} d={d}")
+            log(f"kernels ok: scan_topk (wgmma) n={n} d={d}, B in "
+                f"{INT8_BATCHES}, k1 in {INT8_K1}: ids agree on "
+                f"{counts[0] / counts[1]:.6f} of {counts[1]} slots")
+            del emb, valid
+    n, counts = 4099, [0, 0]
+    for d, shift in ((100, 0), (DIM, 1), (DIM, 0)):
+        emb = normalize(torch.randn(n, d, device="cuda", generator=gen)
+                        ).to(torch.bfloat16)
+        valid = torch.rand(n, device="cuda", generator=gen) > 0.1
+        if d == DIM and not shift:  # rows 8 bytes past a 16-byte boundary
+            buf = torch.empty(n * d + 8, dtype=torch.bfloat16, device="cuda")
+            emb = buf[4:4 + n * d].view(n, d).copy_(emb)
+        for b in (1, 65, 256):
+            q = normalize(torch.randn(b, d, device="cuda", generator=gen))
+            if shift:  # queries 4 bytes past a 16-byte boundary
+                buf = torch.empty(b * d + 4, device="cuda")
+                q = buf[shift:shift + b * d].view(b, d).copy_(q)
+            require(scan.bf16_route(q, emb) == "lt_scan_topk_bf16_scalar",
+                    f"kernel A took its wgmma route at d={d}, shift={shift}")
+            c = check_bf16(q, emb, valid, INT8_K1, err,
+                           f"wmma route, d={d} b={b} shift={shift}")
+            counts = [counts[0] + c[0], counts[1] + c[1]]
+        log(f"kernels ok: scan_topk (wmma route) d={d}"
+            f"{' misaligned' if d == DIM else ''}")
+    require_agree(counts, "the wmma route")
+    counts = [0, 0]
+    for name, *arrays in bf16_cases(SEED + 13):
+        q, rows, valid = (torch.from_numpy(a).cuda() for a in arrays)
+        emb = rows.to(torch.bfloat16)
+        for b in (1, q.shape[0]):
+            c = check_bf16(q[:b].contiguous(), emb, valid, INT8_K1, err,
+                           f"{name} b={b}", ties=name.startswith("ties"))
+            counts = [counts[0] + c[0], counts[1] + c[1]]
+        log(f"kernels ok: scan_topk on {name} (N={emb.shape[0]}, k1 in "
+            f"{INT8_K1})")
+    require_agree(counts, "bf16_cases")
+
+
 def check_int4(qv, qs, ep, eps, valid, k: int, err: dict, where: str,
                k1s: tuple[int, ...] = ()) -> None:
     """Kernel D + B against its plain version at the widths `Int4View`
@@ -696,6 +829,42 @@ def int8_cases(seed: int, n: int = 20_000, b: int = 130, d: int = 768
     few = np.zeros(n, bool)
     few[rng.choice(n, 20, replace=False)] = True
     cases.append(("fewer live rows than k1", qv, qs, ev, es, few))
+    return cases
+
+
+def bf16_values(x: np.ndarray) -> np.ndarray:
+    """f32 values rounded to bf16 (nearest even), kept as f32: each
+    converts to bf16 exactly."""
+    u = x.astype(np.float32).view(np.uint32)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).view(np.float32)
+
+
+def bf16_cases(seed: int, n: int = 20_000, b: int = 130, d: int = 768
+               ) -> list[tuple]:
+    """Adversarial inputs of kernel A, (name, queries [b, d] f32 of unit
+    norm, rows [n, d] f32 holding bf16 values of unit norm, valid [n]
+    bool), made from a seed with numpy: the CPU tests hold the emulated
+    chunking to JAX's exact scan and to the Pallas `binned_topk` on small
+    ones, the card holds kernels A + B to the plain version (both
+    instances of A)."""
+    rng = np.random.default_rng(seed)
+
+    def unit(m):
+        x = rng.normal(size=(m, d)).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    q, e = unit(b), bf16_values(unit(n))
+    live = np.ones(n, bool)
+    rows = np.arange(n)
+    # every row a copy of one of 7: each score recurs every 7 rows, across
+    # every 64-row tile and chunk edge
+    cases = [("ties across tile and chunk edges", q, e[rows % 7], live)]
+    # long invalid runs (whole chunks), the tail included
+    holes = ~((rows >= n // 8) & (rows < n // 2)) & (rows < n - 700)
+    cases.append(("chunks entirely invalid", q, e, holes))
+    few = np.zeros(n, bool)
+    few[rng.choice(n, 20, replace=False)] = True
+    cases.append(("fewer live rows than k1", q, e, few))
     return cases
 
 
@@ -898,10 +1067,10 @@ def phase_probe_kernel(err: dict) -> None:
     and mode, by `dissect.check_probe`: 64 queries x 262,144 + 100 rows x
     768 at tiles 2048 and 8192 (the 100 tail rows must be dropped), 300
     queries x 65,636 rows x 1024 at tile 2048 (three query tiles, the last
-    partial; int8 at kernel C's instances for k1 = 16 and 80), and 16
-    queries x 4,133 rows x 100 at tile 256 (scalar loads, a partial query
-    tile; int8 on kernel C's wmma route). int8 and int4 bit-equal (exact
-    integer sums); bf16 rawmax within
+    partial; bf16 and int8 at kernel A's and C's instances for k1 = 16 and
+    80), and 16 queries x 4,133 rows x 100 at tile 256 (scalar loads, a
+    partial query tile; bf16 and int8 on kernel A's and C's wmma routes).
+    int8 and int4 bit-equal (exact integer sums); bf16 rawmax within
     1e-4, as kernel A's scores are held; bf16 pack within one score step of
     the key and equal on >= 99.9% of bins. The dissection path holds the
     probe again at its own shapes (several tiles per block, four query
@@ -923,7 +1092,7 @@ def phase_probe_kernel(err: dict) -> None:
         for tile in tiles:
             for kind, qq, rows in cases:
                 modes = ("rawmax",) if kind == "int4" else probe.MODES
-                k1s = (16, 80) if kind == "int8" and b > 64 else (16,)
+                k1s = (16, 80) if kind != "int4" and b > 64 else (16,)
                 for mode, k1 in ((m, k) for m in modes for k in k1s):
                     out = probe.score_probe(qq, rows, tile=tile, mode=mode,
                                             k1=k1)
@@ -1603,16 +1772,21 @@ def phase_timings(ctx: dict, kernels_ms: dict, err: dict, smi: str) -> None:
                 cuda_ms(lambda: torch._int_mm(qv, view.values.T), 10)
                 if b > 16 else None),
         }
-        # kernel C's wmma route (the PR 1-10 kernel, which now serves only
-        # shapes TMA cannot read) on the same inputs
-        ptrs = (qv.data_ptr(), qs.data_ptr(), view.values.data_ptr(),
-                view.scales.data_ptr(), valid.data_ptr())
-        wmma_ms = cuda_ms(lambda: scan._launch_scan(
-            scan.SCAN_TOPK_INT8, "lt_scan_topk_int8_scalar", k1, b, n, DIM, 1,
-            ptrs, valid.device), 10)
-        log(f"kernel scan_topk_int8 B={b} k1={k1}: wgmma route "
-            f"{rows['scan_topk_int8']['ms']:.4f} ms, wmma route on the same "
-            f"inputs {wmma_ms:.4f} ms ({smi})")
+        # kernels A's and C's wmma routes (the tile loops they ran before
+        # wgmma, which now serve only shapes TMA cannot read) on the same
+        # inputs
+        for name, kernel, entry, ptrs in (
+                ("scan_topk", scan.SCAN_TOPK, "lt_scan_topk_bf16_scalar",
+                 (q.data_ptr(), emb.data_ptr(), valid.data_ptr())),
+                ("scan_topk_int8", scan.SCAN_TOPK_INT8,
+                 "lt_scan_topk_int8_scalar",
+                 (qv.data_ptr(), qs.data_ptr(), view.values.data_ptr(),
+                  view.scales.data_ptr(), valid.data_ptr()))):
+            wmma_ms = cuda_ms(lambda: scan._launch_scan(
+                kernel, entry, k1, b, n, DIM, 1, ptrs, valid.device), 10)
+            log(f"kernel {name} B={b} k1={k1}: wgmma route "
+                f"{rows[name]['ms']:.4f} ms, wmma route on the same inputs "
+                f"{wmma_ms:.4f} ms ({smi})")
         # kernel B on the lists of the "pallas" / "refined" (A) and the
         # "quantized" (C) plans
         check_merge(cs, ci, k1, "kernel A lists", err)
@@ -1937,6 +2111,7 @@ def main() -> int:
     t_start = time.perf_counter()
     err = {k.name: 0.0 for k in _build.KERNELS}
     phase_kernels(err)
+    phase_bf16_kernel(err)
     phase_int8_kernel(err)
     phase_merge_kernel(err)
     phase_ivf_kernels(err)
@@ -1946,14 +2121,20 @@ def main() -> int:
     ctx: dict = {}
     kernels_ms: dict = {}
     launches = {k.name: 0 for k in _build.KERNELS}
+    entries = {k.name: {} for k in _build.KERNELS}
+    # each path's kernels, and the C entries (routes) it must have run:
+    # kernel A's and the bf16 probe's wgmma entries on the corpus-A store
     for path, phase, needs in (
             ("flat tier", phase_main_path,
-             ("scan_topk", "scan_topk_int8", "merge_candidates")),
+             ("scan_topk", "scan_topk_int8", "merge_candidates",
+              "lt_scan_topk_bf16", "lt_scan_topk_int8")),
             ("int4 tier", phase_int4_path,
-             ("scan_topk_int4", "merge_candidates", "scan_topk")),
+             ("scan_topk_int4", "merge_candidates", "scan_topk",
+              "lt_scan_topk_bf16")),
             ("dissection", phase_dissect_path,
              ("score_probe", "scan_topk", "scan_topk_int8",
-              "scan_topk_int4")),
+              "scan_topk_int4", "lt_score_probe_bf16",
+              "lt_score_probe_int8")),
             ("ivf", phase_ivf_path,
              ("ivf_probe", "merge_candidates", "scan_topk_int8")),
             ("capacity", phase_capacity_path,
@@ -1962,12 +2143,14 @@ def main() -> int:
              ("paired_attention", "scan_topk_int8", "merge_candidates"))):
         _build.reset_launch_counts()
         phase(ctx)
-        counts = _build.launch_counts()
+        counts = {**_build.launch_counts(), **_build.entry_launch_counts()}
         log(f"main-path launches ({path}): {counts}")
         for k in needs:
-            require(counts[k] > 0, f"{k} never ran on the {path} path")
-        for k, v in counts.items():
-            launches[k] += v
+            require(counts.get(k, 0) > 0, f"{k} never ran on the {path} path")
+        for k in _build.KERNELS:
+            launches[k.name] += k.launches
+            for e, v in k.entry_launches.items():
+                entries[k.name][e] = entries[k.name].get(e, 0) + v
         if path == "flat tier":
             phase_timings(ctx, kernels_ms, err, smi)
         elif path == "int4 tier":
@@ -2007,7 +2190,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": err[k.name], **kernels_ms[k.name]}
+         "entries": entries[k.name], "max_abs_err": err[k.name],
+         **kernels_ms[k.name]}
         for k in _build.KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

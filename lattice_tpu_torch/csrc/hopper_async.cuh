@@ -1,6 +1,6 @@
 // Hopper's asynchronous building blocks, shared by the kernels that feed
-// `wgmma` from a TMA ring (paired_attention.cu; kernel C and its int8
-// score-floor probe through scan_wg.cuh): mbarriers, TMA tile loads,
+// `wgmma` from a TMA ring (paired_attention.cu; kernels A and C and their
+// score-floor probes through scan_wg.cuh): mbarriers, TMA tile loads,
 // shared-memory descriptors of 128-byte swizzled operands, the warpgroup
 // fences, and the encoding of tensor maps through the runtime (so that no
 // library here links libcuda).

@@ -238,7 +238,9 @@ int launch_pass(const float* cs, const int* ci, int B, int m, int vec,
   auto kern = merge_candidates_kernel<FIRST, FINAL>;
   const int L = slice_len(n, g);
   const size_t smem = (size_t)L * sizeof(u64);
-  if (smem > 48 * 1024) {  // the default limit needs no host call
+  // the default limit (48 KB, static shared memory included) needs no
+  // host call
+  if (smem + sizeof(SelectShared) > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

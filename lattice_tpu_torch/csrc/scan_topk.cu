@@ -2,8 +2,15 @@
 //
 // Kernel A, scan_topk (bf16 rows, and f32 rows as a second instance):
 //   replaces `_binned_kernel` + `_binned_candidates`
-//   (lattice_tpu/ops/pallas_topk.py). Q [B, d] f32 (normalized) is cast to
-//   the row type inside the kernel; E [N, d]; valid [N] (1 byte per row).
+//   (lattice_tpu/ops/pallas_topk.py). Q [B, d] f32 (normalized) cast to
+//   the row type; E [N, d]; valid [N] (1 byte per row); the score is the
+//   f32 sum of bf16(q) * e. Two routes for bf16 rows, chosen by shape alone
+//   (ops/scan_topk.py `bf16_route`): where d % 8 == 0 and Q and E are
+//   16-byte aligned (every store's rows), `scan_topk_bf16_wg_kernel` below
+//   on scan_wg.cuh's wgmma main loop, from a bf16 copy of Q the wrapper
+//   makes (rounded to nearest even, as JAX's astype); any other shape, and
+//   f32 rows, scan_topk_kernel's wmma tile loop, which casts Q inside
+//   (`lt_scan_topk_bf16_scalar`, `lt_scan_topk_f32`).
 // Kernel C, scan_topk_int8: replaces `_binned_kernel_int8` (same file):
 //   q int8 [B, d], q-scales f32 [B], E int8 [N, d], e-scales f32 [N].
 //   score = (f32(i32 dot) * qs) * es, the plain version's order, so the
@@ -54,12 +61,13 @@
 // to SERIAL_K1 it is scan_topk_kernel's int4 instance with `offer`.
 //
 // What bounds it on the H100: one pass over E. At 1M x 768 that is
-// 1.61 GB of bf16 (~0.48 ms at 3.35 TB/s), 0.81 GB of int8 or 0.40 GB of
-// packed int4; at B=256 the 403 G products ask for tensor cores (int8 and
-// int4 at 1,979 TOP/s: ~0.21 ms, which bounds kernel D; at 4M x 768,
-// B=1024, its 6.6 TOP take 3.33 ms against 0.48 ms of bytes).
+// 1.61 GB of bf16 (~0.48 ms at 3.35 TB/s, which bounds kernel A), 0.81 GB
+// of int8 or 0.40 GB of packed int4; at B=256 the 403 G products ask for
+// tensor cores (bf16 at 989 TFLOP/s: ~0.41 ms; int8 and int4 at 1,979
+// TOP/s: ~0.21 ms, which bounds kernel D; at 4M x 768, B=1024, its 6.6
+// TOP take 3.33 ms against 0.48 ms of bytes).
 //
-// Kernels A and D, and C's wmma route: a block owns 64 queries and a
+// Kernel D, and A's and C's wmma routes: a block owns 64 queries and a
 // contiguous run of rows (the TPU's sequential grid becomes the loop over
 // row tiles inside the block), about four blocks an SM; row tiles of 128
 // go through the tensor cores (wmma m16n16k16, bf16 -> f32 and s8 -> s32;
@@ -71,23 +79,25 @@
 // (6-15% faster than one load at a time on an H100), then the block syncs,
 // runs the products and syncs again, so no load is in flight while the
 // products run, and the queries are loaded again for every row tile.
-// That serial tile is what bounds them: A's floor at 1M x 768, B=256 is
-// 10.6% of its bound (PERF.md section 5).
+// That serial tile is what bounds kernel D: its floor at 1M x 768, B=256
+// is 7.4% of its bound (PERF.md section 5); it bounded A too (10.5%)
+// until A moved to wgmma.
 //
-// Kernel C on wgmma (scan_wg.cuh) takes that loop apart for Hopper: one
-// block an SM (128 queries a block past B = 64 at k1 <= 32, else 64, so
-// at B=256 a chunk is read by two blocks instead of four), a producer warp
-// that keeps TMA loads of the rows and queries in flight in a ring, MMA
-// warpgroups on wgmma m64n64k32 s8 that store each 64-row tile's sums and
-// go on to the next tile, and the selection in 16 epilogue warps of its
-// own, so that the tensor cores and the loads run through it. What bounds
-// C then is the selection: each epilogue warp folds its queries' lists
-// with `offer`, whose every step waits on a shared-memory read of the
-// list's tail, and at B=256, k1=16 the scan runs at about 1.4 times its
-// floor, the int8 probe on the same main loop. That floor is set by L2:
-// the rows cross it once per query tile and the streamed queries once per
-// 64-row slab (PERF.md section 6, PR 11).
-//
+// Kernels A and C on wgmma (scan_wg.cuh) take that loop apart for Hopper:
+// one block an SM (128 queries a block past B = 64 at k1 <= 32, else 64,
+// so at B=256 a chunk is read by two blocks instead of four), a producer
+// warp that keeps TMA loads of the rows and queries in flight in a ring,
+// MMA warpgroups on wgmma (m64n64k16 bf16 -> f32 for A, m64n64k32 s8 -> s32
+// for C) that store each 64-row tile's sums and go on to the next tile,
+// and the selection in 16 epilogue warps of their own, so that the tensor
+// cores and the loads run through it. Both floors (the probes on the same
+// main loop) are set by the operands' traffic through L2 and shared memory
+// (scan_wg.cuh), and a bf16 row is twice the bytes of an int8 one. At
+// 1M x 768, B=256, k1=16, A's floor is 38% of its bound and its selection
+// 9% of the scan; C's floor is 38% of its bound and its selection, `offer`
+// in the epilogue warps, whose every step waits on a shared-memory read
+// of the list's tail, 27% (PERF.md section 6).
+
 // The number of candidates that beat a full list is not small: for rows
 // in random order a top-k1 over a chunk of R rows takes about
 // k1 (1 + ln(R / k1)) of them per query (~450 at k1 = 80 and R = 8,064,
@@ -102,6 +112,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "scan_tile.cuh"
 #include "scan_wg.cuh"
@@ -429,48 +441,75 @@ int launch_scan_int4(const void* q, const void* qs, const void* e,
   return (int)cudaGetLastError();
 }
 
-// ---- kernel C on wgmma: the selection epilogue of wg_scan -----------------
+// ---- kernels A and C on wgmma: the selection epilogue of wg_scan ----------
 
-// Shared memory of kernel C's epilogue past wg_scan's score tile: two lists
-// of k1 entries per query.
+// Shared memory of the selection epilogue past wg_scan's score tile: two
+// lists of k1 entries per query.
 template <int BQ_>
-size_t int8_epi_bytes(int k1) {
+size_t select_epi_bytes(int k1) {
   return 2 * round_up((size_t)BQ_ * k1 * 4);
 }
 
-// An epilogue warp of kernel C folds each stored tile (its NQ queries x
-// 64 rows of raw i32 sums) into its queries' lists with `offer`, exactly
-// as scan_topk_kernel does: score = (f32(sum) * qs) * es, NEG_INF where
-// the row is invalid, rows past the chunk not offered; each query's two
-// scores are made before its two offers. Each lane keeps the row scales
-// and validity of its 2 columns of the tile (loaded one tile ahead) and
-// the scale of one of the warp's NQ queries.
-template <int KMAX, int NQ>
+// An epilogue warp of kernel A or C folds each stored tile (its NQ queries
+// x 64 rows of raw sums, Acc) into its queries' lists with `offer`, exactly
+// as scan_topk_kernel does: the score is the f32 sum itself (A), or
+// (f32(sum) * qs) * es (C); NEG_INF where the row is invalid, rows past
+// the chunk not offered; each query's two scores are made before its two
+// offers. Each lane keeps the validity (and C's row scales) of its 2
+// columns of the tile, loaded one tile ahead, and C's scale of one of the
+// warp's NQ queries.
+template <int KMAX, int NQ, typename Acc>
 struct SelectEpi {
+  static constexpr bool SCALED = std::is_same<Acc, int>::value;
   float* Ls;               // this warp's NQ lists (k1 entries each)
   int* Li;
-  const float* es;
+  const float* es;         // C only
   const uint8_t* valid;
   float* cand_s;           // this warp's first query's lists of this chunk
   int* cand_i;
   size_t ld;               // between two queries' lists: n_chunks * k1
   int k1, row_hi, live, lane;  // live: this warp's queries < B (<= NQ)
-  float qsr;                   // scale of query lane % NQ of the warp
+  float qsr;                   // C: scale of query lane % NQ of the warp
   bool ahead = false;          // esn / vn hold the tile about to come
   float esn[2];
   int vn[2];
+
+  // Epilogue warp e's lists (queries q0 + NQ e ...) in the shared memory
+  // `lists` past the score tile, set to empty, and where they are written.
+  __device__ __forceinline__ void init(unsigned char* lists, int bq, int e,
+                                       int q0, int B, int k1_, int chunk,
+                                       int n_chunks, int chunk_hi,
+                                       const uint8_t* valid_, float* cs,
+                                       int* ci, int lane_) {
+    const int qe = q0 + NQ * e;
+    Ls = reinterpret_cast<float*>(lists) + NQ * e * k1_;
+    Li = reinterpret_cast<int*>(lists + round_up((size_t)bq * k1_ * 4)) +
+         NQ * e * k1_;
+    for (int i = lane_; i < NQ * k1_; i += 32) {
+      Ls[i] = neg_infinity();
+      Li[i] = EMPTY_ID;
+    }
+    valid = valid_;
+    ld = (size_t)n_chunks * k1_;
+    cand_s = cs + ((size_t)qe * n_chunks + chunk) * k1_;
+    cand_i = ci + ((size_t)qe * n_chunks + chunk) * k1_;
+    k1 = k1_;
+    row_hi = chunk_hi;
+    live = max(0, min(NQ, B - qe));
+    lane = lane_;
+  }
 
   __device__ __forceinline__ void fetch(int row0) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int row = row0 + 32 * j + lane;
       const bool in = row < row_hi;
-      esn[j] = in ? __ldg(es + row) : 0.f;
+      if constexpr (SCALED) esn[j] = in ? __ldg(es + row) : 0.f;
       vn[j] = in ? valid[row] : 0;
     }
   }
 
-  __device__ __forceinline__ void tile(const int* S, int row0) {
+  __device__ __forceinline__ void tile(const Acc* S, int row0) {
     if (!ahead) fetch(row0);
     float esr[2];
     int vr[2];
@@ -482,15 +521,20 @@ struct SelectEpi {
     fetch(row0 + WG_BN);  // the next tile's, while this one is folded
     ahead = true;
     for (int qq = 0; qq < live; ++qq) {
-      const float qsv = __shfl_sync(FULL, qsr, qq);
+      float qsv = 0.f;
+      if constexpr (SCALED) qsv = __shfl_sync(FULL, qsr, qq);
       float s[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = 32 * j + lane;
         s[j] = NEG_INF;
-        if (row0 + c < row_hi && vr[j])
-          s[j] = __fmul_rn(__fmul_rn((float)S[qq * WG_SC_LD + c], qsv),
-                           esr[j]);
+        if (row0 + c < row_hi && vr[j]) {
+          if constexpr (SCALED)
+            s[j] = __fmul_rn(__fmul_rn((float)S[qq * WG_SC_LD + c], qsv),
+                             esr[j]);
+          else
+            s[j] = S[qq * WG_SC_LD + c];
+        }
       }
       float* ls = Ls + qq * k1;
       int* li = Li + qq * k1;
@@ -511,8 +555,17 @@ struct SelectEpi {
   }
 };
 
+// The shared memory of a block's lists: past wg_scan's ring, mbarriers and
+// score tile.
+template <int BQ_>
+__device__ __forceinline__ unsigned char* wg_lists(unsigned char* sm) {
+  return sm + WgCfg<BQ_>::RING + WG_BAR_BYTES +
+         round_up((size_t)BQ_ * WG_SC_LD * 4);
+}
+
 // Kernel C: BQ_ queries [q0, q0 + BQ_) against the rows of one chunk,
-// loads and products by wg_scan, the selection in its epilogue warps.
+// loads and products by wg_scan (int8), the selection in its epilogue
+// warps.
 template <int BQ_>
 __global__ void __maxnreg__((WgCfg<BQ_>::REGS))
 scan_topk_int8_wg_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -531,49 +584,64 @@ scan_topk_int8_wg_kernel(const __grid_constant__ CUtensorMap qmap,
   const int chunk_hi = min(chunk_lo + rows_per_chunk, n);
   const int lane = threadIdx.x & 31, e = (threadIdx.x >> 5) - C::MMA_WARPS;
   constexpr int NQ = C::EPI_Q;
-  SelectEpi<C::KMAX, NQ> epi;
+  SelectEpi<C::KMAX, NQ, int> epi;
   if (e >= 0 && e < C::EPI_WARPS) {  // an epilogue warp: queries NQ e ...
-    unsigned char* p = sm + C::RING + WG_BAR_BYTES +
-                       round_up((size_t)BQ_ * WG_SC_LD * 4);
+    epi.init(wg_lists<BQ_>(sm), BQ_, e, q0, B, k1, chunk, n_chunks,
+             chunk_hi, valid, cand_s, cand_i, lane);
     const int qe = q0 + NQ * e;
-    epi.Ls = reinterpret_cast<float*>(p) + NQ * e * k1;
-    epi.Li = reinterpret_cast<int*>(p + round_up((size_t)BQ_ * k1 * 4)) +
-             NQ * e * k1;
-    for (int i = lane; i < NQ * k1; i += 32) {
-      epi.Ls[i] = neg_infinity();
-      epi.Li[i] = EMPTY_ID;
-    }
     epi.es = es;
-    epi.valid = valid;
-    epi.ld = (size_t)n_chunks * k1;
-    epi.cand_s = cand_s + ((size_t)qe * n_chunks + chunk) * k1;
-    epi.cand_i = cand_i + ((size_t)qe * n_chunks + chunk) * k1;
-    epi.k1 = k1;
-    epi.row_hi = chunk_hi;
-    epi.live = max(0, min(NQ, B - qe));
-    epi.lane = lane;
     epi.qsr = qe + lane % NQ < B ? qs[qe + lane % NQ] : 0.f;
   }
-  wg_scan<BQ_>(&rmap, &qmap, sm, q0, B, chunk_lo, chunk_hi, d, epi);
+  wg_scan<BQ_, WgS8>(&rmap, &qmap, sm, q0, B, chunk_lo, chunk_hi, d, epi);
 }
 
-// `vec` must be 1: this route needs 16-byte rows and pointers (the wrapper
-// sends other shapes to lt_scan_topk_int8_scalar); `bq` names the instance.
+// Kernel A: the same blocks over bf16 queries and rows (f32 sums), the
+// score the sum itself.
+template <int BQ_>
+__global__ void __maxnreg__((WgCfg<BQ_>::REGS))
+scan_topk_bf16_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap rmap,
+                         const uint8_t* __restrict__ valid, int B, int n,
+                         int d, int k1, int rows_per_chunk, int n_chunks,
+                         float* __restrict__ cand_s,
+                         int* __restrict__ cand_i) {
+  using C = WgCfg<BQ_>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = wg_smem_base(smem_raw);
+  const int chunk = blockIdx.x, q0 = blockIdx.y * BQ_;
+  const int chunk_lo = chunk * rows_per_chunk;
+  const int chunk_hi = min(chunk_lo + rows_per_chunk, n);
+  const int lane = threadIdx.x & 31, e = (threadIdx.x >> 5) - C::MMA_WARPS;
+  SelectEpi<C::KMAX, C::EPI_Q, float> epi;
+  if (e >= 0 && e < C::EPI_WARPS)
+    epi.init(wg_lists<BQ_>(sm), BQ_, e, q0, B, k1, chunk, n_chunks,
+             chunk_hi, valid, cand_s, cand_i, lane);
+  wg_scan<BQ_, WgBf16>(&rmap, &qmap, sm, q0, B, chunk_lo, chunk_hi, d, epi);
+}
+
+// The arguments both wgmma routes refuse: `vec` must be 1 (16-byte rows and
+// pointers; the wrappers send other shapes to the wmma tile loop), `bq`
+// names the instance, and the chunks must cover the rows, none empty.
+template <int BQ_>
+bool wg_args_ok(int B, int n, int k1, int bq, int rows_per_chunk,
+                int n_chunks, int vec) {
+  return B >= 1 && n >= 1 && k1 >= 1 && k1 <= WgCfg<BQ_>::KMAX && bq == BQ_ &&
+         vec == 1 && rows_per_chunk >= BN && rows_per_chunk % BN == 0 &&
+         n_chunks >= 1 && (size_t)(n_chunks - 1) * rows_per_chunk < (size_t)n &&
+         (size_t)n_chunks * rows_per_chunk >= (size_t)n;
+}
+
 template <int BQ_>
 int launch_scan_int8_wg(const void* q, const void* qs, const void* e,
                         const void* es, const void* valid, int B, int n,
                         int d, int k1, int bq, int rows_per_chunk,
                         int n_chunks, int vec, void* cand_s, void* cand_i,
                         void* stream) {
-  if (B < 1 || n < 1 || k1 < 1 || k1 > WgCfg<BQ_>::KMAX || bq != BQ_ ||
-      vec != 1 || rows_per_chunk < BN || rows_per_chunk % BN != 0 ||
-      n_chunks < 1 || (size_t)(n_chunks - 1) * rows_per_chunk >= (size_t)n ||
-      (size_t)n_chunks * rows_per_chunk < (size_t)n)
-    return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, rmap;
-  if (!int8_maps(&qmap, &rmap, q, e, B, n, d))
+  if (!wg_args_ok<BQ_>(B, n, k1, bq, rows_per_chunk, n_chunks, vec) ||
+      !wg_maps<WgS8>(&qmap, &rmap, q, e, B, n, d))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = wg_smem_bytes<BQ_>(int8_epi_bytes<BQ_>(k1));
+  const size_t smem = wg_smem_bytes<BQ_>(select_epi_bytes<BQ_>(k1));
   auto kern = scan_topk_int8_wg_kernel<BQ_>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -587,16 +655,55 @@ int launch_scan_int8_wg(const void* q, const void* qs, const void* e,
   return (int)cudaGetLastError();
 }
 
+template <int BQ_>
+int launch_scan_bf16_wg(const void* q, const void* e, const void* valid,
+                        int B, int n, int d, int k1, int bq,
+                        int rows_per_chunk, int n_chunks, int vec,
+                        void* cand_s, void* cand_i, void* stream) {
+  CUtensorMap qmap, rmap;
+  if (!wg_args_ok<BQ_>(B, n, k1, bq, rows_per_chunk, n_chunks, vec) ||
+      !wg_maps<WgBf16>(&qmap, &rmap, q, e, B, n, d))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wg_smem_bytes<BQ_>(select_epi_bytes<BQ_>(k1));
+  auto kern = scan_topk_bf16_wg_kernel<BQ_>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_chunks, (B + BQ_ - 1) / BQ_);
+  kern<<<grid, WgCfg<BQ_>::THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      qmap, rmap, static_cast<const uint8_t*>(valid), B, n, d, k1,
+      rows_per_chunk, n_chunks, static_cast<float*>(cand_s),
+      static_cast<int*>(cand_i));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Every entry returns cudaGetLastError() after its launch (0 = success).
 
+// kernel A: bf16 queries and rows, d % 8 == 0, 16-byte aligned (vec = 1);
+// bq = BQ_WIDE takes lists up to K1_WIDE, bq = 64 up to MAX_K1
 int lt_scan_topk_bf16(const void* q, const void* e, const void* valid, int B,
                       int n, int d, int k1, int bq, int rows_per_chunk,
                       int n_chunks, int vec, void* cand_s, void* cand_i,
                       void* stream) {
+  if (bq == BQ_WIDE)
+    return launch_scan_bf16_wg<BQ_WIDE>(q, e, valid, B, n, d, k1, bq,
+                                        rows_per_chunk, n_chunks, vec, cand_s,
+                                        cand_i, stream);
+  return launch_scan_bf16_wg<64>(q, e, valid, B, n, d, k1, bq, rows_per_chunk,
+                                 n_chunks, vec, cand_s, cand_i, stream);
+}
+
+// kernel A for every other shape: f32 queries cast to bf16 in the wmma
+// tile loop of scan_topk_kernel
+int lt_scan_topk_bf16_scalar(const void* q, const void* e, const void* valid,
+                             int B, int n, int d, int k1, int bq,
+                             int rows_per_chunk, int n_chunks, int vec,
+                             void* cand_s, void* cand_i, void* stream) {
   return launch_scan<MODE_BF16>(q, nullptr, e, nullptr, valid, B, n, d, k1, bq,
                                 rows_per_chunk, n_chunks, vec, cand_s, cand_i,
                                 stream);

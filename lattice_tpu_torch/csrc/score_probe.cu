@@ -29,28 +29,31 @@
 // bf16, 0.20 ms at 1,979 TOP/s in int8); the [B, N/tile * 128] f32 output
 // adds 67 MB at tile 2048. Design: the loads and products of its scan, so
 // that a scan's time minus its probe's is what its selection costs.
-// - bf16 and int4, and int8 on kernel C's wmma route: the same blocks,
-//   loads and wmma products as kernels A, D and C's wmma route
+// - int4, and bf16 and int8 on kernels A's and C's wmma routes: the same
+//   blocks, loads and wmma products as kernel D and those routes
 //   (`score_tile`, scan_tile.cuh). A block owns 64 queries and a run of
 //   whole probe tiles; each warp maxes its own fragments of a row tile's
 //   scores into the running bin max it keeps in the shared score tile (a
 //   wmma load, an element-wise max, a store: the accumulator layout is the
 //   same on both sides, so no element needs its position), and the block
 //   writes [64, 128] once per probe tile.
-// - int8 where kernel C runs on wgmma (d % 16 == 0, 16-byte aligned):
-//   kernel C's main loop itself (scan_wg.cuh: the instance C takes at the
-//   caller's k1, one block an SM, the TMA producer, the MMA warps that
-//   store each tile's i32 sums, the register budget), with C's epilogue
-//   warps folding the stored tiles into a running bin max in registers
-//   instead of selecting. That loop is no longer serial: what bounds the
-//   floor is L2, which the rows cross once per query tile and the
-//   streamed queries once per 64-row slab (PERF.md section 6, PR 11).
+// - bf16 and int8 where kernels A and C run on wgmma (rows of a multiple
+//   of 16 bytes, 16-byte aligned): their main loop itself (scan_wg.cuh:
+//   the instance the scan takes at the caller's k1, one block an SM, the
+//   TMA producer, the MMA warps that store each tile's f32 or i32 sums,
+//   the register budget; bf16 from the wrapper's bf16 copy of the
+//   queries, as kernel A), with the epilogue warps folding the stored
+//   tiles into a running bin max in registers instead of selecting. That
+//   loop is not serial: what bounds the floor is the operands' traffic
+//   through L2 and shared memory, twice the bytes in bf16 as in int8
+//   (scan_wg.cuh; PERF.md section 6).
 // In pack mode a fragment element only knows its row tile i, so the
 // running max holds (key bits) | (i << 7) and the column j joins at the
 // write: max over i of (a_i | j) = (max over i of a_i) | j when no a_i has
 // a bit below 7.
 
 #include <climits>
+#include <type_traits>
 
 #include "scan_tile.cuh"
 #include "scan_wg.cuh"
@@ -192,24 +195,30 @@ int launch_probe(const void* q, const void* e, int B, int n, int d, int tile,
   return (int)cudaGetLastError();
 }
 
-// ---- int8 on wgmma: kernel C's main loop with a bin-max epilogue ---------
+// ---- bf16 and int8 on wgmma: the main loop of kernels A and C with a
+// bin-max epilogue -----------------------------------------------------------
 
-// An epilogue warp of the int8 probe folds each stored tile (its NQ
-// queries x 64 rows of raw i32 sums) into the running max over the
-// 128-row tiles i of the current probe tile: bin j of 128 takes row j of
-// each 128-row tile, so the 64-row tile of parity p holds bins 64 p + c.
-// Each lane holds bins 64 p + 32 h + lane (h < 2) of the NQ queries in
-// registers and writes them when the probe tile ends: the i32 sum, or its
-// key without the column (maxed as i32), with the bin j or'd in at the
-// write, as FoldMax does.
-template <bool PACK, int NQ>
+__device__ __forceinline__ float as_score(int x) { return __int2float_rn(x); }
+__device__ __forceinline__ float as_score(float x) { return x; }
+
+// An epilogue warp of the probe folds each stored tile (its NQ queries x
+// 64 rows of raw sums, Acc) into the running max over the 128-row tiles i
+// of the current probe tile: bin j of 128 takes row j of each 128-row
+// tile, so the 64-row tile of parity p holds bins 64 p + c. Each lane
+// holds bins 64 p + 32 h + lane (h < 2) of the NQ queries in registers and
+// writes them when the probe tile ends: the i32 sum (int8) or the f32
+// score (bf16) as it is, or its key without the column (maxed as i32),
+// with the bin j or'd in at the write, as FoldMax does.
+template <bool PACK, int NQ, typename Acc>
 struct FoldMaxWg {
+  // the running max: keys and i32 sums as i32, bf16 rawmax scores as f32
+  using M = std::conditional_t<PACK, int, Acc>;
   float* out;  // this warp's first query's row of the output
   size_t out_ld;
   int ptile, row_lo, live, lane;  // ptile: rows of a probe tile
-  int mx[NQ][4];                  // [query][2 p + h]
+  M mx[NQ][4];                    // [query][2 p + h]
 
-  __device__ __forceinline__ void tile(const int* S, int row0) {
+  __device__ __forceinline__ void tile(const Acc* S, int row0) {
     const int r = row0 - row_lo, per = ptile / BN;
     const int i = r / BN % per, p = r / WG_BN % 2;
 #pragma unroll
@@ -218,8 +227,12 @@ struct FoldMaxWg {
 #pragma unroll
       for (int b = 0; b < 4; ++b) {  // b = 2 p + h: this tile's two
         if (b / 2 != p) continue;
-        const int x = S[qq * WG_SC_LD + 32 * (b % 2) + lane];
-        const int v = PACK ? key_of(__int2float_rn(x), i) : x;
+        const Acc x = S[qq * WG_SC_LD + 32 * (b % 2) + lane];
+        M v;
+        if constexpr (PACK)
+          v = key_of(as_score(x), i);
+        else
+          v = x;
         mx[qq][b] = i > 0 ? max(mx[qq][b], v) : v;
       }
     }
@@ -231,7 +244,10 @@ struct FoldMaxWg {
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int j = 32 * b + lane;  // 64 p + 32 h + lane, b = 2 p + h
-        o[qq * out_ld + j] = __int2float_rn(PACK ? mx[qq][b] | j : mx[qq][b]);
+        if constexpr (PACK)
+          o[qq * out_ld + j] = __int2float_rn(mx[qq][b] | j);
+        else
+          o[qq * out_ld + j] = as_score(mx[qq][b]);
       }
     }
   }
@@ -239,15 +255,15 @@ struct FoldMaxWg {
   __device__ __forceinline__ void finish() const {}
 };
 
-// The probe runs kernel C's instance, chunking, register budget, MMA and
-// producer warps and reserves the shared memory of C at k1 = 16, so that
-// it too runs one block an SM; only the epilogue warps' work differs.
-template <int BQ_, bool PACK>
-__global__ void __maxnreg__((WgCfg<BQ_>::REGS))
-score_probe_int8_wg_kernel(const __grid_constant__ CUtensorMap qmap,
-                           const __grid_constant__ CUtensorMap rmap, int B,
-                           int d, int tile, int n_tiles, int tiles_per_chunk,
-                           float* __restrict__ out) {
+// The probe runs its scan's instance, chunking, register budget, MMA and
+// producer warps (wg_scan over Op) and reserves the shared memory of that
+// scan at k1 = 16, so that it too runs one block an SM; only the epilogue
+// warps' work differs.
+template <int BQ_, typename Op, bool PACK>
+__device__ __forceinline__ void probe_wg(const CUtensorMap* qmap,
+                                         const CUtensorMap* rmap, int B,
+                                         int d, int tile, int n_tiles,
+                                         int tiles_per_chunk, float* out) {
   using C = WgCfg<BQ_>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = wg_smem_base(smem_raw);
@@ -256,22 +272,44 @@ score_probe_int8_wg_kernel(const __grid_constant__ CUtensorMap qmap,
   const int t_hi = min(t_lo + tiles_per_chunk, n_tiles);
   const int e = (threadIdx.x >> 5) - C::MMA_WARPS;  // epilogue warp index
   constexpr int NQ = C::EPI_Q;
-  FoldMaxWg<PACK, NQ> epi;
+  FoldMaxWg<PACK, NQ, typename Op::Acc> epi;
   epi.out_ld = (size_t)n_tiles * BN;
   epi.out = out + (size_t)(q0 + NQ * max(e, 0)) * epi.out_ld;
   epi.ptile = tile;
   epi.row_lo = t_lo * tile;
   epi.live = max(0, min(NQ, B - q0 - NQ * max(e, 0)));
   epi.lane = threadIdx.x & 31;
-  wg_scan<BQ_>(&rmap, &qmap, sm, q0, B, t_lo * tile, t_hi * tile, d, epi);
+  wg_scan<BQ_, Op>(rmap, qmap, sm, q0, B, t_lo * tile, t_hi * tile, d, epi);
+}
+
+// kernel C's floor
+template <int BQ_, bool PACK>
+__global__ void __maxnreg__((WgCfg<BQ_>::REGS))
+score_probe_int8_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap rmap, int B,
+                           int d, int tile, int n_tiles, int tiles_per_chunk,
+                           float* __restrict__ out) {
+  probe_wg<BQ_, WgS8, PACK>(&qmap, &rmap, B, d, tile, n_tiles,
+                            tiles_per_chunk, out);
+}
+
+// kernel A's floor
+template <int BQ_, bool PACK>
+__global__ void __maxnreg__((WgCfg<BQ_>::REGS))
+score_probe_bf16_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap rmap, int B,
+                           int d, int tile, int n_tiles, int tiles_per_chunk,
+                           float* __restrict__ out) {
+  probe_wg<BQ_, WgBf16, PACK>(&qmap, &rmap, B, d, tile, n_tiles,
+                              tiles_per_chunk, out);
 }
 
 constexpr int PROBE_K1 = 16;   // the list length whose smem the probe reserves
 
-template <int BQ_, bool PACK>
-int launch_probe_int8_wg(const void* q, const void* e, int B, int n, int d,
-                         int tile, int tiles_per_chunk, int n_chunks, int bq,
-                         int vec, void* out, void* stream) {
+template <typename Op, int BQ_, bool PACK>
+int launch_probe_wg(const void* q, const void* e, int B, int n, int d,
+                    int tile, int tiles_per_chunk, int n_chunks, int bq,
+                    int vec, void* out, void* stream) {
   const int n_tiles = tile >= BN ? n / tile : 0;
   if (B < 1 || tile < BN || tile % BN != 0 || n_tiles < 1 || bq != BQ_ ||
       vec != 1 || tiles_per_chunk < 1 || n_chunks < 1 ||
@@ -279,11 +317,13 @@ int launch_probe_int8_wg(const void* q, const void* e, int B, int n, int d,
       n_chunks * tiles_per_chunk < n_tiles)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, rmap;
-  if (!int8_maps(&qmap, &rmap, q, e, B, n, d))
+  if (!wg_maps<Op>(&qmap, &rmap, q, e, B, n, d))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       wg_smem_bytes<BQ_>(2 * round_up((size_t)BQ_ * PROBE_K1 * 4));
-  auto kern = score_probe_int8_wg_kernel<BQ_, PACK>;
+  auto kern = std::is_same<Op, WgS8>::value
+                  ? score_probe_int8_wg_kernel<BQ_, PACK>
+                  : score_probe_bf16_wg_kernel<BQ_, PACK>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -295,15 +335,46 @@ int launch_probe_int8_wg(const void* q, const void* e, int B, int n, int d,
   return (int)cudaGetLastError();
 }
 
+// The wgmma probe of Op: bq = BQ_WIDE or 64, as its scan chose
+template <typename Op>
+int probe_wg_entry(const void* q, const void* e, int B, int n, int d,
+                   int tile, int tiles_per_chunk, int n_chunks, int bq,
+                   int pack, int vec, void* out, void* stream) {
+  if (bq == BQ_WIDE)
+    return pack ? launch_probe_wg<Op, BQ_WIDE, true>(
+                      q, e, B, n, d, tile, tiles_per_chunk, n_chunks, bq, vec,
+                      out, stream)
+                : launch_probe_wg<Op, BQ_WIDE, false>(
+                      q, e, B, n, d, tile, tiles_per_chunk, n_chunks, bq, vec,
+                      out, stream);
+  return pack ? launch_probe_wg<Op, 64, true>(q, e, B, n, d, tile,
+                                              tiles_per_chunk, n_chunks, bq,
+                                              vec, out, stream)
+              : launch_probe_wg<Op, 64, false>(q, e, B, n, d, tile,
+                                               tiles_per_chunk, n_chunks, bq,
+                                               vec, out, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Every entry returns cudaGetLastError() after its launch (0 = success).
-// q f32 [B, d], rows bf16 [n, d]
+// q bf16 [B, d], rows bf16 [n, d], d % 8 == 0 and 16-byte aligned (vec =
+// 1): kernel A's main loop; bq = BQ_WIDE or 64, as kernel A chose
 int lt_score_probe_bf16(const void* q, const void* e, int B, int n, int d,
                         int tile, int tiles_per_chunk, int n_chunks, int bq,
                         int pack, int vec, void* out, void* stream) {
+  return probe_wg_entry<WgBf16>(q, e, B, n, d, tile, tiles_per_chunk,
+                                n_chunks, bq, pack, vec, out, stream);
+}
+
+// every other bf16 shape: q f32 [B, d] cast to bf16 in the score_tile of
+// kernel A's wmma route
+int lt_score_probe_bf16_scalar(const void* q, const void* e, int B, int n,
+                               int d, int tile, int tiles_per_chunk,
+                               int n_chunks, int bq, int pack, int vec,
+                               void* out, void* stream) {
   return pack ? launch_probe<MODE_BF16, true>(q, e, B, n, d, tile,
                                               tiles_per_chunk, n_chunks, bq,
                                               vec, out, stream)
@@ -317,19 +388,8 @@ int lt_score_probe_bf16(const void* q, const void* e, int B, int n, int d,
 int lt_score_probe_int8(const void* q, const void* e, int B, int n, int d,
                         int tile, int tiles_per_chunk, int n_chunks, int bq,
                         int pack, int vec, void* out, void* stream) {
-  if (bq == BQ_WIDE)
-    return pack ? launch_probe_int8_wg<BQ_WIDE, true>(
-                      q, e, B, n, d, tile, tiles_per_chunk, n_chunks, bq, vec,
-                      out, stream)
-                : launch_probe_int8_wg<BQ_WIDE, false>(
-                      q, e, B, n, d, tile, tiles_per_chunk, n_chunks, bq, vec,
-                      out, stream);
-  return pack ? launch_probe_int8_wg<64, true>(q, e, B, n, d, tile,
-                                               tiles_per_chunk, n_chunks, bq,
-                                               vec, out, stream)
-              : launch_probe_int8_wg<64, false>(q, e, B, n, d, tile,
-                                                tiles_per_chunk, n_chunks, bq,
-                                                vec, out, stream);
+  return probe_wg_entry<WgS8>(q, e, B, n, d, tile, tiles_per_chunk, n_chunks,
+                              bq, pack, vec, out, stream);
 }
 
 // every other int8 shape: kernel C's scalar route's score_tile

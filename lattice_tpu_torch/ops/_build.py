@@ -16,7 +16,9 @@ failed compile raises too: nothing here falls back to a plain version.
 
 Each kernel is one `Kernel` object with a plain integer `launches`, which
 goes up by one at each successful launch and nowhere else, so that a run
-can show which kernels its main path went through.
+can show which kernels its main path went through; `entry_launches`
+counts the same launches by C entry, so that it can show which route of a
+kernel ran.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ _F = ctypes.c_float
 # argument types of every C entry point in csrc/
 _ENTRIES: dict[str, tuple] = {
     "lt_scan_topk_bf16": (_P, _P, _P) + (_I,) * 8 + (_P, _P, _P),
+    "lt_scan_topk_bf16_scalar": (_P, _P, _P) + (_I,) * 8 + (_P, _P, _P),
     "lt_scan_topk_f32": (_P, _P, _P) + (_I,) * 8 + (_P, _P, _P),
     "lt_scan_topk_int8": (_P,) * 5 + (_I,) * 8 + (_P, _P, _P),
     "lt_scan_topk_int8_scalar": (_P,) * 5 + (_I,) * 8 + (_P, _P, _P),
@@ -54,6 +57,7 @@ _ENTRIES: dict[str, tuple] = {
     "lt_paired_attention_bf16": (_P,) * 4 + (_I,) * 3 + (_F, _P, _P),
     "lt_paired_attention_f32": (_P,) * 4 + (_I,) * 3 + (_F, _P, _P),
     "lt_score_probe_bf16": (_P, _P) + (_I,) * 9 + (_P, _P),
+    "lt_score_probe_bf16_scalar": (_P, _P) + (_I,) * 9 + (_P, _P),
     "lt_score_probe_int8": (_P, _P) + (_I,) * 9 + (_P, _P),
     "lt_score_probe_int8_scalar": (_P, _P) + (_I,) * 9 + (_P, _P),
     "lt_score_probe_int4": (_P, _P) + (_I,) * 9 + (_P, _P),
@@ -147,6 +151,7 @@ class Kernel:
         self.source = source        # path in the repo
         self.replaces = replaces    # file:line of the TPU kernel
         self.launches = 0
+        self.entry_launches: dict[str, int] = {}
         KERNELS.append(self)
 
     def launch(self, entry: str, *args) -> None:
@@ -158,6 +163,7 @@ class Kernel:
             msg = lib.lt_error_string(rc).decode()
             raise KernelError(f"{self.name} ({entry}) failed: {msg} [{rc}]")
         self.launches += 1
+        self.entry_launches[entry] = self.entry_launches.get(entry, 0) + 1
 
 
 KERNELS: list[Kernel] = []
@@ -167,7 +173,13 @@ def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
 
 
+def entry_launch_counts() -> dict[str, int]:
+    """Launches by C entry since the last reset, of every kernel."""
+    return {e: n for k in KERNELS for e, n in k.entry_launches.items()}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.entry_launches = {}
 

@@ -6,7 +6,12 @@ Port of `lattice_tpu/ops/pallas_topk.py`. Four hand-written CUDA kernels
 - `scan_topk` (kernel A) replaces `_binned_kernel` (pallas_topk.py:434)
   and the bin/key selection of `binned_topk` (:627): Q·Eᵀ over bf16 (or
   f32) rows, masked, with a running exact top-k1 per query for each run
-  of rows a block owns.
+  of rows a block owns. On bf16 rows with d % 8 == 0 and 16-byte aligned
+  queries and rows (every store's rows) it runs kernel C's `wgmma` main
+  loop (`csrc/scan_wg.cuh`) on a bf16 copy of the queries, at kernel C's
+  instance and chunking (`wg_plan`); any other bf16 shape takes its
+  wmma tile loop (`lt_scan_topk_bf16_scalar`), f32 rows too
+  (`lt_scan_topk_f32`). The shape alone picks the route (`bf16_route`).
 - `merge_candidates` (kernel B, `csrc/merge_candidates.cu`) replaces the
   `approx_max_k` finish of `_binned_candidates` (:525): the exact top-k1
   over the per-block lists, by a block-wide radix select.
@@ -16,7 +21,7 @@ Port of `lattice_tpu/ops/pallas_topk.py`. Four hand-written CUDA kernels
   Where d % 16 == 0 and the int8 queries and rows are 16-byte aligned
   (every store's view) it runs on `wgmma` from a TMA ring
   (`csrc/scan_wg.cuh`), one block an SM, 128 or 64 queries a block
-  (`int8_plan`); any other shape takes its wmma tile loop
+  (`wg_plan`); any other shape takes its wmma tile loop
   (`lt_scan_topk_int8_scalar`). The shape alone picks the route.
 - `scan_topk_int4` (kernel D) replaces the packed-int4 bodies of
   `binned_topk_int4` (:980): `_binned_kernel_int4_hoistq` (:894, its
@@ -72,9 +77,9 @@ BQ_LONG = 32     # queries per block of kernel D past MAX_K1
 BQ_WIDE = 128    # queries per block of kernel C's wide instance
 K1_WIDE = 32     # longest list of that instance
 BN = 128         # rows per tile
-WG_BK = 128      # int8 dims of one k slab of kernel C's ring
-WG_BN = 64       # rows of one of kernel C's tiles
-WG_SC_LD = WG_BN + 8  # row stride of kernel C's score tile
+WG_BK = 128      # bytes of each row in one k slab of the wgmma ring
+WG_BN = 64       # rows of one tile of the wgmma main loop
+WG_SC_LD = WG_BN + 8  # row stride of its score tile
 SMEM_MAX = 232_448  # shared memory one block may have on the H100
 MAX_K1 = 128     # longest first-stage list a block keeps per query
 MAX_K1_LONG = 512  # longest list of kernels D and B
@@ -162,20 +167,22 @@ def _chunking(n: int, b: int, device: torch.device, bq: int = BQ
     return _rows_per_chunk(n, max(1, -(-4 * _sm_count(device) // q_tiles)))
 
 
-def int8_block_queries(b: int, k1: int) -> int:
-    """Kernel C's instance: 128 queries a block (two MMA warpgroups on one
-    row tile) for lists up to K1_WIDE when the batch fills more than 64;
-    else 64 (one MMA warpgroup), which holds lists up to MAX_K1 in shared
-    memory and wastes no warpgroup on a small batch. Both have 16
-    selection warps."""
+def wg_block_queries(b: int, k1: int) -> int:
+    """The instance of kernels A and C on `wgmma`: 128 queries a block (two
+    MMA warpgroups on one row tile) for lists up to K1_WIDE when the batch
+    fills more than 64; else 64 (one MMA warpgroup), which holds lists up
+    to MAX_K1 in shared memory and wastes no warpgroup on a small batch.
+    Both have 16 selection warps."""
     return BQ_WIDE if b > BQ and k1 <= K1_WIDE else BQ
 
 
-def int8_smem_bytes(bq: int, k1: int) -> int:
-    """Kernel C's dynamic shared memory (`scan_wg.cuh`, `int8_epi_bytes`):
-    alignment slack, the ring (6 stages at 128 queries, 8 at 64: a row
-    slab of 64 x 128 bytes and a 64 x 128 query slab per warpgroup),
-    its mbarriers, the i32 score tile and two lists of k1 per query."""
+def wg_smem_bytes(bq: int, k1: int) -> int:
+    """Dynamic shared memory of kernels A and C on `wgmma` (`scan_wg.cuh`
+    `wg_smem_bytes`, `select_epi_bytes` in scan_topk.cu): alignment slack,
+    the ring (6 stages at 128 queries, 8 at 64: a row slab of 64 x 128
+    bytes and a 64 x 128-byte query slab per warpgroup, bf16 or int8
+    alike), its mbarriers, the f32 or i32 score tile and two lists of k1
+    per query."""
     def up(x):
         return -(-x // 128) * 128
     stages = 6 if bq == BQ_WIDE else 8
@@ -183,14 +190,21 @@ def int8_smem_bytes(bq: int, k1: int) -> int:
     return 1024 + ring + 256 + up(bq * WG_SC_LD * 4) + 2 * up(bq * k1 * 4)
 
 
-def int8_plan(n: int, b: int, k1: int, sms: int) -> tuple[int, int, int]:
-    """(queries per block, rows per chunk, chunks) of kernel C's wgmma
-    route: one block an SM, so the grid is at most one wave (sms // query
-    tiles chunks; 66 of ~15,900 rows at 1M, B=256) and each row is read
-    by as few blocks as the batch has query tiles."""
-    bq = int8_block_queries(b, k1)
+def wg_plan(n: int, b: int, k1: int, sms: int) -> tuple[int, int, int]:
+    """(queries per block, rows per chunk, chunks) of kernels A and C on
+    `wgmma`: one block an SM, so the grid is at most one wave (sms //
+    query tiles chunks; 66 of ~15,900 rows at 1M, B=256) and each row is
+    read by as few blocks as the batch has query tiles."""
+    bq = wg_block_queries(b, k1)
     q_tiles = -(-b // bq)
     return (bq, *_rows_per_chunk(n, max(1, sms // q_tiles)))
+
+
+# kernel C's names of the plan that kernel A shares with it (a k slab is
+# 128 bytes of each row in either type)
+int8_block_queries = wg_block_queries
+int8_smem_bytes = wg_smem_bytes
+int8_plan = wg_plan
 
 
 def int8_route(q_values: torch.Tensor, e_values: torch.Tensor) -> str:
@@ -200,6 +214,15 @@ def int8_route(q_values: torch.Tensor, e_values: torch.Tensor) -> str:
     d = q_values.shape[1]
     return ("lt_scan_topk_int8" if d % 16 == 0 and _aligned(q_values, e_values)
             else "lt_scan_topk_int8_scalar")
+
+
+def bf16_route(queries: torch.Tensor, embeddings: torch.Tensor) -> str:
+    """Kernel A's entry for bf16 rows by shape: the wgmma route where TMA
+    can read the bf16 rows and the bf16 copy of the queries (d % 8 == 0,
+    f32 queries and rows 16-byte aligned), else the wmma tile loop."""
+    d = queries.shape[1]
+    return ("lt_scan_topk_bf16" if d % 8 == 0 and _aligned(queries, embeddings)
+            else "lt_scan_topk_bf16_scalar")
 
 
 def _stream(device: torch.device) -> int:
@@ -365,20 +388,31 @@ def scan_blocks(queries: torch.Tensor, embeddings: torch.Tensor,
                 valid: torch.Tensor, k1: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel A alone on CUDA tensors (bf16 or f32 rows): the unmerged
-    per-chunk candidate lists."""
+    per-chunk candidate lists, from the route `bf16_route` names for bf16
+    rows (the wgmma route takes a bf16 copy of the queries)."""
     _check(queries, "queries", torch.float32, 2)
-    entry = {torch.bfloat16: "lt_scan_topk_bf16",
-             torch.float32: "lt_scan_topk_f32"}.get(embeddings.dtype)
-    if entry is None:
+    if embeddings.dtype not in (torch.bfloat16, torch.float32):
         raise KernelError(f"scan_topk: no kernel for rows of {embeddings.dtype}")
     _check(embeddings, "embeddings", embeddings.dtype, 2)
     b, d = queries.shape
     n = _check_scan_shapes(b, d, embeddings, valid, k1)
+    device = embeddings.device
+    entry = ("lt_scan_topk_f32" if embeddings.dtype == torch.float32
+             else bf16_route(queries, embeddings))
+    if entry == "lt_scan_topk_bf16":
+        # rounded to nearest even, as JAX's `astype`; held until the launch
+        # is issued: freed earlier, its block could become the lists the
+        # kernel writes
+        qb = queries.to(torch.bfloat16)
+        bq, rows, n_chunks = wg_plan(n, b, k1, _sm_count(device))
+        return _launch_scan(
+            SCAN_TOPK, entry, k1, b, n, d, 1,
+            (qb.data_ptr(), embeddings.data_ptr(), valid.data_ptr()), device,
+            bq, (rows, n_chunks))
     vec = int(d % 8 == 0 and _aligned(queries, embeddings))
     return _launch_scan(
         SCAN_TOPK, entry, k1, b, n, d, vec,
-        (queries.data_ptr(), embeddings.data_ptr(), valid.data_ptr()),
-        embeddings.device)
+        (queries.data_ptr(), embeddings.data_ptr(), valid.data_ptr()), device)
 
 
 def scan_blocks_int8(q_values: torch.Tensor, q_scales: torch.Tensor,
@@ -445,8 +479,9 @@ def scan_topk(queries: torch.Tensor, embeddings: torch.Tensor,
               valid: torch.Tensor, k1: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernels A + B: sorted first-stage (scores [B, k1] f32, row ids
-    [B, k1] i32) over bf16 or f32 rows. Queries are f32 and normalized;
-    the kernel casts them to the row dtype."""
+    [B, k1] i32) over bf16 or f32 rows. Queries are f32 and normalized,
+    cast to the row dtype (by the wrapper on A's wgmma route, else inside
+    the kernel)."""
     if _on_cpu(queries, embeddings, valid):
         return scan_topk_plain(queries, embeddings, valid, k1)
     if queries.shape[0] == 0:

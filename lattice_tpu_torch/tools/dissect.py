@@ -16,8 +16,8 @@ packed-int4 views, at B=256, k=10, it times with CUDA events:
 - the library product of each type (`torch.matmul` in bf16,
   `torch._int_mm` over the int8 rows and over the unpacked int4 rows);
 - script 6's batch sweep of `binned_topk` (kernels A + B + rescore), and
-  kernel C alone at k1 = 16 beside the int8 probe, at B = 1, 8, 32, 64,
-  128, 256;
+  kernels A and C alone at k1 = 16 beside the bf16 and int8 probes, at
+  B = 1, 8, 32, 64, 128, 256;
 - one `summarize_device_trace` each of a "quantized", an "int4" and a
   forced "refined" `search_device` call;
 - with `--capacity`, the int4 probe at 4,194,304 x 768, B=1024, on a view
@@ -225,34 +225,36 @@ def library_products(q, rows, q8, view8, view4, log=print) -> dict:
     return out
 
 
-def instance_floors(q8, view8, log=print) -> dict:
-    """The int8 probe at FLOOR_TILE, rawmax, at each k1 of SCAN_K1 where
-    kernel C takes another instance than at k1 = 16 (64 queries a block
-    past K1_WIDE), so that C's selection share is read over the floor of
-    the blocks it ran."""
-    b, d = q8.shape
-    n = view8.values.shape[0]
+def instance_floors(q, rows, q8, view8, log=print) -> dict:
+    """The bf16 and int8 probes at FLOOR_TILE, rawmax, at each k1 of
+    SCAN_K1 where kernels A and C take another instance than at k1 = 16
+    (64 queries a block past K1_WIDE), so that each scan's selection share
+    is read over the floor of the blocks it ran."""
+    b, d = q.shape
+    n = rows.shape[0]
     out = {}
-    for k1 in SCAN_K1:
-        if scan.int8_block_queries(b, k1) == scan.int8_block_queries(b, 16):
-            continue
-        ms = cuda_ms(lambda: score_probe(q8, view8.values, tile=FLOOR_TILE,
-                                         k1=k1), 10, warmup=2)
-        bnd = probe_bound(n, d, b, FLOOR_TILE, d, "int8")
-        out[f"int8_rawmax_t{FLOOR_TILE}_k{k1}"] = {
-            "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-            "bound_share": bnd[0] / ms}
-        log(f"probe int8 rawmax tile={FLOOR_TILE} B={b} N={n} d={d} as "
-            f"kernel C at k1={k1} ({scan.int8_block_queries(b, k1)} queries "
-            f"a block): {ms:.4f} ms, bound {bnd[0]:.4f} ms")
+    for kind, qq, rr, row_bytes in (("bf16", q, rows, 2 * d),
+                                    ("int8", q8, view8.values, d)):
+        for k1 in SCAN_K1:
+            if scan.wg_block_queries(b, k1) == scan.wg_block_queries(b, 16):
+                continue
+            ms = cuda_ms(lambda: score_probe(qq, rr, tile=FLOOR_TILE, k1=k1),
+                         10, warmup=2)
+            bnd = probe_bound(n, d, b, FLOOR_TILE, row_bytes, kind)
+            out[f"{kind}_rawmax_t{FLOOR_TILE}_k{k1}"] = {
+                "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bound_share": bnd[0] / ms}
+            log(f"probe {kind} rawmax tile={FLOOR_TILE} B={b} N={n} d={d} "
+                f"as its scan at k1={k1} ({scan.wg_block_queries(b, k1)} "
+                f"queries a block): {ms:.4f} ms, bound {bnd[0]:.4f} ms")
     return out
 
 
 def selection_shares(floors: dict, scans: dict) -> list[dict]:
     """For each scan and k1: its floor (the probe of its type at
-    FLOOR_TILE, rawmax; for C at the instance it ran), the selection share
-    (scan - probe) / scan, and the probe's share of its bound (bound /
-    probe)."""
+    FLOOR_TILE, rawmax; for A and C at the instance it ran), the selection
+    share (scan - probe) / scan, and the probe's share of its bound (bound
+    / probe)."""
     out = []
     for name, kind in SCANS:
         for k1 in SCAN_K1:
@@ -270,14 +272,18 @@ def selection_shares(floors: dict, scans: dict) -> list[dict]:
 
 def batch_sweep(q, rows, valid, view8, log=print) -> dict:
     """Script 6's sweep: `binned_topk` (kernels A + B + rescore) by batch;
-    beside it kernel C alone at k1 = 16 and its floor (the int8 probe at
-    FLOOR_TILE) at each batch."""
-    out = {"binned_topk": {}, "C": {}, "C_floor": {}}
+    beside it kernels A and C alone at k1 = 16, each with its floor (the
+    bf16 and int8 probes at FLOOR_TILE), at each batch."""
+    out = {"binned_topk": {}, "A": {}, "A_floor": {}, "C": {}, "C_floor": {}}
     for b in BATCH_SWEEP:
         qb = q[:b].contiguous()
         q8, qs8 = quant.quantize_rows_device(qb)
         out["binned_topk"][b] = cuda_ms(
             lambda: scan.binned_topk(qb, rows, valid, K), 5)
+        out["A"][b] = cuda_ms(lambda: scan.scan_blocks(qb, rows, valid, 16),
+                              10)
+        out["A_floor"][b] = cuda_ms(lambda: score_probe(
+            qb, rows, tile=FLOOR_TILE), 10)
         out["C"][b] = cuda_ms(lambda: scan.scan_blocks_int8(
             q8, qs8, view8.values, view8.scales, valid, 16), 10)
         out["C_floor"][b] = cuda_ms(lambda: score_probe(
@@ -322,7 +328,8 @@ def dissect(store, q: torch.Tensor, trace_dir: str, log=print) -> dict:
     report = {"probes": floors, "scans": scans,
               "library": library_products(q, rows, q8, view8, view4, log),
               "shares": selection_shares(
-                  {**floors, **instance_floors(q8, view8, log)}, scans),
+                  {**floors, **instance_floors(q, rows, q8, view8, log)},
+                  scans),
               "batch_sweep": batch_sweep(q, rows, valid, view8, log),
               "traces": trace_plans(store, q, trace_dir, log)}
     for r in report["shares"]:

@@ -1,4 +1,5 @@
-"""Time kernels C and D of one or more checkouts on one card, in one call.
+"""Time kernels A, C and D of one or more checkouts on one card, in one
+call.
 
     python lattice_tpu_torch/tools/kernel_ab.py [--k1 16,80,128,512]
         [--k1-4m 16,80] [--skip-4m] CHECKOUT [CHECKOUT ...]
@@ -8,9 +9,13 @@ A checkout is a directory that holds `lattice_tpu_torch/` (this one, or a
 process of its own, one after another, so that kernels built from
 different sources never share a process. Each process builds its
 checkout's kernels, makes corpus A (1,048,576 x 768 rows around 1,024
-centers at spread 0.35, seed 0, quantized to int8 and packed to int4) and
-times with CUDA events, on the card, at B=256 and B=1:
+centers at spread 0.35, seed 0, kept as bf16, quantized to int8 and
+packed to int4) and times with CUDA events, on the card, at B=256 and B=1:
 
+- the bf16 probe (`score_probe` at tile 2048, rawmax, on f32 queries):
+  kernel A's floor;
+- `scan_blocks` (kernel A alone, from f32 queries: the bf16 copy of the
+  queries its wgmma route takes is timed with it) at k1 = 16 and 64;
 - the int8 probe (`score_probe` at tile 2048, rawmax): kernel C's floor;
 - `scan_blocks_int8` (kernel C alone) at k1 = 16 (the plans' width; 128
   queries a block at B=256) and 64 (64 queries a block);
@@ -38,7 +43,7 @@ N_ROWS = 1 << 20
 N_CAP = 1 << 22
 DIM = 768
 BLOCK = 1 << 17
-C_K1 = (16, 64)
+C_K1 = (16, 64)        # kernels A and C
 
 
 def _ints(text: str) -> list[int]:
@@ -55,22 +60,25 @@ def _rows(torch, centers, n, gen):
 
 
 def _views(torch, quant, centers, n, gen, int8: bool = True):
-    """Corpus rows as int8 (unless `int8` is false: None) and packed int4
-    views, each (values, scales), quantized block by block from the same
-    bf16 rows."""
+    """Corpus rows as bf16 and int8 (unless `int8` is false: None for
+    both) and the packed int4 view, (bf16 rows, (int8 values, scales),
+    (packed, scales)), quantized block by block from the same bf16 rows."""
     packed = torch.empty((n, DIM // 2), dtype=torch.int8, device="cuda")
     scales = torch.empty((n,), dtype=torch.float32, device="cuda")
     values8 = (torch.empty((n, DIM), dtype=torch.int8, device="cuda")
                if int8 else None)
     scales8 = torch.empty_like(scales) if int8 else None
+    bf16 = (torch.empty((n, DIM), dtype=torch.bfloat16, device="cuda")
+            if int8 else None)
     for lo in range(0, n, BLOCK):
         rows = _rows(torch, centers, BLOCK, gen).to(torch.bfloat16)
         packed[lo:lo + BLOCK], scales[lo:lo + BLOCK] = (
             quant.quantize_rows_int4_device(rows))
         if int8:
+            bf16[lo:lo + BLOCK] = rows
             values8[lo:lo + BLOCK], scales8[lo:lo + BLOCK] = (
                 quant.quantize_rows_device(rows))
-    return (values8, scales8), (packed, scales)
+    return bf16, (values8, scales8), (packed, scales)
 
 
 def measure(checkout: str, k1s: list[int], k1s_4m: list[int]) -> dict:
@@ -99,11 +107,17 @@ def measure(checkout: str, k1s: list[int], k1s_4m: list[int]) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     centers = torch.randn(1024, DIM, device="cuda", generator=gen)
     centers = centers / centers.norm(dim=1, keepdim=True)
-    (values8, scales8), (packed, scales) = _views(torch, quant, centers,
-                                                   N_ROWS, gen)
+    rows, (values8, scales8), (packed, scales) = _views(
+        torch, quant, centers, N_ROWS, gen)
     valid = torch.ones(N_ROWS, dtype=torch.bool, device="cuda")
-    qv, qs = quant.quantize_rows_device(_rows(torch, centers, 256, gen))
+    q = _rows(torch, centers, 256, gen)
+    qv, qs = quant.quantize_rows_device(q)
     for b in (256, 1):
+        qf = q[:b].contiguous()
+        out[f"floor16_b{b}"] = ms(lambda: score_probe(qf, rows, tile=2048), 5)
+        for k1 in C_K1:
+            out[f"a_b{b}_k{k1}"] = ms(lambda: scan.scan_blocks(
+                qf, rows, valid, k1), 5)
         qb, sb = qv[:b].contiguous(), qs[:b].contiguous()
         out[f"floor8_b{b}"] = ms(lambda: score_probe(qb, values8, tile=2048),
                                  5)
@@ -114,11 +128,11 @@ def measure(checkout: str, k1s: list[int], k1s_4m: list[int]) -> dict:
         for k1 in k1s:
             out[f"d_b{b}_k{k1}"] = ms(lambda: scan.scan_blocks_int4(
                 qb, sb, packed, scales, valid, k1), 5)
-    del values8, scales8, packed, scales, valid
+    del rows, values8, scales8, packed, scales, valid
     torch.cuda.empty_cache()
     if k1s_4m:
-        _, (packed, scales) = _views(torch, quant, centers, N_CAP, gen,
-                                     int8=False)
+        _, _, (packed, scales) = _views(torch, quant, centers, N_CAP, gen,
+                                        int8=False)
         valid = torch.ones(N_CAP, dtype=torch.bool, device="cuda")
         qv, qs = quant.quantize_rows_device(_rows(torch, centers, 1024, gen))
         out["floor_4m"] = ms(lambda: score_probe(qv, packed, tile=2048), 3)
