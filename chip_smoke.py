@@ -1,5 +1,5 @@
-"""Drive the port's main paths (vector search, the encoder) once on one
-NVIDIA card.
+"""Drive the port's main paths (vector search, the encoder, indexing a
+repository) once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -141,6 +141,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    `search_device` at B=256, k=10: >= 99% find their own row in their top
    10; recall@10 against an exact f32 scan is printed (information). B=1
    `search_code` calls return hits with payloads.
+3g. Indexing through the port, after 3c, with 3c's encoder; the C++ host
+   library (`csrc/host/`, `utils/native.py`) must have built and loaded.
+   (a) `tests/fixtures/golden_project` through `PipelineOrchestrator`
+   (scan, parse, graph, chunk, embed, summarize; metadata off) with the
+   hash embedder at dim 256, on `device="cuda"` and again on "cpu": the
+   same graph (nodes and the edges of every type), the same code and
+   summary payloads in row order, bit-equal bf16 vectors, no errors. The
+   104 golden query texts through `search_code` on the card (auto plan
+   "quantized": kernels C + B) equal the CPU store's forced "quantized":
+   rows in order, scores within 1e-5; the same vectors through a forced
+   "pallas" (kernels A + B) against the CPU's under kernel A's bar (ids on
+   >= 99.9% of slots, each differing slot a rounding tie within 1e-5).
+   (b) A real repository, a copy of this checkout's `lattice_tpu/` (112
+   files, ~21,900 lines) under a repository root, through the same
+   orchestrator on the card with the UniXcoder provider: files, entities,
+   graph, chunks, summaries and each stage's host-clock seconds printed;
+   `paired_attention` launches 12 times a forward; 256 chunks drawn by
+   seed, encoded again as queries, find their own text in their top 10
+   through `search_device` at B=256 (>= 99%); a second run skips every
+   file, and after one file is touched only that file is re-indexed.
 4c. Encoder timings (information only): chunks/s at B=128, L=512 on
    device-resident ids (CUDA events) with the achieved TFLOP/s, the host
    tokenizer per batch, B=1 query encode and `search_code` p50 (host
@@ -157,8 +177,8 @@ version on the lists each path gives it (A and C at k1=16, B in {1,
 at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
 `torch.topk` on them by device time (`device_ms`: a sleep kernel keeps
 the queue full, so the host's issue is not counted) and back to back.
-Launch counts are zeroed just before each of 3a, 3d, 3f, 3b, 3e and 3c
-and read just after it; each path's kernels, and every registered kernel, must
+Launch counts are zeroed just before each of 3a, 3d, 3f, 3b, 3e, 3c and
+3g and read just after it; each path's kernels, and every registered kernel, must
 have launched, and the C entries each path must have run with them (kernel
 A's and C's wgmma routes on corpus A, the bf16 and int8 probes' in 3f).
 
@@ -1375,6 +1395,289 @@ def phase_encoder_trace(model, ids: torch.Tensor, mask: torch.Tensor,
         f"batches): {cats} ({smi})")
 
 
+ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "tests" / "fixtures" / "golden_project"
+GOLDEN_CASES = ROOT / "tests" / "fixtures" / "golden_eval.jsonl"
+GOLDEN_DIM = 256           # the golden engine's hash width
+GOLDEN_LIMIT = 20          # its vector limit: min(2 * 10, max_vector_results)
+REAL_REPO = "lattice_tpu"  # 3g(b): a copy of the JAX package, a real repo
+TOUCHED = "lattice_tpu/parsing/scanner.py"
+STAGES = ("scanning", "parsing", "graph_building", "embedding",
+          "summarizing")
+
+
+def index_repo(repo: Path, embedder, device: str, project: str,
+               indexer=None):
+    """One `PipelineOrchestrator.run()` with the metadata stage off (not
+    ported; `build_golden_engine` turns it off too)."""
+    import asyncio
+    from lattice_tpu_torch.config.settings import Settings
+    from lattice_tpu_torch.pipeline.orchestrator import PipelineOrchestrator
+    settings = Settings()
+    settings.metadata.enabled = False
+    orch = PipelineOrchestrator(repo, embedder, project_name=project,
+                                settings=settings, indexer=indexer,
+                                device=device)
+    run = asyncio.run(orch.run())
+    require(run.errors == [], f"indexing {repo.name}: {run.errors[:3]}")
+    return run
+
+
+def graph_signature(store) -> tuple:
+    """Every node (qualified name, type, file, lines, alive) and the edges
+    of every `EdgeType`, in id order."""
+    nodes = [(r.qualified_name, r.entity_type.value, r.file_path,
+              r.start_line, r.end_line, bool(store._alive[r.node_id]))
+             for r in map(store.node, range(store.n_nodes()))]
+    edges = {et.value: [a.tolist() for a in store.edges(et)]
+             for et in store._edges}
+    return nodes, edges
+
+
+def stage_seconds(run) -> dict:
+    """Host-clock seconds of each stage of one run (its progress tracker)."""
+    stages = run.tracker._stages
+    return {s.value: stages[s].finished_at - stages[s].started_at
+            for s in stages if s.value in STAGES}
+
+
+def phase_index_path(ctx: dict) -> None:
+    """3g: indexing through the port: (a) the golden fixture, (b) a real
+    repository through 3c's encoder."""
+    from lattice_tpu_torch.utils import native
+    lib = native.get_lib()
+    require(lib is not None, "the C++ host library (csrc/host/) did not "
+            "build or load")
+    log(f"native host library: {native.library_path()}; OpenMP batch BFS "
+        f"{hasattr(lib, 'lattice_bfs_khop_batch')}")
+    t0 = time.perf_counter()
+    phase_index_golden(ctx)
+    phase_index_real_repo(ctx)
+    log(f"phase 3g took {time.perf_counter() - t0:.2f} s")
+
+
+def phase_index_golden(ctx: dict) -> None:
+    """3g(a): the golden fixture through `PipelineOrchestrator` with the
+    hash embedder on the card and on the CPU: the same graph, payloads and
+    bf16 vector bits; the 104 golden queries through `search_code` on the
+    card ("quantized": kernels C + B) held to the CPU store's forced
+    "quantized", and through a forced "pallas" (kernels A + B) held to the
+    CPU's under kernel A's bar."""
+    from lattice_tpu_torch.embeddings.embedder import Embedder
+    from lattice_tpu_torch.embeddings.indexer import VectorSearcher
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.providers.hash_provider import HashEmbedder
+    embedder = Embedder(HashEmbedder(dimensions=GOLDEN_DIM))
+    t0 = time.perf_counter()
+    card = index_repo(GOLDEN, embedder, "cuda", "golden_eval")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = index_repo(GOLDEN, embedder, "cpu", "golden_eval")
+    host_s = time.perf_counter() - t0
+    require(graph_signature(card.graph_builder.store)
+            == graph_signature(host.graph_builder.store),
+            "the card's and the CPU's runs built different graphs")
+    for name in ("code", "summaries"):
+        a, b = getattr(card.indexer, name), getattr(host.indexer, name)
+        require(a._payloads == b._payloads, f"{name} payloads differ")
+        (ea, va), (eb, vb) = a.device_arrays, b.device_arrays
+        require(ea.dtype == eb.dtype == torch.bfloat16
+                and torch.equal(ea.cpu().view(torch.int16),
+                                eb.view(torch.int16))
+                and torch.equal(va.cpu(), vb),
+                f"{name} vectors differ between the card and the CPU")
+    require(card.indexer.stats == host.indexer.stats,
+            f"indexer stats {card.indexer.stats} / {host.indexer.stats}")
+    gstats = card.graph_builder.store.stats
+    log(f"golden fixture indexed on the card in {card_s:.2f} s, on the CPU "
+        f"in {host_s:.2f} s: {len(card.files)} files, graph {gstats['nodes']}"
+        f" nodes, edges {gstats['edges']}; {card.indexer.stats}; graphs, "
+        f"payloads and bf16 vector bits equal")
+
+    cases = [json.loads(line) for line in GOLDEN_CASES.read_text(
+        encoding="utf-8").splitlines() if line.strip()]
+    require(len(cases) == 104, f"{len(cases)} golden cases")
+    store, cpu_store = card.indexer.code, host.indexer.code
+    plan = store._plan_search(1, GOLDEN_LIMIT, None, "auto")
+    require(plan == "quantized", f"the auto plan at B=1 is {plan!r}")
+    searcher = VectorSearcher(card.indexer)
+    before = _build.launch_counts()
+    worst = 0.0
+    for case in cases:
+        got = searcher.search_code(case["query"], limit=GOLDEN_LIMIT)
+        qv = embedder.embed(case["query"])
+        want = cpu_store.search(qv[None, :], GOLDEN_LIMIT,
+                                method="quantized")[0]
+        require([h.row for h in got] == [r for r, _, _ in want],
+                f"search_code({case['query']!r}) rows differ from the CPU's")
+        gap = max((abs(h.score - s) for h, (_, s, _) in zip(got, want)),
+                  default=0.0)
+        require(gap <= 1e-5, f"search_code({case['query']!r}) scores differ "
+                f"by {gap:.3g}")
+        worst = max(worst, gap)
+    after = _build.launch_counts()
+    ran = {k: after[k] - before[k] for k in ("scan_topk_int8",
+                                             "merge_candidates")}
+    require(all(v >= len(cases) for v in ran.values()),
+            f"search_code launched {ran} for {len(cases)} queries")
+    log(f"golden queries: {len(cases)} through search_code on the card (plan "
+        f"{plan!r}, launches {ran}) equal the CPU's forced 'quantized': rows "
+        f"in order, scores within {worst:.3g}")
+
+    q = torch.from_numpy(np.stack([embedder.embed(c["query"])
+                                   for c in cases]))
+    s, i = store.search_device(q.cuda(), GOLDEN_LIMIT, method="pallas")
+    ps, pi = cpu_store.search_device(q, GOLDEN_LIMIT, method="pallas")
+    s, i = s.cpu(), i.cpu()
+    off = i != pi
+    same = int((~off).sum())
+    require(same >= 0.999 * i.numel(), f"forced 'pallas': ids agree on "
+            f"{same / i.numel():.6f} of the slots")
+    gap = (s[off] - ps[off]).abs().max().item() if bool(off.any()) else 0.0
+    require(gap <= TIE_TOL, f"forced 'pallas': slots whose ids differ are not "
+            f"rounding ties (gap {gap:.3g})")
+    log(f"golden queries, forced 'pallas' (kernels A + B) at B={len(cases)}: "
+        f"ids agree with the CPU's on {same} of {i.numel()} slots, differing "
+        f"slots within {gap:.3g}; scores within "
+        f"{(s - ps).abs().max().item():.3g}")
+
+
+def phase_index_real_repo(ctx: dict) -> None:
+    """3g(b): a copy of `lattice_tpu/` through `PipelineOrchestrator` on the
+    card with 3c's UniXcoder provider (random weights, seed 0):
+    `paired_attention` 12 times a forward, chunks finding themselves, then
+    a second run that skips every file and, after one file is touched, a
+    run that re-indexes that file only."""
+    import shutil
+    import tempfile
+    from lattice_tpu_torch.embeddings.embedder import Embedder
+    from lattice_tpu_torch.ops import _build
+    provider = ctx["provider"]
+    model = provider.model
+    forwards = [0]
+
+    def counted(*args, _forward=model._forward):
+        forwards[0] += 1
+        return _forward(*args)
+
+    embedder = Embedder(provider, batch_size=ENC_BATCH)
+    model._forward = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # a repository whose root holds the package, as the checkout's
+            # does: module names and imports resolve as `lattice_tpu.*`
+            repo = Path(tmp) / "repo"
+            shutil.copytree(ROOT / REAL_REPO, repo / REAL_REPO,
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            before = _build.launch_counts()["paired_attention"]
+            t0 = time.perf_counter()
+            run = index_repo(repo, embedder, "cuda", REAL_REPO)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launched = _build.launch_counts()["paired_attention"] - before
+            require(launched == model.config.num_layers * forwards[0],
+                    f"paired_attention launched {launched} times in "
+                    f"{forwards[0]} forwards")
+            check_real_repo(run, provider, total_s, forwards[0], launched)
+            n_files = run.indexer.stats["files_indexed"]
+            t0 = time.perf_counter()
+            again = index_repo(repo, embedder, "cuda", REAL_REPO,
+                               indexer=run.indexer)
+            again_s = time.perf_counter() - t0
+            require(again.changed == [] and again.indexer.stats[
+                "files_skipped"] == n_files, f"a second run re-indexed "
+                f"{[p.file_info.relative_path for p in again.changed]}")
+            path = repo / TOUCHED
+            path.write_text(path.read_text() + "\n\ndef touched_after_index("
+                            "x):\n    return x\n")
+            t0 = time.perf_counter()
+            touched = index_repo(repo, embedder, "cuda", REAL_REPO,
+                                 indexer=run.indexer)
+            touched_s = time.perf_counter() - t0
+            changed = [p.file_info.relative_path for p in touched.changed]
+            require(changed == [TOUCHED]
+                    and touched.indexer.stats["files_indexed"] == n_files + 1,
+                    f"touching {TOUCHED} re-indexed {changed}")
+            check_touched_store(run.indexer.code, provider)
+            log(f"second run: every one of {n_files} files skipped in "
+                f"{again_s:.2f} s; after touching {TOUCHED}: {changed} "
+                f"re-indexed in {touched_s:.2f} s; store "
+                f"{run.indexer.code.stats}")
+    finally:
+        del model._forward
+
+
+def check_touched_store(store, provider) -> None:
+    """After the touched file's `delete_file` + `add` on the card, the int8
+    shadow (built by the self-retrieval search) was updated in place, the
+    file's chunks, the new function's among them, find themselves through
+    the auto plan, and its rows agree with an exact f32 scan."""
+    rows = [r for r, p in enumerate(store._payloads)
+            if p and p["file_path"] == TOUCHED]
+    texts = [store._payloads[r]["content"] for r in rows]
+    require(any(store._payloads[r]["name"].endswith(".touched_after_index")
+                for r in rows),
+            "the touched file's new function is not in the store")
+    require(store._quant is not None and not store._quant_dirty,
+            "the int8 shadow was not updated in place")
+    qv = provider.embed_batch_device(texts)
+    plan = store._plan_search(len(rows), K, None, "auto")
+    s, i = store.search_device(qv, K)
+    emb, valid = store.device_arrays
+    r = recall(i, exact_topk(qv, emb, valid, K))
+    hit = sum(any(store._payloads[j]["content"] == t for j in row)
+              for t, row in zip(texts, i.tolist())) / len(rows)
+    log(f"touched file's {len(rows)} chunks: {hit:.4f} find their own text "
+        f"in their top {K} (plan {plan!r}, int8 shadow updated in place); "
+        f"recall@{K} against an exact f32 scan {r:.4f}")
+    require(plan == "quantized" and hit == 1.0 and r >= RECALL_MIN,
+            f"after the touched re-index: plan {plan!r}, self-hit {hit}, "
+            f"recall {r}")
+
+
+def check_real_repo(run, provider, total_s: float, forwards: int,
+                    launched: int) -> None:
+    """Print what 3g(b) indexed and its stage times; hold 256 chunks drawn
+    by seed, encoded again as queries, to finding their own text in their
+    top 10 through `search_device` at B=256."""
+    store = run.indexer.code
+    gstats = run.graph_builder.store.stats
+    secs = stage_seconds(run)
+    n_chunks = run.indexer.stats["chunks_indexed"]
+    n_entities = sum(len(p.all_entities) for p in run.parsed)
+    log(f"{REAL_REPO}/ indexed on the card through UniXcoder in "
+        f"{total_s:.2f} s: {len(run.files)} files, {len(run.parsed)} parsed, "
+        f"{n_entities} entities, graph {gstats['nodes']} nodes, edges "
+        f"{gstats['edges']}; {n_chunks} chunks, "
+        f"{run.indexer.stats['summaries_indexed']} summaries; "
+        f"{forwards} forwards, paired_attention {launched} launches "
+        f"(12 a forward)")
+    log(f"stage seconds (host clock): "
+        f"{ {k: round(v, 3) for k, v in secs.items()} }; "
+        f"{n_chunks / secs['embedding']:.1f} chunks/s through the chunker "
+        f"and the encoder (embed stage)")
+    texts = [p and p["content"] for p in store._payloads]
+    rows = [r for r, t in enumerate(texts) if t is not None]
+    require(len(rows) == n_chunks, f"{len(rows)} live rows for {n_chunks} "
+            f"chunks")
+    gen = torch.Generator().manual_seed(SEED)
+    picks = [rows[j] for j in torch.randperm(len(rows), generator=gen)[
+        :N_SELF].tolist()]
+    qv = provider.embed_batch_device([texts[j] for j in picks])
+    plan = store._plan_search(len(picks), K, None, "auto")
+    s, i = store.search_device(qv, K)
+    torch.cuda.synchronize()
+    require(s.shape == (len(picks), K) and bool(torch.isfinite(s).all()),
+            "search_device output")
+    hit = sum(any(texts[r] == texts[j] for r in row)
+              for j, row in zip(picks, i.tolist())) / len(picks)
+    log(f"self-retrieval on {REAL_REPO}/: {hit:.4f} of {len(picks)} chunks "
+        f"have their own text in their top {K} (search_device, B="
+        f"{len(picks)}, plan {plan!r})")
+    require(hit >= 0.99, f"self-retrieval {hit:.4f} < 0.99")
+
+
 def probe_plain_chunked(q, probe, data, ids, k, max_batch=32):
     """`ivf_search_batch`'s probe step, `max_batch` queries at a time (as
     `IVFIndex.search` chunks it)."""
@@ -2140,7 +2443,10 @@ def main() -> int:
             ("capacity", phase_capacity_path,
              ("scan_topk_int4", "merge_candidates")),
             ("encoder", phase_encoder_path,
-             ("paired_attention", "scan_topk_int8", "merge_candidates"))):
+             ("paired_attention", "scan_topk_int8", "merge_candidates")),
+            ("indexing", phase_index_path,
+             ("scan_topk_int8", "merge_candidates", "scan_topk",
+              "paired_attention"))):
         _build.reset_launch_counts()
         phase(ctx)
         counts = {**_build.launch_counts(), **_build.entry_launch_counts()}

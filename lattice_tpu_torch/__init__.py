@@ -8,10 +8,15 @@ library only. The hand-written CUDA kernels live in `csrc/` and are
 compiled for `sm_90a` at first use (`ops/_build.py`).
 
 Ported so far: the vector-search core of the main path
-(ChunkStore -> int8 / bf16 scan kernels -> exact rescore), the IVF tier,
-the hash embedding provider, the vector indexer/searcher, and the
+(ChunkStore -> int8 / bf16 / int4 scan kernels -> exact rescore), the IVF
+tier, the hash embedding provider, the vector indexer/searcher, the
 UniXcoder encoder's serving path (tokenizer -> RoBERTa-base module with
-the paired-attention kernel -> provider).
+the paired-attention kernel -> provider), and the index side of the host
+stack: settings, scan, parse, the graph, chunks, summaries and the C++
+host library (`csrc/host/`, built with g++ at first use), driven by
+`pipeline.orchestrator.PipelineOrchestrator(repo, embedder,
+device="cuda").run()`. The query side (planner, ranker, golden eval) is
+not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -2,9 +2,11 @@
 
 Port of `lattice_tpu/embeddings/indexer.py`: two `ChunkStore` instances
 (`code`, `summaries`) on one explicit device, `VectorIndexer` to write
-them and `VectorSearcher` to read them. `index_file` needs the chunker and
-the parser's `ParsedFile`, which arrive with the host stack; until then
-it raises.
+them and `VectorSearcher` to read them. `index_file` takes a parsed file
+through the reference's steps: content-hash check, `delete_file`,
+`CodeChunker.chunk_file`, `Embedder.embed_with_progress`, `ChunkStore.add`.
+With an on-device provider (`embed_batch_device`) the vectors reach the
+store as a device tensor, with no host round trip.
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ from dataclasses import dataclass
 
 import torch
 
+from lattice_tpu_torch.embeddings.chunker import CodeChunker
 from lattice_tpu_torch.embeddings.embedder import Embedder
 from lattice_tpu_torch.index.chunk_store import ChunkStore, query_token_set
+from lattice_tpu_torch.parsing.models import ParsedFile
 
 
 @dataclass(slots=True)
@@ -36,11 +40,11 @@ class VectorSearchResult:
 
 
 class VectorIndexer:
-    def __init__(self, embedder: Embedder, chunker=None,
+    def __init__(self, embedder: Embedder, chunker: CodeChunker | None = None,
                  dtype: str = "float32", initial_capacity: int = 1024,
                  device: str | torch.device = "cuda"):
         self.embedder = embedder
-        self.chunker = chunker
+        self.chunker = chunker or CodeChunker()
         self.code = ChunkStore(embedder.dimensions, dtype=dtype,
                                initial_capacity=initial_capacity,
                                device=device)
@@ -55,14 +59,27 @@ class VectorIndexer:
     def file_needs_update(self, file_path: str, content_hash: str) -> bool:
         return self.code.file_needs_update(file_path, content_hash)
 
-    def index_file(self, parsed, project_name: str | None = None,
+    def index_file(self, parsed: ParsedFile, project_name: str | None = None,
                    force: bool = False) -> int:
-        """Chunk, embed, and upsert one file (reference
-        `embeddings/indexer.py:46-118`)."""
-        raise NotImplementedError(
-            "index_file needs the chunker and parser, which are not ported "
-            "to lattice_tpu_torch yet (ROADMAP queue 1, host stack copy "
-            "with the golden eval)")
+        """Chunk, embed, and upsert one file. Returns chunks written.
+
+        Reference: `embeddings/indexer.py:46-118`.
+        """
+        info = parsed.file_info
+        if not force and not self.file_needs_update(info.relative_path,
+                                                    info.content_hash):
+            self.stats["files_skipped"] += 1
+            return 0
+        self.code.delete_file(info.relative_path)
+        chunks = self.chunker.chunk_file(parsed, project_name)
+        if not chunks:
+            return 0
+        vectors = self.embedder.embed_with_progress([c.content for c in chunks])
+        payloads = [c.to_payload() for c in chunks]
+        self.code.add(vectors, payloads)
+        self.stats["files_indexed"] += 1
+        self.stats["chunks_indexed"] += len(chunks)
+        return len(chunks)
 
     def index_summary(self, entity_qn: str, summary: str, file_path: str,
                       entity_type: str, language: str = "",

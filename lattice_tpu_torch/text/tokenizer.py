@@ -8,10 +8,9 @@ A copy of `lattice_tpu/text/tokenizer.py` (pure Python, stdlib `re`,
   BPE from a `vocab.json`/`merges.txt` pair when given one, else word
   pieces hashed into a fixed vocab range, with the reference's framing
   `[CLS, <encoder-only>, SEP, tokens..., SEP]` truncated to `max_length`.
-
-`NativeBPECounter` and `get_token_counter` are not here yet: they load the
-C++ counter of `native/` through the JAX package's `utils/native.py`,
-which comes over with the host stack.
+- `NativeBPECounter`, the C++ BPE counter of `csrc/host/` over a local
+  merges file (`utils/native.py`), and `get_token_counter`, which picks it
+  when a merges file is given and loads, else `ApproxTokenCounter`.
 """
 
 from __future__ import annotations
@@ -86,6 +85,30 @@ class ApproxTokenCounter:
             else:
                 total += max(1, (len(tok) + 1) // 2)
         return total
+
+
+class NativeBPECounter:
+    """C++ BPE token counter (csrc/host/lattice_native.cpp) loading a real
+    merges file; exact when the vocab is the real one."""
+
+    name = "native-bpe"
+
+    def __init__(self, vocab_path: str | Path):
+        from lattice_tpu_torch.utils.native import BPECounter  # lazy; may raise
+        self._impl = BPECounter(str(vocab_path))
+
+    def count(self, text: str) -> int:
+        return self._impl.count(text)
+
+
+def get_token_counter(vocab_path: str | Path | None = None):
+    """Best available counter: native BPE if built+vocab given, else approx."""
+    if vocab_path is not None:
+        try:
+            return NativeBPECounter(vocab_path)
+        except Exception:
+            pass
+    return ApproxTokenCounter()
 
 
 class CodeTokenizer:

@@ -1,14 +1,23 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: built with no `device` on a machine without CUDA, each one raises
-rather than landing quietly on the CPU."""
+rather than landing quietly on the CPU. What the port has not ported
+raises rather than taking another path: the graph store's device
+methods and the metadata stage."""
+
+import asyncio
 
 import pytest
 import torch
 
+from lattice_tpu_torch.config.settings import Settings
 from lattice_tpu_torch.core.errors import EmbeddingError, VectorStoreError
+from lattice_tpu_torch.core.types import EdgeType, EntityType
 from lattice_tpu_torch.embeddings.embedder import Embedder
 from lattice_tpu_torch.embeddings.indexer import VectorIndexer
 from lattice_tpu_torch.index.chunk_store import ChunkStore
+from lattice_tpu_torch.index.graph_store import GraphStore
+from lattice_tpu_torch.pipeline.orchestrator import (PipelineOrchestrator,
+                                                     run_indexing)
 from lattice_tpu_torch.models.unixcoder import UniXcoderConfig, UniXcoderModel
 from lattice_tpu_torch.providers import unixcoder_provider as up
 from lattice_tpu_torch.providers.hash_provider import HashEmbedder
@@ -16,6 +25,13 @@ from lattice_tpu_torch.providers.hash_provider import HashEmbedder
 TINY = UniXcoderConfig(vocab_size=512, hidden_size=128, num_layers=1,
                        num_heads=2, intermediate_size=256,
                        max_position_embeddings=130)
+
+
+def _no_metadata() -> Settings:
+    settings = Settings()
+    settings.metadata.enabled = False
+    return settings
+
 
 ENTRY_POINTS = {
     "ChunkStore": (lambda: ChunkStore(dim=8), VectorStoreError),
@@ -26,6 +42,12 @@ ENTRY_POINTS = {
     "UniXcoderEmbedder": (lambda: up.UniXcoderEmbedder(), EmbeddingError),
     "UniXcoderEmbeddingProvider": (lambda: up.UniXcoderEmbeddingProvider(),
                                    EmbeddingError),
+    "PipelineOrchestrator": (lambda: PipelineOrchestrator(
+        ".", Embedder(HashEmbedder(dimensions=8)), settings=_no_metadata()),
+        VectorStoreError),
+    "run_indexing": (lambda: asyncio.run(run_indexing(
+        ".", Embedder(HashEmbedder(dimensions=8)), settings=_no_metadata())),
+        VectorStoreError),
 }
 
 
@@ -42,3 +64,49 @@ def test_cpu_is_asked_for_by_name():
     assert store.device.type == "cpu"
     model = UniXcoderModel(TINY, device="cpu")
     assert next(model.encoder.parameters()).device.type == "cpu"
+
+
+def _graph() -> GraphStore:
+    store = GraphStore()
+    a = store.add_node("m.a", EntityType.FUNCTION, "m.py")
+    b = store.add_node("m.b", EntityType.FUNCTION, "m.py")
+    store.add_edge(a, b, EdgeType.CALLS)
+    store.finalize()
+    return store
+
+
+@pytest.mark.parametrize("call", [
+    lambda g: g.k_hop([0], EdgeType.CALLS, 2, device=True),
+    lambda g: g.k_hop_batch([[0]] * 4, EdgeType.CALLS, 2, device=True),
+    lambda g: g.device_edges(EdgeType.CALLS),
+    lambda g: g.device_alive(),
+    lambda g: g.device_degree(EdgeType.CALLS),
+    lambda g: g.to_sharded(EdgeType.CALLS),
+], ids=["k_hop", "k_hop_batch", "device_edges", "device_alive",
+        "device_degree", "to_sharded"])
+def test_graph_device_methods_raise_not_ported(monkeypatch, call):
+    store = _graph()
+    # k_hop_batch keeps the reference's host walk below its edge threshold
+    monkeypatch.setattr(GraphStore, "DEVICE_BFS_THRESHOLD", 0)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        call(store)
+    assert store.k_hop([0], EdgeType.CALLS, 2) == {1: 1}
+
+
+def test_graph_sharded_flag_raises_only_with_several_cards(monkeypatch):
+    store = _graph()
+    monkeypatch.setenv("LATTICE_SHARDED", "1")
+    assert store.k_hop([0], EdgeType.CALLS, 2) == {1: 1}
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        store.k_hop([0], EdgeType.CALLS, 2)
+
+
+def test_metadata_stage_raises_not_ported():
+    with pytest.raises(NotImplementedError, match="item 6"):
+        PipelineOrchestrator(".", Embedder(HashEmbedder(dimensions=8)),
+                             settings=Settings(), device="cpu")
+    orch = PipelineOrchestrator(".", Embedder(HashEmbedder(dimensions=8)),
+                                settings=Settings(), device="cpu",
+                                metadata_generator=object())
+    assert orch.ctx.indexer.code.device.type == "cpu"

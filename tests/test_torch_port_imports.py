@@ -8,8 +8,10 @@ hash embedder (every ported plan, and the int4 view in capacity mode) and
 through a tiny UniXcoder encoder (tokenizer, paired
 attention's plain version, the torch module, the provider), runs the
 score probe's plain version, the span tracer and the dissection tool's
-bounds (`ops/probe.py`, `utils/`, `tools/`), and checks that no kernel was
-launched on the CPU and that asking for "cuda" without CUDA raises.
+bounds (`ops/probe.py`, `utils/`, `tools/`), checks that no kernel was
+launched on the CPU and that asking for "cuda" without CUDA raises, then
+indexes a three-file repository through the port's `PipelineOrchestrator`
+on the CPU (the host stack: settings, scan, parse, graph, chunk, embed).
 """
 
 import subprocess
@@ -117,6 +119,34 @@ except VectorStoreError:
     pass
 else:
     raise AssertionError("a cuda indexer was made without CUDA")
+# the index side of the main path: a three-file repository through the
+# port's orchestrator on the CPU (scan, parse, graph, chunk, embed, store)
+import asyncio, tempfile
+from pathlib import Path
+from lattice_tpu_torch.config.settings import Settings
+from lattice_tpu_torch.core.types import EdgeType
+from lattice_tpu_torch.pipeline.orchestrator import PipelineOrchestrator
+repo = Path(tempfile.mkdtemp()) / "three"
+(repo / "pkg").mkdir(parents=True)
+(repo / "pkg" / "base.py").write_text(
+    "class Queue:\n    def drain(self):\n        return []\n")
+(repo / "pkg" / "jobs.py").write_text(
+    "from pkg.base import Queue\n\n\nclass Jobs(Queue):\n"
+    "    def run(self):\n        return self.drain()\n")
+(repo / "web.ts").write_text(
+    "export function send(x: number): number {\n  return x + 1;\n}\n")
+settings = Settings()
+settings.metadata.enabled = False
+orch = PipelineOrchestrator(repo, emb, settings=settings, device="cpu")
+pctx = asyncio.run(orch.run())
+assert pctx.errors == [] and len(pctx.parsed) == 3, pctx.errors
+gstats = pctx.graph_builder.store.stats["edges"]
+assert gstats[EdgeType.EXTENDS.value] == 1 and gstats[EdgeType.CALLS.value] >= 1
+assert pctx.indexer.stats["files_indexed"] == 3, pctx.indexer.stats
+hits = VectorSearcher(pctx.indexer).search_code("drain the queue", limit=3)
+assert hits and hits[0].file_path.startswith(("pkg/", "web")), hits
+assert not any(m == "lattice_tpu" or m.startswith("lattice_tpu.")
+               for m in sys.modules), "the port imported the JAX package"
 print("PORT-OK")
 """
 
