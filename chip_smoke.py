@@ -1,5 +1,5 @@
 """Drive the port's main paths (vector search, the encoder, indexing a
-repository) once on one NVIDIA card.
+repository, answering questions about it) once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -161,6 +161,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    seed, encoded again as queries, find their own text in their top 10
    through `search_device` at B=256 (>= 99%); a second run skips every
    file, and after one file is touched only that file is re-indexed.
+3h. The query side, after 3g, over 3g's stores, through `QueryEngine`.
+   (a) The golden eval (`query/golden_eval.evaluate`, 104 cases through
+   `search_sync` or `deep_search`) on engines over 3g(a)'s card and CPU
+   indexes. The CPU's, on its auto plan "flat", gives the reference's
+   numbers (n 104, mrr 0.9148, hit@5 0.9904, hit@10 1.0, search mrr 0.92,
+   deep mrr 0.875, no misses). The card's auto plan is "quantized", whose
+   exact rescore scores the f32 query where "flat" scores it rounded to
+   bf16 (as in the JAX package), so the card is held to the CPU engine
+   with its stores served through "quantized": the same numbers, which
+   are the JAX package's on that plan (`GOLDEN_EVAL`: mrr 0.9164, search
+   0.9218, deep 0.875, no misses), and each case's top 10 equal in order,
+   scores within 1e-5, except two neighbours within 1e-6 that swap
+   (printed; one that moves a first hit is printed with both ranks and
+   may move the card's numbers by that case alone); kernels C
+   and B launch at least once per `search` case (counts and
+   `search_summaries` calls printed); `query_sync`'s extractive answer on
+   8 cases (4 `search`, 4 `deep`) equals the CPU's character for
+   character. (b) An engine over 3g(b)'s index of `lattice_tpu/` (the
+   UniXcoder encoder on the card): 8 function or method nodes drawn by
+   seed, each with a bare name unique in the graph and >= 8 characters,
+   rank in the top 10 of "where is `X` defined?" through `search_sync`; 8
+   relation questions built from drawn nodes (3 "who calls", 2 "what does
+   X extend", 3 "what methods does X have") through `search_sync`,
+   `query_sync` and `deep_search` each return results that name a graph
+   node or a payload of the index, with finite, sorted scores;
+   `paired_attention` launches 12 times per query embedding.
+4h. Query timings (information only), after 3h's launch counts are
+   read: host-clock p50 of `search_sync`, `query_sync` and `deep_search`
+   on the golden engine (the 104 query texts) and on the real
+   repository's (its 16 questions), with the p50 of each `phase_times_ms`
+   key, beside the card's name and power limit.
 4c. Encoder timings (information only): chunks/s at B=128, L=512 on
    device-resident ids (CUDA events) with the achieved TFLOP/s, the host
    tokenizer per batch, B=1 query encode and `search_code` p50 (host
@@ -177,9 +208,9 @@ version on the lists each path gives it (A and C at k1=16, B in {1,
 at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
 `torch.topk` on them by device time (`device_ms`: a sleep kernel keeps
 the queue full, so the host's issue is not counted) and back to back.
-Launch counts are zeroed just before each of 3a, 3d, 3f, 3b, 3e, 3c and
-3g and read just after it; each path's kernels, and every registered kernel, must
-have launched, and the C entries each path must have run with them (kernel
+Launch counts are zeroed just before each of 3a, 3d, 3f, 3b, 3e, 3c, 3g
+and 3h and read just after it; each path's kernels, and every registered
+kernel, must have launched, and the C entries each path must have run with them (kernel
 A's and C's wgmma routes on corpus A, the bf16 and int8 probes' in 3f).
 
 The line before the last is the kernel table as JSON: per kernel its
@@ -194,8 +225,10 @@ computing the same function where one exists. The last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1490,14 +1523,13 @@ def phase_index_golden(ctx: dict) -> None:
     require(card.indexer.stats == host.indexer.stats,
             f"indexer stats {card.indexer.stats} / {host.indexer.stats}")
     gstats = card.graph_builder.store.stats
+    ctx["golden_runs"] = card, host   # 3h's stores
     log(f"golden fixture indexed on the card in {card_s:.2f} s, on the CPU "
         f"in {host_s:.2f} s: {len(card.files)} files, graph {gstats['nodes']}"
         f" nodes, edges {gstats['edges']}; {card.indexer.stats}; graphs, "
         f"payloads and bf16 vector bits equal")
 
-    cases = [json.loads(line) for line in GOLDEN_CASES.read_text(
-        encoding="utf-8").splitlines() if line.strip()]
-    require(len(cases) == 104, f"{len(cases)} golden cases")
+    cases = golden_cases()
     store, cpu_store = card.indexer.code, host.indexer.code
     plan = store._plan_search(1, GOLDEN_LIMIT, None, "auto")
     require(plan == "quantized", f"the auto plan at B=1 is {plan!r}")
@@ -1580,6 +1612,7 @@ def phase_index_real_repo(ctx: dict) -> None:
                     f"paired_attention launched {launched} times in "
                     f"{forwards[0]} forwards")
             check_real_repo(run, provider, total_s, forwards[0], launched)
+            ctx["real_run"] = run   # 3h's stores
             n_files = run.indexer.stats["files_indexed"]
             t0 = time.perf_counter()
             again = index_repo(repo, embedder, "cuda", REAL_REPO,
@@ -1676,6 +1709,343 @@ def check_real_repo(run, provider, total_s: float, forwards: int,
         f"have their own text in their top {K} (search_device, B="
         f"{len(picks)}, plan {plan!r})")
     require(hit >= 0.99, f"self-retrieval {hit:.4f} < 0.99")
+
+
+# the golden eval's numbers (`query/golden_eval.evaluate`) in both packages
+# on the CPU: through the auto plan there ("flat", the reference's
+# published numbers) and with both stores served through "quantized", the
+# card's auto plan (held in tests/test_torch_port_golden_eval.py)
+GOLDEN_EVAL = {
+    "flat": {"n": 104, "mrr": 0.9148, "hit_at_5": 0.9904, "hit_at_10": 1.0,
+             "per_path": {"search": {"n": 92, "mrr": 0.92,
+                                     "hit_at_5": 0.9891},
+                          "deep": {"n": 12, "mrr": 0.875, "hit_at_5": 1.0}},
+             "misses": []},
+    "quantized": {"n": 104, "mrr": 0.9164, "hit_at_5": 0.9904,
+                  "hit_at_10": 1.0,
+                  "per_path": {"search": {"n": 92, "mrr": 0.9218,
+                                          "hit_at_5": 0.9891},
+                               "deep": {"n": 12, "mrr": 0.875,
+                                        "hit_at_5": 1.0}},
+                  "misses": []},
+}
+QUERY_NEAR_TIE = 1e-6      # 3h: two results this close may swap places
+QUERY_SCORE_TOL = 1e-5     # 3h: card and CPU scores of the same result
+N_ANSWERS = 8              # 3h(a): query_sync answers held to the CPU's
+N_DEFINED = 8              # 3h(b): "where is X defined?" questions
+QUERY_PATHS = ("search_sync", "query_sync", "deep_search")
+PHASE_KEYS = ("planning_ms", "graph_ms", "centrality_ms", "ranking_ms",
+              "context_ms", "response_ms", "deep_fuse_ms")
+
+
+def golden_cases() -> list[dict]:
+    from lattice_tpu_torch.query.golden_eval import load_cases
+    cases = load_cases(GOLDEN_CASES)
+    require(len(cases) == 104, f"{len(cases)} golden cases")
+    return cases
+
+
+def answer_cases(cases: list[dict]) -> list[int]:
+    """4 `search` and 4 `deep` cases spread over the golden set (also the
+    CPU test's, `tests/test_torch_port_golden_eval.py`)."""
+    return ([i for i, c in enumerate(cases) if c["path"] == "search"][::23]
+            + [i for i, c in enumerate(cases) if c["path"] == "deep"][::3])
+
+
+def engine_call(engine, path: str, text: str, limit: int = K):
+    return getattr(engine, path)(text, limit=limit)
+
+
+def compare_top(card: list, host: list, where: str) -> list[str]:
+    """The card's top-10 against the CPU's: the same qualified names in
+    order, except where two neighbours whose scores lie within
+    QUERY_NEAR_TIE swap places; scores within QUERY_SCORE_TOL. Returns the
+    swaps, printed."""
+    a, b = card[:K], host[:K]
+    require(len(a) == len(b), f"{where}: {len(a)} results on the card, "
+            f"{len(b)} on the CPU")
+    swaps = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        require(abs(x.score - y.score) <= QUERY_SCORE_TOL,
+                f"{where}: slot {i} scores {x.score} / {y.score}")
+        if x.qualified_name != y.qualified_name:
+            require(abs(x.score - y.score) < QUERY_NEAR_TIE,
+                    f"{where}: slot {i} holds {x.qualified_name} on the "
+                    f"card and {y.qualified_name} on the CPU (scores "
+                    f"{x.score!r} / {y.score!r})")
+            swaps.append(f"{where}: slot {i}: {x.qualified_name} "
+                         f"({x.score!r}) / {y.qualified_name} ({y.score!r})")
+    for line in swaps:
+        log(f"near-tie swap {line}")
+    return swaps
+
+
+def check_results(engine, res, where: str) -> None:
+    """At least one result; each names a graph node or a payload of the
+    index; scores finite and sorted."""
+    graph, store = engine.graph_store, engine.indexer.code
+    require(res.results, f"{where}: no results")
+    for r in res.results:
+        require(graph.id_of(r.qualified_name) is not None
+                or r.qualified_name in store._inverted["graph_node_id"],
+                f"{where}: {r.qualified_name!r} is neither a graph node nor "
+                f"a payload of the index")
+    scores = [r.score for r in res.results]
+    require(all(math.isfinite(v) for v in scores), f"{where}: scores {scores}")
+    require(scores == sorted(scores, reverse=True),
+            f"{where}: scores not sorted: {scores}")
+
+
+def phase_query_path(ctx: dict) -> None:
+    """3h: the query side on the card, over 3g's stores: (a) the golden
+    eval through `QueryEngine` on the card and on the CPU, (b) questions
+    about the real repository indexed through the encoder."""
+    t0 = time.perf_counter()
+    phase_query_golden(ctx)
+    phase_query_real_repo(ctx)
+    log(f"phase 3h took {time.perf_counter() - t0:.2f} s")
+
+
+def serve_through(engine, method: str) -> None:
+    """Have the engine's two stores serve every `search` through `method`
+    (the card's auto plan, forced on a CPU store: the kernels' plain
+    versions)."""
+    for store in (engine.indexer.code, engine.indexer.summaries):
+        store.search = functools.partial(store.search, method=method)
+
+
+def phase_query_golden(ctx: dict) -> None:
+    """3h(a): `evaluate` through engines over 3g(a)'s card and CPU
+    indexes. The CPU engine on its auto plan ("flat") gives the
+    reference's numbers. The card's auto plan is "quantized" (kernels C +
+    B, then the exact rescore with the f32 query, where "flat" scores the
+    query rounded to bf16, as in the reference), so the card is held to
+    the CPU engine served through "quantized": each case's top 10 equal
+    (near-tie swaps printed) and the same numbers, which are the JAX
+    package's on that plan (`GOLDEN_EVAL`); `query_sync` answers equal;
+    kernels C and B at least once a `search` case."""
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.query.engine import QueryEngine
+    from lattice_tpu_torch.query.golden_eval import (_rank_of_first_hit,
+                                                     evaluate)
+    card_run, host_run = ctx["golden_runs"]
+    card = QueryEngine(card_run.graph_builder.store, card_run.indexer)
+    host = QueryEngine(host_run.graph_builder.store, host_run.indexer)
+    require(card.indexer.code.device.type == "cuda"
+            and host.indexer.code.device.type == "cpu", "engine devices")
+    plan = card.indexer.code._plan_search(1, GOLDEN_LIMIT, None, "auto")
+    require(plan == "quantized", f"the card's auto plan is {plan!r}")
+    cases = golden_cases()
+    summaries = [0]
+    search_summaries = card.vector_searcher.search_summaries
+
+    def counted(*args, **kwargs):
+        summaries[0] += 1
+        return search_summaries(*args, **kwargs)
+
+    card.vector_searcher.search_summaries = counted
+    before = _build.launch_counts()
+    t0 = time.perf_counter()
+    got = evaluate(card, cases)
+    card_s = time.perf_counter() - t0
+    after = _build.launch_counts()
+    ran = {k: after[k] - before[k] for k in ("scan_topk_int8",
+                                             "merge_candidates")}
+    t0 = time.perf_counter()
+    flat = evaluate(host, cases)
+    host_s = time.perf_counter() - t0
+    flat_tops = [engine_call(host, "deep_search" if c["path"] == "deep"
+                             else "search_sync", c["query"]).results
+                 for c in cases]
+    serve_through(host, plan)
+    want = evaluate(host, cases)
+
+    def line(e: dict) -> str:
+        return (f"{json.dumps({k: v for k, v in e.items() if k != 'misses'})}"
+                f", {len(e['misses'])} misses")
+
+    n_search = sum(c["path"] == "search" for c in cases)
+    log(f"golden eval through QueryEngine on the card ({card_s:.2f} s, plan "
+        f"{plan!r}): {line(got)}; on the CPU, plan 'flat' ({host_s:.2f} s): "
+        f"{line(flat)}; on the CPU through {plan!r}: {line(want)}")
+    log(f"golden eval launches on the card: {ran} for {n_search} search and "
+        f"{len(cases) - n_search} deep cases; search_summaries called "
+        f"{summaries[0]} times among them")
+    require(all(v >= n_search for v in ran.values()),
+            f"kernels C and B launched {ran} for {n_search} search cases")
+    require(flat == GOLDEN_EVAL["flat"], f"the CPU engine's eval {flat}")
+    require(want == GOLDEN_EVAL[plan], f"the CPU engine's eval through "
+            f"{plan!r}: {want}")
+
+    swaps, moved, by_plan = [], [], 0
+    for i, case in enumerate(cases):
+        path = "deep_search" if case["path"] == "deep" else "search_sync"
+        a = engine_call(card, path, case["query"]).results
+        b = engine_call(host, path, case["query"]).results
+        case_swaps = compare_top(a, b, f"case {i} ({path})")
+        swaps += case_swaps
+        by_plan += ([r.qualified_name for r in b[:K]]
+                    != [r.qualified_name for r in flat_tops[i][:K]])
+        expect = set(case["expect"])
+        ra, rb = (_rank_of_first_hit(a, expect, K),
+                  _rank_of_first_hit(b, expect, K))
+        if ra != rb:
+            require(bool(case_swaps), f"case {i}: first hit at {ra} on the "
+                    f"card, {rb} on the CPU, with no near-tie swap")
+            moved.append(i)
+            log(f"case {i} {case['query']!r}: a near-tie swap moves its "
+                f"first hit from {rb} (CPU) to {ra} (card)")
+    if not moved:
+        require(got == want, f"the card's eval {got} differs from the CPU's")
+    log(f"golden cases: each top {K} on the card equals the CPU's through "
+        f"{plan!r} ({len(swaps)} near-tie swaps, {len(moved)} first hits "
+        f"moved); {by_plan} cases have another top {K} on the CPU's 'flat'")
+    picked = answer_cases(cases)
+    require(len(picked) == N_ANSWERS, f"{len(picked)} answer cases")
+    for i in picked:
+        text = cases[i]["query"]
+        a = card.query_sync(text, limit=K)
+        b = host.query_sync(text, limit=K)
+        require(a.answer == b.answer, f"query_sync({text!r}): the card's "
+                f"answer differs from the CPU's")
+    log(f"query_sync: {N_ANSWERS} answers on the card equal the CPU's "
+        f"character for character")
+    ctx["golden_engine"] = card
+
+
+def defined_nodes(graph, n: int, seed: int) -> list:
+    """`n` function or method nodes drawn by seed whose bare name is
+    unique in the graph and at least 8 characters long."""
+    from lattice_tpu_torch.core.types import EntityType
+    nodes = [graph.node(i) for i in range(graph.n_nodes())
+             if graph._alive[i]]
+    bare = [r.qualified_name.rsplit(".", 1)[-1] for r in nodes]
+    count: dict[str, int] = {}
+    for b in bare:
+        count[b] = count.get(b, 0) + 1
+    pool = [r for r, b in zip(nodes, bare)
+            if r.entity_type in (EntityType.FUNCTION, EntityType.METHOD)
+            and count[b] == 1 and len(b) >= 8]
+    gen = torch.Generator().manual_seed(seed)
+    return [pool[j] for j in torch.randperm(len(pool), generator=gen)[:n]
+            .tolist()]
+
+
+def relation_questions(graph, seed: int) -> list[str]:
+    """8 relation questions about nodes drawn by seed, each named by a bare
+    name unique in the graph: 3 "who calls X?" (X has callers), 2 "what
+    does X extend?" (X extends a class), 3 "what methods does X have?"
+    (X is a class with methods)."""
+    from lattice_tpu_torch.core.types import EdgeType, EntityType
+    gen = torch.Generator().manual_seed(seed)
+    alive = [i for i in range(graph.n_nodes()) if graph._alive[i]]
+    bare = {i: graph.node(i).qualified_name.rsplit(".", 1)[-1]
+            for i in alive}
+    count: dict[str, int] = {}
+    for b in bare.values():
+        count[b] = count.get(b, 0) + 1
+
+    def draw(ids, n: int) -> list[str]:
+        ids = sorted(i for i in set(map(int, ids))
+                     if i in bare and count[bare[i]] == 1)
+        order = torch.randperm(len(ids), generator=gen)[:n].tolist()
+        return [bare[ids[j]] for j in order]
+
+    classes = [i for i in alive
+               if graph.node(i).entity_type == EntityType.CLASS
+               and graph.methods_of_class(i)]
+    return ([f"who calls `{n}`?"
+             for n in draw(graph.edges(EdgeType.CALLS)[1], 3)]
+            + [f"what does `{n}` extend?"
+               for n in draw(graph.edges(EdgeType.EXTENDS)[0], 2)]
+            + [f"what methods does `{n}` have?" for n in draw(classes, 3)])
+
+
+def phase_query_real_repo(ctx: dict) -> None:
+    """3h(b): `QueryEngine` over 3g(b)'s index of `lattice_tpu/` (the
+    UniXcoder encoder on the card): 8 drawn functions found by "where is X
+    defined?", 8 relation questions answered through every path, 12
+    `paired_attention` launches per query embedding."""
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.query.engine import QueryEngine
+    run = ctx["real_run"]
+    engine = QueryEngine(run.graph_builder.store, run.indexer)
+    graph = engine.graph_store
+    model = ctx["provider"].model
+    forwards = [0]
+
+    def counted(*args, _forward=model._forward):
+        forwards[0] += 1
+        return _forward(*args)
+
+    model._forward = counted
+    before = _build.launch_counts()["paired_attention"]
+    try:
+        drawn = defined_nodes(graph, N_DEFINED, SEED)
+        require(len(drawn) == N_DEFINED, f"{len(drawn)} unique names drawn")
+        ranks, asked = [], []
+        for node in drawn:
+            bare = node.qualified_name.rsplit(".", 1)[-1]
+            asked.append(f"where is `{bare}` defined?")
+            res = engine.search_sync(asked[-1])
+            check_results(engine, res, asked[-1])
+            names = [r.qualified_name for r in res.results[:K]]
+            require(node.qualified_name in names, f"{node.qualified_name} is "
+                    f"not in the top {K} of 'where is {bare} defined?': "
+                    f"{names}")
+            ranks.append(names.index(node.qualified_name) + 1)
+        log(f"{REAL_REPO}/: {N_DEFINED} drawn functions found by 'where is X "
+            f"defined?' at ranks {ranks}: "
+            f"{[n.qualified_name for n in drawn]}")
+        questions = relation_questions(graph, SEED)
+        require(len(questions) == 8, f"{len(questions)} relation questions")
+        for q in questions:
+            tops = {}
+            for path in QUERY_PATHS:
+                res = engine_call(engine, path, q)
+                check_results(engine, res, f"{path}({q!r})")
+                if path == "query_sync":
+                    require(bool(res.answer), f"query_sync({q!r}): no answer")
+                tops[path] = res.results[0].qualified_name
+            log(f"{q!r} ({res.query_plan.intent.value}): top result {tops}")
+        ctx["real_questions"] = asked + questions
+        torch.cuda.synchronize()
+    finally:
+        del model._forward
+    launched = _build.launch_counts()["paired_attention"] - before
+    require(forwards[0] > 0
+            and launched == model.config.num_layers * forwards[0],
+            f"paired_attention launched {launched} times in {forwards[0]} "
+            f"query embeddings")
+    log(f"{REAL_REPO}/ questions: {forwards[0]} query embeddings, "
+        f"paired_attention {launched} launches (12 a forward)")
+    ctx["real_engine"] = engine
+
+
+def phase_query_timings(ctx: dict, smi: str) -> None:
+    """3h(c), for information: host-clock p50 of each engine path and of
+    each `phase_times_ms` key on the golden engine (the 104 golden query
+    texts) and on the real repository's (its 16 questions)."""
+    for label, engine, texts in (
+            ("golden", ctx.pop("golden_engine"),
+             [c["query"] for c in golden_cases()]),
+            (REAL_REPO, ctx.pop("real_engine"), ctx.pop("real_questions"))):
+        for path in QUERY_PATHS:
+            engine_call(engine, path, texts[0])   # warm-up
+            lat, phases = [], {}
+            for text in texts:
+                t0 = time.perf_counter()
+                res = engine_call(engine, path, text)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                for key, v in res.phase_times_ms.items():
+                    phases.setdefault(key, []).append(v)
+            keys = {("retrieve" if k == "graph_ms" else k.removesuffix("_ms")):
+                    round(statistics.median(phases[k]), 3)
+                    for k in PHASE_KEYS if k in phases}
+            log(f"3h timing, {label}, {path}: p50 "
+                f"{statistics.median(lat):.3f} ms over {len(texts)} queries "
+                f"(host clock); phase p50 ms {keys}; {smi}")
 
 
 def probe_plain_chunked(q, probe, data, ids, k, max_batch=32):
@@ -2446,7 +2816,9 @@ def main() -> int:
              ("paired_attention", "scan_topk_int8", "merge_candidates")),
             ("indexing", phase_index_path,
              ("scan_topk_int8", "merge_candidates", "scan_topk",
-              "paired_attention"))):
+              "paired_attention")),
+            ("query side", phase_query_path,
+             ("scan_topk_int8", "merge_candidates", "paired_attention"))):
         _build.reset_launch_counts()
         phase(ctx)
         counts = {**_build.launch_counts(), **_build.entry_launch_counts()}
@@ -2482,6 +2854,8 @@ def main() -> int:
             del ctx["store2"], ctx["queries2"]
             gc.collect()
             torch.cuda.empty_cache()
+        elif path == "query side":
+            phase_query_timings(ctx, smi)
         elif path == "capacity":
             phase_capacity_kernels(ctx, err, smi)
             phase_capacity_timings(ctx, smi)

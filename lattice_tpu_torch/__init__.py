@@ -15,8 +15,12 @@ the paired-attention kernel -> provider), and the index side of the host
 stack: settings, scan, parse, the graph, chunks, summaries and the C++
 host library (`csrc/host/`, built with g++ at first use), driven by
 `pipeline.orchestrator.PipelineOrchestrator(repo, embedder,
-device="cuda").run()`. The query side (planner, ranker, golden eval) is
-not ported yet.
+device="cuda").run()`, and the query side: the planner, graph reasoning,
+the hybrid ranker, context, responder and `query.engine.QueryEngine`
+(`search_sync`, `query_sync`, `deep_search`), which serves on the device
+of the stores it is given, with the ranking fuse of `ops/ranking.py` and
+the golden eval (`python -m lattice_tpu_torch.query.golden_eval --device
+cuda`). The device deep path above 100,000 rows is not ported yet.
 """
 
 __version__ = "0.1.0"

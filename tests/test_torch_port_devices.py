@@ -110,3 +110,83 @@ def test_metadata_stage_raises_not_ported():
                                 settings=Settings(), device="cpu",
                                 metadata_generator=object())
     assert orch.ctx.indexer.code.device.type == "cpu"
+
+
+def test_build_golden_engine_defaults_to_cuda(monkeypatch, tmp_path):
+    from lattice_tpu_torch.query.golden_eval import build_golden_engine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(VectorStoreError, match="CUDA is not available"):
+        build_golden_engine(work_dir=str(tmp_path))
+
+
+@pytest.fixture(scope="module")
+def engine(tmp_path_factory):
+    """A QueryEngine over a two-file repository indexed on the CPU."""
+    from lattice_tpu_torch.query.engine import QueryEngine
+    repo = tmp_path_factory.mktemp("two")
+    (repo / "base.py").write_text(
+        "class Queue:\n    def drain(self):\n        return []\n")
+    (repo / "jobs.py").write_text(
+        "from base import Queue\n\n\nclass Jobs(Queue):\n"
+        "    def run(self):\n        return self.drain()\n")
+    ctx = asyncio.run(PipelineOrchestrator(
+        repo, Embedder(HashEmbedder(dimensions=32)), settings=_no_metadata(),
+        device="cpu").run())
+    assert ctx.errors == []
+    return QueryEngine(ctx.graph_builder.store, ctx.indexer)
+
+
+def test_engine_serves_on_its_stores_device(engine):
+    assert engine.indexer.code.device.type == "cpu"
+    result = engine.deep_search("who calls drain?")
+    assert result.results and "deep_fuse_ms" in result.phase_times_ms
+    assert [r.query for r in engine.deep_search_batch(
+        ["who calls drain?", "what does Jobs extend?"])] == [
+        "who calls drain?", "what does Jobs extend?"]
+
+
+@pytest.mark.parametrize("call", [
+    lambda e: e.deep_search("who calls drain?"),
+    lambda e: e.deep_search_batch(["who calls drain?", "Jobs.run"]),
+    lambda e: e._deep_seeds(e.planner.plan_heuristic("who calls drain?")),
+    lambda e: e._deep_evidence(e.planner.plan_heuristic("who calls drain?")),
+    lambda e: e._deep_evidence_batch([]),
+    lambda e: e._pack_deep_evidence([]),
+], ids=["deep_search", "deep_search_batch", "_deep_seeds", "_deep_evidence",
+        "_deep_evidence_batch", "_pack_deep_evidence"])
+def test_device_deep_branch_raises_not_ported(monkeypatch, engine, call):
+    monkeypatch.setattr(type(engine), "DEEP_DEVICE_THRESHOLD", 1)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        call(engine)
+
+
+def test_sharded_deep_branch_raises_not_ported(monkeypatch, engine):
+    monkeypatch.setattr(type(engine), "DEEP_DEVICE_THRESHOLD", 1)
+    monkeypatch.setenv("LATTICE_SHARDED", "1")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        engine.deep_search("who calls drain?")
+    # the graph phase does not answer with an empty side either
+    with pytest.raises(NotImplementedError, match="item 11"):
+        engine.search_sync("who calls drain?")
+
+
+def test_device_failures_are_not_degraded_answers(monkeypatch, engine):
+    """A kernel that fails in the vector phase raises; a host failure
+    degrades to the other side's results, as in the reference."""
+    from lattice_tpu_torch.core.errors import KernelError
+
+    def fail(exc):
+        def search_code(*args, **kwargs):
+            raise exc
+        return search_code
+
+    monkeypatch.setattr(engine.vector_searcher, "search_code",
+                        fail(KernelError("launch failed")))
+    with pytest.raises(KernelError, match="launch failed"):
+        engine.search_sync("who calls drain?")
+    monkeypatch.setattr(engine.vector_searcher, "search_code",
+                        fail(ValueError("host bug")))
+    result = engine.search_sync("who calls drain?")
+    assert result.results
+    assert all(r.source.value == "graph" for r in result.results)

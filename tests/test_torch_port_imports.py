@@ -11,7 +11,9 @@ score probe's plain version, the span tracer and the dissection tool's
 bounds (`ops/probe.py`, `utils/`, `tools/`), checks that no kernel was
 launched on the CPU and that asking for "cuda" without CUDA raises, then
 indexes a three-file repository through the port's `PipelineOrchestrator`
-on the CPU (the host stack: settings, scan, parse, graph, chunk, embed).
+on the CPU (the host stack: settings, scan, parse, graph, chunk, embed)
+and asks it questions through the port's `QueryEngine` (`search_sync`,
+`query_sync`, `deep_search`).
 """
 
 import subprocess
@@ -145,6 +147,17 @@ assert gstats[EdgeType.EXTENDS.value] == 1 and gstats[EdgeType.CALLS.value] >= 1
 assert pctx.indexer.stats["files_indexed"] == 3, pctx.indexer.stats
 hits = VectorSearcher(pctx.indexer).search_code("drain the queue", limit=3)
 assert hits and hits[0].file_path.startswith(("pkg/", "web")), hits
+# the query side over those CPU stores
+from lattice_tpu_torch.query.engine import QueryEngine
+qe = QueryEngine(pctx.graph_builder.store, pctx.indexer)
+res = qe.search_sync("who calls drain?")
+assert res.query_plan.intent.value == "find_usage" and res.results, res
+assert any(r.qualified_name.endswith("Jobs.run") for r in res.results), res
+ans = qe.query_sync("what does Jobs extend?")
+assert ans.answer and ans.enriched_context is not None, ans
+assert ans.query_plan.intent.value == "find_hierarchy", ans.query_plan
+deep = qe.deep_search("who calls drain?")
+assert deep.results and all(r.score > -1e29 for r in deep.results), deep
 assert not any(m == "lattice_tpu" or m.startswith("lattice_tpu.")
                for m in sys.modules), "the port imported the JAX package"
 print("PORT-OK")
