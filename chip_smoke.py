@@ -100,8 +100,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ran); the library product of each type; `binned_topk`, and kernel C at
    k1 = 16 beside the int8 probe, at B in {1, 8, 32, 64, 128, 256}; one
    device-trace summary (torch.profiler) each of a "quantized", an "int4"
-   and a forced "refined" `search_device` call. The store is freed after
-   it.
+   and a forced "refined" `search_device` call.
+3i. The deep path on the same store (BASELINE configs 4 and 5), after
+   3f: a graph of its ~1M distinct `graph_node_id`s with 10,000,000
+   power-law CALLS edges and an EXTENDS forest over 10% of the nodes,
+   drawn by seed as `bench.py:234-257` draws them; the edges, degrees and
+   liveness on the card; the store's rank columns. `QueryEngine.
+   deep_search` on 16 questions ("who calls X?", "what does X call?", a
+   free-text search) takes its device branch (kernel B's positional entry
+   selects over the fused [Q, N] rows) and equals, bit for bit, the same
+   calls with the selection forced to `stable_topk` on the same evidence;
+   `deep_search_batch` at Q=16 and Q=130 (two chunks of 128; the 16
+   questions and 114 free-text searches) equals the sequential calls
+   (names in order but for near-tie swaps within 1e-6, scores within
+   1e-5, equal sources); `k_hop(device=True)` and `k_hop_batch(device=
+   True)` at Q=64, 5 hops, limit 50 (and unbounded at 3 hops, Q=8) equal
+   the host walk's (depth, id) prefix; after `delete_file` of a first
+   result's file the rank columns are rebuilt and none of its rows comes
+   back. After the launch counts are read: kernel B against
+   `stable_topk` on the same fused rows (Q in {1, 16, 128}, k in {10, 50,
+   512}) and on the negated BFS distance rows (Q=64, k in {50, 512}): ids
+   equal, scores bit-equal. Timings (information only): graph build,
+   finalize, device upload and rank-column build; `deep_search` p50 and
+   its parts (evidence: seeds, walks, row expansion, lexical; pack and
+   upload; cosine; fuse and select); `deep_search_batch` ms a query at
+   Q=16, 128 and 130; host and device `k_hop` p50 and `k_hop_batch` at
+   Q=64; kernel B at m = 1,048,576 beside `torch.topk` and `torch.sort`.
+   The store is freed after it.
 3b. The IVF path, after the first store is freed: a second 1,048,576 x 768
    store at spread 0.06 from the same centers (`bench.py`'s clustered
    corpus), with payloads. The first B=1 text query builds the IVF
@@ -178,7 +203,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and B launch at least once per `search` case (counts and
    `search_summaries` calls printed); `query_sync`'s extractive answer on
    8 cases (4 `search`, 4 `deep`) equals the CPU's character for
-   character. (b) An engine over 3g(b)'s index of `lattice_tpu/` (the
+   character; the 12 deep cases with `DEEP_DEVICE_THRESHOLD` forced to 1
+   on both engines (the device branch) equal, by the same rule, with
+   kernel B's positional entry launched for each. (b) An engine over 3g(b)'s index of `lattice_tpu/` (the
    UniXcoder encoder on the card): 8 function or method nodes drawn by
    seed, each with a bare name unique in the graph and >= 8 characters,
    rank in the top 10 of "where is `X` defined?" through `search_sync`; 8
@@ -186,7 +213,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    X extend", 3 "what methods does X have") through `search_sync`,
    `query_sync` and `deep_search` each return results that name a graph
    node or a payload of the index, with finite, sorted scores;
-   `paired_attention` launches 12 times per query embedding.
+   `paired_attention` launches 12 times per query embedding; on the
+   forced device branch, `deep_search_batch` of the 16 questions equals
+   the sequential `deep_search` of each, both on each question's vector
+   from one `embed_batch`.
 4h. Query timings (information only), after 3h's launch counts are
    read: host-clock p50 of `search_sync`, `query_sync` and `deep_search`
    on the golden engine (the 104 query texts) and on the real
@@ -208,8 +238,8 @@ version on the lists each path gives it (A and C at k1=16, B in {1,
 at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
 `torch.topk` on them by device time (`device_ms`: a sleep kernel keeps
 the queue full, so the host's issue is not counted) and back to back.
-Launch counts are zeroed just before each of 3a, 3d, 3f, 3b, 3e, 3c, 3g
-and 3h and read just after it; each path's kernels, and every registered
+Launch counts are zeroed just before each of 3a, 3d, 3f, 3i, 3b, 3e, 3c,
+3g and 3h and read just after it; each path's kernels, and every registered
 kernel, must have launched, and the C entries each path must have run with them (kernel
 A's and C's wgmma routes on corpus A, the bf16 and int8 probes' in 3f).
 
@@ -1910,6 +1940,23 @@ def phase_query_golden(ctx: dict) -> None:
                 f"answer differs from the CPU's")
     log(f"query_sync: {N_ANSWERS} answers on the card equal the CPU's "
         f"character for character")
+    # the deep cases through the device branch, forced on both engines
+    deep = [c["query"] for c in cases if c["path"] == "deep"]
+    card.DEEP_DEVICE_THRESHOLD = host.DEEP_DEVICE_THRESHOLD = 1
+    before = _build.entry_launch_counts().get("lt_merge_positions", 0)
+    try:
+        swaps = sum(len(compare_top(
+            card.deep_search(text, limit=K).results,
+            host.deep_search(text, limit=K).results,
+            f"forced device branch {text!r}")) for text in deep)
+    finally:
+        del card.DEEP_DEVICE_THRESHOLD, host.DEEP_DEVICE_THRESHOLD
+    ran = _build.entry_launch_counts().get("lt_merge_positions", 0) - before
+    require(ran >= len(deep), f"kernel B's positional entry launched {ran} "
+            f"times for {len(deep)} forced deep cases")
+    log(f"golden deep cases on the forced device branch: the card's top "
+        f"{K} equals the CPU's in all {len(deep)} ({swaps} near-tie swaps; "
+        f"kernel B {ran} launches)")
     ctx["golden_engine"] = card
 
 
@@ -2009,6 +2056,7 @@ def phase_query_real_repo(ctx: dict) -> None:
                 tops[path] = res.results[0].qualified_name
             log(f"{q!r} ({res.query_plan.intent.value}): top result {tops}")
         ctx["real_questions"] = asked + questions
+        phase_real_repo_deep_batch(engine, asked + questions)
         torch.cuda.synchronize()
     finally:
         del model._forward
@@ -2020,6 +2068,31 @@ def phase_query_real_repo(ctx: dict) -> None:
     log(f"{REAL_REPO}/ questions: {forwards[0]} query embeddings, "
         f"paired_attention {launched} launches (12 a forward)")
     ctx["real_engine"] = engine
+
+
+def phase_real_repo_deep_batch(engine, texts: list[str]) -> None:
+    """3h(b): on the forced device branch, `deep_search_batch` over the 16
+    questions equals the sequential `deep_search` of each. Both take each
+    question's vector from one `embed_batch` of the 16 (the encoder pads
+    a batch to its longest text, so a B=1 forward rounds differently in
+    bf16; the rank path is what is compared)."""
+    embedder = engine.vector_searcher.embedder
+    vecs = dict(zip(texts, embedder.embed_batch(texts)))
+    engine.DEEP_DEVICE_THRESHOLD = 1
+    embedder.embed = vecs.__getitem__
+    try:
+        batch = engine.deep_search_batch(texts, limit=K)
+        swaps = 0
+        for text, b in zip(texts, batch):
+            one = engine.deep_search(text, limit=K)
+            check_results(engine, b, f"deep_search_batch {text!r}")
+            swaps += len(compare_top(b.results, one.results,
+                                     f"{REAL_REPO}/ deep batch {text!r}"))
+    finally:
+        del engine.DEEP_DEVICE_THRESHOLD, embedder.embed
+    log(f"{REAL_REPO}/: deep_search_batch of {len(texts)} questions on the "
+        f"forced device branch equals the sequential calls ({swaps} near-tie "
+        f"swaps)")
 
 
 def phase_query_timings(ctx: dict, smi: str) -> None:
@@ -2583,6 +2656,415 @@ def phase_dissect_path(ctx: dict) -> None:
         str(Path(__file__).resolve().parent / "build" / "traces"), log)
 
 
+# ---- 3i: the deep path at corpus scale -------------------------------------
+
+DEEP_EDGES = 10_000_000    # power-law CALLS edges (BASELINE configs 4 and 5)
+DEEP_HOPS = 5
+DEEP_LIMIT = 50
+DEEP_WALKS = 64            # k_hop_batch's queries
+DEEP_TEXTS = 16            # deep_search's texts; the small batch
+DEEP_BIG_BATCH = 130       # two chunks of DEEP_BATCH_CHUNK = 128
+FUSED_Q = (1, 16, 128)     # kernel B on fused rows: queries ...
+FUSED_K = (10, 50, 512)    # ... and widths
+
+
+def deep_graph(store, seed: int):
+    """The graph of the deep cell: a node for each distinct `graph_node_id`
+    of the store's payloads (row order), 10,000,000 CALLS edges from
+    uniform callers to power-law callees (u^4: a few hubs called from
+    everywhere, a long tail of leaves) and an EXTENDS forest over 10% of
+    the nodes, drawn as `bench.py:234-257` draws them. Returns the graph
+    and its host build and finalize seconds."""
+    from lattice_tpu_torch.core.types import EdgeType, EntityType
+    from lattice_tpu_torch.index.graph_store import GraphStore
+    names = list(dict.fromkeys(
+        p["graph_node_id"] for p in store._payloads
+        if p and p.get("graph_node_id")))
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    graph = GraphStore(device="cuda")
+    graph.add_nodes_bulk(names, EntityType.FUNCTION, "synthetic.py")
+    n = len(names)
+    src = rng.integers(0, n, size=DEEP_EDGES, dtype=np.int64)
+    dst = np.minimum((n * rng.random(DEEP_EDGES) ** 4).astype(np.int64),
+                     n - 1)
+    graph.add_edges_bulk(src, dst, EdgeType.CALLS)
+    n_ext = max(n // 10, 1)
+    child = rng.choice(n, size=n_ext, replace=False)
+    parent = np.minimum((n * rng.random(n_ext) ** 4).astype(np.int64), n - 1)
+    graph.add_edges_bulk(child, parent, EdgeType.EXTENDS)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph.finalize()
+    return graph, build_s, time.perf_counter() - t0
+
+
+FREE_VERBS = ("drain", "parse", "retry", "render", "validate", "schedule",
+              "encode", "flush", "resolve", "merge", "rotate", "sign")
+FREE_NOUNS = ("webhook queue", "config file", "payment invoice",
+              "socket timeout", "cache eviction", "schema migration",
+              "token bucket", "email template", "upload chunk",
+              "session cookie", "audit log", "rate limit")
+
+
+def free_texts(n: int, seed: int) -> list[str]:
+    """`n` distinct free-text searches ("<verb> the <noun>") drawn by seed:
+    no entity to seed a walk, and no word of the corpus's name vocabulary,
+    so their evidence is the cosine alone."""
+    gen = np.random.default_rng(seed)
+    pool = [f"{v} the {w}" for v in FREE_VERBS for w in FREE_NOUNS]
+    return [pool[j] for j in gen.permutation(len(pool))[:n]]
+
+
+def deep_texts(store, n: int, seed: int) -> list[str]:
+    """`n` questions cycling over "who calls X?", "what does X call?" (X the
+    bare function name of a row drawn by seed, which a few dozen graph
+    nodes share, so it is found by exact name and no fuzzy scan of the
+    million names runs) and a free-text search."""
+    gen = np.random.default_rng(seed)
+    live = np.flatnonzero(store._valid_host)
+    free = free_texts(n, seed)
+    out = []
+    for j, row in enumerate(gen.choice(live, n, replace=False)):
+        bare = store.payload(int(row))["name"].rsplit(".", 1)[-1]
+        out.append((f"who calls {bare}?", f"what does {bare} call?",
+                    free[j])[j % 3])
+    return out
+
+
+def same_deep(a: list, b: list, where: str, exact: bool = False) -> None:
+    """Two result lists of one deep query: with `exact`, the same names,
+    sources and scores bit for bit; else `compare_top`'s rule (near-tie
+    swaps within QUERY_NEAR_TIE, scores within QUERY_SCORE_TOL) and equal
+    sources where the names are equal."""
+    if exact:
+        require([(r.qualified_name, r.source, r.score) for r in a]
+                == [(r.qualified_name, r.source, r.score) for r in b],
+                f"{where}: results differ")
+        return
+    compare_top(a, b, where)
+    for x, y in zip(a[:K], b[:K]):
+        if x.qualified_name == y.qualified_name:
+            require(x.source == y.source, f"{where}: {x.qualified_name} "
+                    f"sources {x.source} / {y.source}")
+
+
+def phase_deep_path(ctx: dict) -> None:
+    """3i: the deep path on corpus A's store (1,048,576 x 768 bf16, one
+    file deleted in 3a) and a 1M-node / 10M-edge graph of its
+    `graph_node_id`s: `QueryEngine.deep_search` through its device branch
+    (the store is past DEEP_DEVICE_THRESHOLD), equal to the same calls with
+    the selection forced to its plain version (on the same evidence);
+    `deep_search_batch` at Q=16 and Q=130 (two chunks; the 16 questions
+    and 114 free-text searches) equal to the sequential calls;
+    `GraphStore.k_hop(device=True)` and `k_hop_batch(device=True)` equal
+    to the host walk; after `delete_file` the rank columns are rebuilt and
+    the deleted rows never surface."""
+    from lattice_tpu_torch.core.types import EdgeType
+    from lattice_tpu_torch.ops import ranking
+    from lattice_tpu_torch.ops import topk as topk_ops
+    from lattice_tpu_torch.query.engine import QueryEngine
+    t_phase = time.perf_counter()
+    store, indexer = ctx["store"], ctx["indexer"]
+    graph, build_s, fin_s = deep_graph(store, SEED + 3)
+    times = {"graph_build_s": build_s, "graph_finalize_s": fin_s}
+    t0 = time.perf_counter()
+    for et in (EdgeType.CALLS, EdgeType.EXTENDS):
+        for reverse in (False, True):
+            graph.device_edges(et, reverse=reverse)
+        graph.device_degree(et)
+    graph.device_alive()
+    torch.cuda.synchronize()
+    times["device_upload_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cols = store.device_rank_columns(graph)
+    torch.cuda.synchronize()
+    times["rank_columns_s"] = time.perf_counter() - t0
+    n_nodes = graph.n_nodes()
+    joined = int((cols.node_ids >= 0).sum().item())
+    log(f"deep cell: {n_nodes} nodes, {graph.n_edges(EdgeType.CALLS)} CALLS "
+        f"+ {graph.n_edges(EdgeType.EXTENDS)} EXTENDS edges; {joined} of "
+        f"{len(store)} rows joined to a node; host build "
+        f"{build_s:.2f} s, finalize {fin_s:.2f} s, device upload (edges "
+        f"both ways, degrees, liveness) {times['device_upload_s']:.2f} s, "
+        f"rank columns {times['rank_columns_s']:.2f} s")
+    require(joined == len(store), f"{joined} rows joined to a node")
+    require(cols.degree.device.type == "cuda", "rank columns off the card")
+
+    engine = QueryEngine(graph, indexer)
+    require(store.capacity >= engine.DEEP_DEVICE_THRESHOLD,
+            f"capacity {store.capacity} below the device threshold")
+    texts = deep_texts(store, DEEP_TEXTS, SEED + 4)
+    # each question's evidence, kept (with its host time) for the rerun
+    # with the plain selection and for 3i's timings
+    evidence, memo, ev_ms = engine._deep_evidence, {}, {}
+
+    def kept(plan, walks=None, seeds=None):
+        if plan.raw_query not in memo:
+            t0 = time.perf_counter()
+            memo[plan.raw_query] = evidence(plan, walks, seeds)
+            ev_ms[plan.raw_query] = (time.perf_counter() - t0) * 1e3
+        return memo[plan.raw_query]
+
+    calls, lat = [0], []
+    device_branch = engine._deep_search_device
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return device_branch(*args, **kwargs)
+
+    engine._deep_search_device, engine._deep_evidence = counted, kept
+    singles = []
+    for t in texts:
+        t0 = time.perf_counter()
+        singles.append(engine.deep_search(t, limit=K))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    require(calls[0] == len(texts), f"{calls[0]} of {len(texts)} deep "
+            f"searches took the device branch")
+    for t, res in zip(texts, singles):
+        check_results(engine, res, f"deep_search({t!r})")
+        require(len(res.results) == K, f"deep_search({t!r}): "
+                f"{len(res.results)} results")
+    hybrid = sum(r.source.value == "hybrid" for s in singles
+                 for r in s.results)
+    # the same calls on the same evidence, the selection forced plain
+    select = ranking._select_topk
+    ranking._select_topk = lambda fused, k: topk_ops.stable_topk(
+        fused, min(k, fused.shape[-1]))
+    try:
+        for t, res in zip(texts, singles):
+            same_deep(res.results, engine.deep_search(t, limit=K).results,
+                      f"deep_search({t!r}), plain selection", exact=True)
+    finally:
+        ranking._select_topk = select
+        del engine._deep_search_device, engine._deep_evidence
+    log(f"deep_search: {len(texts)} questions through the device branch, "
+        f"{hybrid} of {len(texts) * K} results hybrid; equal to the plain "
+        f"selection's on the same evidence, bit for bit")
+
+    big = texts + free_texts(DEEP_BIG_BATCH - DEEP_TEXTS, SEED + 5)
+    batch_ms = {}
+    for batch_texts in (texts, big):
+        q = len(batch_texts)
+        t0 = time.perf_counter()
+        batch = engine.deep_search_batch(batch_texts, limit=K)
+        batch_ms[q] = (time.perf_counter() - t0) * 1e3
+        require(len(batch) == q, f"deep_search_batch gave {len(batch)}")
+        seq = singles + [engine.deep_search(t, limit=K)
+                         for t in batch_texts[DEEP_TEXTS:]]
+        for t, b, one in zip(batch_texts, batch, seq):
+            same_deep(b.results, one.results,
+                      f"deep_search_batch Q={q} {t!r}")
+        log(f"deep_search_batch at Q={q} ({-(-q // engine.DEEP_BATCH_CHUNK)} "
+            f"chunks) equals the sequential calls")
+
+    # the graph's device traversals against the host walk
+    rng = np.random.default_rng(SEED + 6)
+    seeds = [rng.choice(n_nodes, int(rng.integers(1, 4)),
+                        replace=False).tolist() for _ in range(DEEP_WALKS)]
+    dev = graph.k_hop_batch(seeds, EdgeType.CALLS, DEEP_HOPS,
+                            limit=DEEP_LIMIT, device=True)
+    for s, d in zip(seeds, dev):
+        host = graph.k_hop(s, EdgeType.CALLS, DEEP_HOPS, limit=DEEP_LIMIT)
+        require(sorted((v, k) for k, v in d.items())
+                == sorted((v, k) for k, v in host.items()),
+                f"k_hop_batch(device=True) seeds {s}: not the host walk's "
+                f"(depth, id) prefix")
+    for s in seeds[:8]:
+        for reverse in (False, True):
+            d = graph.k_hop(s, EdgeType.CALLS, DEEP_HOPS, reverse=reverse,
+                            device=True, limit=DEEP_LIMIT)
+            host = graph.k_hop(s, EdgeType.CALLS, DEEP_HOPS, reverse=reverse,
+                               limit=DEEP_LIMIT)
+            require(list(d.items()) == sorted(
+                host.items(), key=lambda kv: (kv[1], kv[0])),
+                f"k_hop(device=True, reverse={reverse}) seeds {s}")
+    # unbounded (limit <= 0): every padded node is selected (stable_topk)
+    few = seeds[:8]
+    dev0 = graph.k_hop_batch(few, EdgeType.CALLS, 3, limit=0, device=True)
+    for s, d in zip(few, dev0):
+        host = graph.k_hop(s, EdgeType.CALLS, 3, limit=0)
+        require(d == host, f"k_hop_batch(device=True, limit=0) seeds {s}")
+        require(graph.k_hop(s, EdgeType.CALLS, 3, device=True) == host,
+                f"k_hop(device=True) unbounded, seeds {s}")
+    log(f"k_hop(device=True) and k_hop_batch(device=True) at Q="
+        f"{DEEP_WALKS}, {DEEP_HOPS} hops, limit {DEEP_LIMIT} (and unbounded "
+        f"at 3 hops, Q=8) equal the host walk")
+
+    # delete the file of a question's first result: the columns rebuild,
+    # and none of its rows surfaces again
+    j, first = next((j, s.results[0]) for j, s in enumerate(singles)
+                    if s.results[0].file_path)
+    target = first.file_path
+    gone = {store.payload(r)["graph_node_id"]
+            for r in store._inverted["file_path"][target]}
+    n_del = indexer.delete_file(target)
+    require(n_del > 0 and store._rank_cols_dirty, "delete_file did not "
+            "mark the rank columns dirty")
+    again = [texts[j]] + [t for t in texts if t != texts[j]][:3]
+    after = [engine.deep_search(texts[j], limit=K)]
+    after += engine.deep_search_batch(again, limit=K)
+    require(not store._rank_cols_dirty
+            and store.device_rank_columns(graph) is not cols,
+            "the rank columns were not rebuilt after delete_file")
+    require(not any(r.qualified_name in gone for a in after
+                    for r in a.results),
+            f"rows of the deleted file {target} came back")
+    log(f"delete_file({target!r}) removed {n_del} rows, among them the first "
+        f"result of {texts[j]!r}: the rank columns were rebuilt and none of "
+        f"its rows surfaced in {len(after)} deep searches")
+    ctx.update(deep_engine=engine, deep_texts=texts, deep_big=big,
+               deep_seeds=seeds, deep_memo=memo,
+               deep_times=dict(times, evidence_ms=ev_ms, lat_ms=lat,
+                               batch_ms=batch_ms))
+    log(f"phase 3i took {time.perf_counter() - t_phase:.2f} s")
+
+
+def phase_deep_kernels(ctx: dict, err: dict, smi: str) -> None:
+    """3i, after its launch counts are read: kernel B against its plain
+    version (`stable_topk`) on the same fused rows (Q in FUSED_Q, k in
+    FUSED_K) and on the BFS distance rows of k_hop_batch, bit for bit;
+    then the timings (information only)."""
+    from lattice_tpu_torch.core.types import EdgeType
+    from lattice_tpu_torch.ops import graph_kernels as gk
+    from lattice_tpu_torch.ops import ranking
+    from lattice_tpu_torch.ops import scan_topk as scan
+    from lattice_tpu_torch.ops import topk as topk_ops
+    from lattice_tpu_torch.ops.ranking import FuseWeights, pack_weights
+    from lattice_tpu_torch.query.engine import _weights_tuple
+    engine, texts = ctx.pop("deep_engine"), ctx.pop("deep_texts")
+    big, memo = ctx.pop("deep_big"), ctx.pop("deep_memo")
+    store, graph = engine.indexer.code, engine.graph_store
+    emb, valid = store.device_arrays
+    n = emb.shape[0]
+    cols = store.device_rank_columns(graph)
+
+    def inputs(batch_texts: list[str]):
+        """Device tensors of the batched rank for these texts: queries,
+        packed reach, relevance tables, match rows, weights."""
+        plans = [engine.planner.plan_heuristic(t) for t in batch_texts]
+        evs = [memo.get(t) or engine._deep_evidence(p)
+               for t, p in zip(batch_texts, plans)]
+        packed, match = engine._pack_deep_evidence(evs)
+        qv = np.asarray(engine.vector_searcher.embedder.embed_batch(
+            batch_texts), np.float32)
+        w = np.stack([pack_weights(FuseWeights(*_weights_tuple(
+            engine.ranker.config, p))) for p in plans])
+        rel = np.stack([e["rel_table"] for e in evs])
+        return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                for a in (qv, packed, rel, match, w)]
+
+    def fused(args) -> torch.Tensor:
+        qv, packed, rel, match, w = args
+        return ranking.fuse_packed(ranking.row_scores(qv, emb, valid), packed,
+                                   rel, match, cols.degree, cols.quality, w)
+
+    def check_rows(rows: torch.Tensor, k: int, where: str) -> None:
+        ks, ki = scan.merge_positions(rows, k)
+        ps, pi = topk_ops.stable_topk(rows, k)
+        require(torch.equal(ki, pi) and same_bits(ks, ps),
+                f"kernel B on {where} (Q={rows.shape[0]}, k={k}) differs "
+                f"from stable_topk: ids agree on "
+                f"{(ki == pi).float().mean().item():.6f}")
+        err["merge_candidates"] = max(err["merge_candidates"],
+                                      (ks - ps).abs().max().item())
+
+    # the 16 questions first, then free-text searches up to 128
+    order = texts + [t for t in big if t not in texts]
+    slabs = {q: fused(inputs(order[:q])) for q in FUSED_Q}
+    for q, slab in slabs.items():
+        for k in FUSED_K:
+            check_rows(slab, k, "fused rows")
+    log(f"kernel B on fused rows of {n} (Q in {FUSED_Q}, k in {FUSED_K}): "
+        f"ids equal and scores bit-equal to stable_topk")
+    seeds = ctx.pop("deep_seeds")
+    psrc, pdst = graph.device_edges(EdgeType.CALLS)
+    seed_arr = np.full((len(seeds), 3), -1, np.int32)
+    for i, s in enumerate(seeds):
+        seed_arr[i, :len(s)] = s
+    n_pad = graph._n_padded()
+    dist = gk.bfs_distances_batch(
+        psrc, pdst, torch.from_numpy(seed_arr).cuda(), n_pad, DEEP_HOPS)
+    neg = -torch.where(graph.device_alive() & (dist > 0), dist,
+                       int(gk.UNREACHED)).to(torch.float32)
+    for k in (DEEP_LIMIT, 512):
+        check_rows(neg, k, "negated BFS distance rows")
+    log(f"kernel B on the negated distance rows of k_hop_batch (Q="
+        f"{len(seeds)}, {n_pad} nodes): equal to stable_topk at k in "
+        f"{(DEEP_LIMIT, 512)}")
+
+    # timings (information only): deep_search's parts on the kept
+    # evidence of its 16 questions
+    times = ctx.pop("deep_times")
+    parts = {"pack_upload": [], "cosine": [], "fuse_select": []}
+    for t in texts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qv, packed, rel, match, w = inputs([t])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vec = ranking.row_scores(qv, emb, valid)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ranking._select_topk(ranking.fuse_packed(
+            vec, packed, rel, match, cols.degree, cols.quality, w), K)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(v * 1e3)
+    ev = times.pop("evidence_ms")
+    lat = times.pop("lat_ms")
+    named = statistics.median(ev[t] for t in texts if " the " not in t)
+    free = statistics.median(ev[t] for t in texts if " the " in t)
+    log(f"3i timing, deep_search p50 {statistics.median(lat):.3f} ms over "
+        f"{len(texts)} questions (host clock); parts p50 ms: evidence "
+        f"{statistics.median(ev.values()):.3f} (questions naming a function "
+        f"{named:.3f}, free text {free:.3f}), "
+        + ", ".join(f"{k} {statistics.median(v):.3f}"
+                    for k, v in parts.items()) + f"; {smi}")
+    for q, ms in times.pop("batch_ms").items():
+        log(f"3i timing, deep_search_batch Q={q}: {ms / q:.3f} ms a query "
+            f"({ms:.1f} ms the batch, host clock; {smi})")
+    batch128 = order[:128]
+    t0 = time.perf_counter()
+    engine.deep_search_batch(batch128, limit=K)
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"3i timing, deep_search_batch Q=128 (16 questions, 112 free-text "
+        f"searches): {ms / 128:.3f} ms a query ({ms:.1f} ms the batch, host "
+        f"clock; {smi})")
+    host_ms = p50_ms(lambda j: graph.k_hop(seeds[j % len(seeds)],
+                                           EdgeType.CALLS, DEEP_HOPS,
+                                           limit=DEEP_LIMIT), 32)
+    dev_ms = p50_ms(lambda j: graph.k_hop(seeds[j % len(seeds)],
+                                          EdgeType.CALLS, DEEP_HOPS,
+                                          device=True, limit=DEEP_LIMIT), 16)
+    kb = {}
+    for device in (False, True):
+        graph.k_hop_batch(seeds, EdgeType.CALLS, DEEP_HOPS, limit=DEEP_LIMIT,
+                          device=device)
+        t0 = time.perf_counter()
+        graph.k_hop_batch(seeds, EdgeType.CALLS, DEEP_HOPS, limit=DEEP_LIMIT,
+                          device=device)
+        torch.cuda.synchronize()
+        kb[device] = (time.perf_counter() - t0) * 1e3
+    log(f"3i timing, k_hop {DEEP_HOPS} hops limit {DEEP_LIMIT}: p50 host "
+        f"walk {host_ms:.3f} ms, device {dev_ms:.3f} ms; k_hop_batch Q="
+        f"{len(seeds)}: host {kb[False]:.1f} ms, device {kb[True]:.1f} ms "
+        f"(host clock; {smi})")
+    for q, slab in slabs.items():
+        b_ms = device_ms(lambda: scan.merge_positions(slab, K))
+        topk_ms = device_ms(lambda: torch.topk(slab, K))
+        sort_ms = device_ms(lambda: torch.sort(slab, dim=-1, descending=True,
+                                               stable=True), 5)
+        bnd = bound(q * n * 4 + q * K * 8, 0, "f32")
+        log(f"3i timing, kernel B (lt_merge_positions) on fused rows Q={q} "
+            f"m={n} k={K}: {b_ms:.4f} ms, torch.topk {topk_ms:.4f} ms, "
+            f"torch.sort (stable_topk's) {sort_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); device time, {smi}")
+    log(f"3i host times: "
+        f"{json.dumps({k: round(v, 3) for k, v in times.items()})}")
+
+
 def phase_capacity_path(ctx: dict) -> None:
     """3e: 4,194,304 x 768 rows held only as packed int4 (the bench's
     capacity cell), served at B=1024."""
@@ -2808,6 +3290,8 @@ def main() -> int:
              ("score_probe", "scan_topk", "scan_topk_int8",
               "scan_topk_int4", "lt_score_probe_bf16",
               "lt_score_probe_int8")),
+            ("deep path", phase_deep_path,
+             ("merge_candidates", "lt_merge_positions")),
             ("ivf", phase_ivf_path,
              ("ivf_probe", "merge_candidates", "scan_topk_int8")),
             ("capacity", phase_capacity_path,
@@ -2843,6 +3327,8 @@ def main() -> int:
                 floor["ms"], floor["plain_ms"],
                 (floor["bound_ms"], floor["bound_by"]), None,
                 rep["library"]["bf16"])
+        elif path == "deep path":
+            phase_deep_kernels(ctx, err, smi)
             # free the first store before the second is built
             del ctx["store"], ctx["indexer"], ctx["queries"]
             gc.collect()

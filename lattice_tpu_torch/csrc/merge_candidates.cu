@@ -8,6 +8,11 @@
 // ivf_probe (ivf_probe.cu), but assumes nothing of its input: the lists
 // need not be sorted, nor m be a multiple of k1.
 //
+// A second entry, lt_merge_positions, takes no ids: a candidate's id is its
+// column, 0 ... m - 1. It is the exact top-k over whole score rows (the
+// deep path's fused [Q, N] rows, the negated BFS distance rows of
+// khop_select), where an id tensor would be one more [Q, N] int32 read.
+//
 // Order. Each candidate becomes one 64-bit key; a larger key ranks first.
 // The high word is the order-preserving u32 of the score, with -0.0 taken
 // as +0.0 first (the plain version's sort ties them and breaks the tie by
@@ -81,8 +86,9 @@ __host__ __device__ __forceinline__ int slice_len(int n, int g) {
 // One pass: block (q, g) takes keys [g*L, g*L + L) of query q's n (from
 // cs/ci on the first pass, from the previous pass's scratch after) and
 // writes their sorted top-k1: the output on the last pass, else (key,
-// position in cs/ci) pairs at [q, g, :] of a [B, G, k1] scratch.
-template <bool FIRST, bool FINAL>
+// position in cs/ci) pairs at [q, g, :] of a [B, G, k1] scratch. Without
+// IDS there is no ci: a candidate's id is its position in the row.
+template <bool IDS, bool FIRST, bool FINAL>
 __global__ void __launch_bounds__(MC_THREADS)
 merge_candidates_kernel(const float* __restrict__ cs,
                         const int* __restrict__ ci, int m, int vec,
@@ -102,11 +108,13 @@ merge_candidates_kernel(const float* __restrict__ cs,
 
   if (FIRST) {
     const float* s_row = cs + (size_t)q * m + lo;
-    const int* i_row = ci + (size_t)q * m + lo;
+    const int* i_row = IDS ? ci + (size_t)q * m + lo : nullptr;
     if (vec) {
       for (int j = 4 * tid; j < len; j += 4 * MC_THREADS) {
         const float4 s4 = *reinterpret_cast<const float4*>(s_row + j);
-        const int4 i4 = *reinterpret_cast<const int4*>(i_row + j);
+        const int4 i4 = IDS ? *reinterpret_cast<const int4*>(i_row + j)
+                            : make_int4(lo + j, lo + j + 1, lo + j + 2,
+                                        lo + j + 3);
         keys[j] = make_key(s4.x, i4.x);
         keys[j + 1] = make_key(s4.y, i4.y);
         keys[j + 2] = make_key(s4.z, i4.z);
@@ -114,7 +122,7 @@ merge_candidates_kernel(const float* __restrict__ cs,
       }
     } else {
       for (int j = tid; j < len; j += MC_THREADS)
-        keys[j] = make_key(s_row[j], i_row[j]);
+        keys[j] = make_key(s_row[j], IDS ? i_row[j] : lo + j);
     }
   } else {
     const u64* k_row = in_key + (size_t)q * n + lo;
@@ -221,7 +229,7 @@ merge_candidates_kernel(const float* __restrict__ cs,
     if (FINAL) {
       const size_t o = (size_t)q * k1 + j;
       out_s[o] = pos < 0 ? neg_infinity() : cs[(size_t)q * m + pos];
-      out_i[o] = pos < 0 ? EMPTY_ID : ci[(size_t)q * m + pos];
+      out_i[o] = pos < 0 ? EMPTY_ID : IDS ? ci[(size_t)q * m + pos] : pos;
     } else {
       const size_t o = ((size_t)q * G + g) * k1 + j;
       out_key[o] = sh.key[j];
@@ -230,12 +238,12 @@ merge_candidates_kernel(const float* __restrict__ cs,
   }
 }
 
-template <bool FIRST, bool FINAL>
+template <bool IDS, bool FIRST, bool FINAL>
 int launch_pass(const float* cs, const int* ci, int B, int m, int vec,
                 const u64* in_key, const int* in_pos, int n, int g, int k1,
                 float* out_s, int* out_i, u64* out_key, int* out_pos,
                 cudaStream_t stream) {
-  auto kern = merge_candidates_kernel<FIRST, FINAL>;
+  auto kern = merge_candidates_kernel<IDS, FIRST, FINAL>;
   const int L = slice_len(n, g);
   const size_t smem = (size_t)L * sizeof(u64);
   // the default limit (48 KB, static shared memory included) needs no
@@ -251,6 +259,43 @@ int launch_pass(const float* cs, const int* ci, int B, int m, int vec,
   return (int)cudaGetLastError();
 }
 
+// The passes of one merge (without IDS, i is unused: ids are columns).
+template <bool IDS>
+int merge(const float* s, const int* i, int B, int m, int k1, int G,
+          void* scratch, float* os, int* oi, cudaStream_t st) {
+  if (B < 1 || k1 < 1 || k1 > MAX_K1_LONG || m < k1 || G < 1 ||
+      slice_len(m, G) > MC_CAP || (G > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(i) % 16 == 0;
+  if (G == 1)
+    return launch_pass<IDS, true, true>(s, i, B, m, vec, nullptr, nullptr,
+                                        m, 1, k1, os, oi, nullptr, nullptr,
+                                        st);
+  const size_t entries = (size_t)B * G * k1;
+  u64* key[2] = {static_cast<u64*>(scratch),
+                 static_cast<u64*>(scratch) + entries};
+  int* pos[2] = {reinterpret_cast<int*>(key[1] + entries),
+                 reinterpret_cast<int*>(key[1] + entries) + entries};
+  int rc = launch_pass<IDS, true, false>(s, i, B, m, vec, nullptr, nullptr,
+                                         m, G, k1, nullptr, nullptr, key[0],
+                                         pos[0], st);
+  // each later pass reads the previous one's [B, g, k1] survivors
+  for (int level = 1, g = G; rc == 0; ++level) {
+    const int n = g * k1;
+    g = (n + MC_CAP - 1) / MC_CAP;
+    const int in = (level - 1) & 1, out = level & 1;
+    if (g == 1)
+      return launch_pass<IDS, false, true>(s, i, B, m, vec, key[in],
+                                           pos[in], n, 1, k1, os, oi,
+                                           nullptr, nullptr, st);
+    rc = launch_pass<IDS, false, false>(s, i, B, m, vec, key[in], pos[in], n,
+                                        g, k1, nullptr, nullptr, key[out],
+                                        pos[out], st);
+  }
+  return rc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -263,39 +308,21 @@ extern "C" {
 int lt_merge_candidates(const void* cs, const void* ci, int B, int m, int k1,
                         int G, void* scratch, void* out_s, void* out_i,
                         void* stream) {
-  if (B < 1 || k1 < 1 || k1 > MAX_K1_LONG || m < k1 || G < 1 ||
-      slice_len(m, G) > MC_CAP || (G > 1 && scratch == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const float* s = static_cast<const float*>(cs);
-  const int* i = static_cast<const int*>(ci);
-  float* os = static_cast<float*>(out_s);
-  int* oi = static_cast<int*>(out_i);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(cs) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(ci) % 16 == 0;
-  if (G == 1)
-    return launch_pass<true, true>(s, i, B, m, vec, nullptr, nullptr, m, 1,
-                                   k1, os, oi, nullptr, nullptr, st);
-  const size_t entries = (size_t)B * G * k1;
-  u64* key[2] = {static_cast<u64*>(scratch),
-                 static_cast<u64*>(scratch) + entries};
-  int* pos[2] = {reinterpret_cast<int*>(key[1] + entries),
-                 reinterpret_cast<int*>(key[1] + entries) + entries};
-  int rc = launch_pass<true, false>(s, i, B, m, vec, nullptr, nullptr, m, G,
-                                    k1, nullptr, nullptr, key[0], pos[0], st);
-  // each later pass reads the previous one's [B, g, k1] survivors
-  for (int level = 1, g = G; rc == 0; ++level) {
-    const int n = g * k1;
-    g = (n + MC_CAP - 1) / MC_CAP;
-    const int in = (level - 1) & 1, out = level & 1;
-    if (g == 1)
-      return launch_pass<false, true>(s, i, B, m, vec, key[in], pos[in], n,
-                                      1, k1, os, oi, nullptr, nullptr, st);
-    rc = launch_pass<false, false>(s, i, B, m, vec, key[in], pos[in], n, g,
-                                   k1, nullptr, nullptr, key[out], pos[out],
-                                   st);
-  }
-  return rc;
+  if (ci == nullptr) return (int)cudaErrorInvalidValue;
+  return merge<true>(static_cast<const float*>(cs),
+                     static_cast<const int*>(ci), B, m, k1, G, scratch,
+                     static_cast<float*>(out_s), static_cast<int*>(out_i),
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same over cs [B, m] alone: candidate j of a row has id j.
+int lt_merge_positions(const void* cs, int B, int m, int k1, int G,
+                       void* scratch, void* out_s, void* out_i,
+                       void* stream) {
+  return merge<false>(static_cast<const float*>(cs), nullptr, B, m, k1, G,
+                      scratch, static_cast<float*>(out_s),
+                      static_cast<int*>(out_i),
+                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -24,8 +24,13 @@ rescore) by default, the bf16 scan (`"pallas"`, kernel A + B + exact
 rescore) when int8 is opted out or its shadow does not fit, and the plain
 exact scan (`"flat"`) above k = 64 and on the CPU. A forced `"refined"`
 is the widened bf16 scan with an exact rescore (`scan_topk.refined_topk`,
-kernel A + B). PQ, sharded and the rank columns are not ported yet; they
-raise `NotImplementedError` naming their ROADMAP item.
+kernel A + B). PQ and sharded are not ported yet; they raise
+`NotImplementedError` naming their ROADMAP item.
+
+`device_rank_columns(graph)` keeps the deep path's per-row columns (graph
+node id, content quality, CALLS degree) on the store's device with a host
+node -> rows CSR; every mutation and `_reset_views` marks them dirty, and
+they rebuild on the next call or when `graph.generation` moves.
 
 Every store lives on the device it is given, `"cuda"` by default; without
 CUDA that default raises rather than landing on the CPU (the CPU is asked
@@ -34,6 +39,7 @@ for by name, as the tests do).
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -45,8 +51,10 @@ import numpy as np
 import torch
 
 from lattice_tpu_torch.core.errors import VectorStoreError
+from lattice_tpu_torch.core.types import EdgeType
 from lattice_tpu_torch.ops import scan_topk as scan_ops
 from lattice_tpu_torch.ops import topk as topk_ops
+from lattice_tpu_torch.ops.graph_kernels import csr_expand
 
 # every method string _plan_search_impl accepts; surfaces (HTTP, MCP)
 # validate requests against this before minting per-config serving state
@@ -68,6 +76,25 @@ _NOT_PORTED = {
 # the plans served by the widened bf16 scan (kernel A + B + exact rescore)
 _BF16_SCANS = {"pallas": scan_ops.binned_topk,
                "refined": scan_ops.refined_topk}
+
+
+@dataclasses.dataclass(frozen=True)
+class RankColumns:
+    """Resident ranking columns (see `ChunkStore.device_rank_columns`)."""
+
+    node_ids: torch.Tensor       # [cap] i32 graph node id per row (-1)
+    quality: torch.Tensor        # [cap] f32 content-quality heuristic
+    degree: torch.Tensor         # [cap] i32 CALLS degree centrality
+    node_row_indptr: np.ndarray  # [n_nodes+1] host CSR: node -> rows
+    node_row_indices: np.ndarray
+    generation: int              # graph finalize generation it was built at
+
+    def rows_for_nodes(self, node_ids: np.ndarray, *value_arrays
+                       ) -> tuple[np.ndarray, ...]:
+        """Vectorized node->rows expansion; each aligned per-node value
+        array comes back repeated per row."""
+        return csr_expand(self.node_row_indptr, self.node_row_indices,
+                          node_ids, *value_arrays)
 
 
 def _not_ported(what: str, plan: str) -> NotImplementedError:
@@ -249,6 +276,8 @@ class ChunkStore:
         self._quant_dirty = True
         self._int4 = None          # packed-int4 shadow (4x capacity tier)
         self._int4_dirty = True
+        self._rank_cols = None     # the deep path's resident columns
+        self._rank_cols_dirty = True
         self._lex_tokens = None    # name-token inverted index, lazy
         # (None = build on next lexical_candidates). Once built, add/
         # remove maintain it incrementally like _inverted; only row-id
@@ -407,8 +436,10 @@ class ChunkStore:
         (`_fused_delta_apply`), NOT the stored bf16 rows: after a delta the
         shadow holds rows of both histories, bit for bit as in JAX. Rows
         past a shadow (the store grew) mark it dirty for a full rebuild.
-        Removals leave the shadows' values stale but masked by `valid`."""
+        Removals leave the shadows' values stale but masked by `valid`.
+        The rank columns are marked for a rebuild either way."""
         n = len(rows)
+        self._rank_cols_dirty = True
         if (self._ivf is not None and not self._ivf_dirty
                 and self._ivf.hollow):
             # the refusal verdict stands until 20% churn re-measures it
@@ -546,7 +577,7 @@ class ChunkStore:
 
     def _reset_views(self) -> None:
         """Drop the derived serving views (IVF, the int8 and int4
-        shadows); the next search rebuilds them lazily."""
+        shadows, the rank columns); the next use rebuilds them lazily."""
         with self._serve_lock:  # a build mid-flight finishes first
             self._ivf = None
             self._ivf_dirty = True
@@ -555,6 +586,8 @@ class ChunkStore:
             self._quant_dirty = True
             self._int4 = None
             self._int4_dirty = True
+            self._rank_cols = None
+            self._rank_cols_dirty = True
 
     def clear(self) -> None:
         self._valid.zero_()
@@ -567,10 +600,60 @@ class ChunkStore:
         self._lex_tokens = None
         self._reset_views()
 
-    def device_rank_columns(self, graph):
-        raise NotImplementedError(
-            "device_rank_columns is not ported to lattice_tpu_torch yet "
-            "(ROADMAP queue 1, ops/ranking.py with the deep path)")
+    def device_rank_columns(self, graph) -> RankColumns:
+        """Resident per-row ranking columns + the node->rows join map.
+
+        The row->node join (the `graph_node_id` payload key), the
+        content-length quality heuristic (`query/ranking/scorer.py`) and
+        the CALLS degree centrality are per-row constants between
+        mutations; held on the store's device, they let the hybrid fuse
+        run per query with only the sparse reach set crossing to the card.
+        The host reverse CSR (node id -> row ids) expands BFS reach sets to
+        rows with vectorized NumPy. Rebuilt after store mutations or a
+        graph re-finalize (tracked by `graph.generation`)."""
+        graph._ensure_final()
+        gen = getattr(graph, "generation", 0)
+        with self._serve_lock:
+            return self._rank_cols_locked(graph, gen)
+
+    def _rank_cols_locked(self, graph, gen: int) -> RankColumns:
+        cached = self._rank_cols
+        if (cached is None or self._rank_cols_dirty
+                or cached.generation != gen):
+            node_ids = np.full(self._cap, -1, dtype=np.int32)
+            quality = np.zeros(self._cap, dtype=np.float32)
+            for row, payload in enumerate(self._payloads):
+                if payload is None:
+                    continue
+                qn = payload.get("graph_node_id")
+                if qn:
+                    nid = graph.id_of(qn)
+                    if nid is not None:
+                        node_ids[row] = nid
+                n = len(payload.get("content") or "")
+                quality[row] = 1.0 if 80 <= n <= 4000 else (0.5 if n else 0.0)
+            # degree centrality as a ROW column (static per generation)
+            deg_nodes = graph.degree_vector(EdgeType.CALLS)
+            has = node_ids >= 0
+            degree = np.zeros(self._cap, dtype=np.int32)
+            degree[has] = deg_nodes[node_ids[has]]
+            # reverse CSR: node id -> rows (multi-row nodes = _part{n})
+            n_nodes = graph.n_nodes()
+            counts = np.zeros(n_nodes + 1, dtype=np.int64)
+            np.add.at(counts, node_ids[has] + 1, 1)
+            indptr = np.cumsum(counts)
+            order = np.argsort(node_ids[has], kind="stable")
+            indices = np.flatnonzero(has)[order].astype(np.int32)
+            self._rank_cols = RankColumns(
+                node_ids=torch.from_numpy(node_ids).to(self.device),
+                quality=torch.from_numpy(quality).to(self.device),
+                degree=torch.from_numpy(degree).to(self.device),
+                node_row_indptr=indptr,
+                node_row_indices=indices,
+                generation=gen,
+            )
+            self._rank_cols_dirty = False
+        return self._rank_cols
 
     # ---- filters -------------------------------------------------------
 

@@ -1,19 +1,23 @@
 """In-process code knowledge graph: node table + per-edge-type COO/CSR.
 
-The host half of `lattice_tpu/index/graph_store.py`, copied: the node
-table (qualified name <-> dense id, entity-type code, file id, lines,
-names), the per-`EdgeType` edge lists that `finalize()` turns into sorted
-COO + CSR (host NumPy), the host traversals (the C++ bounded BFS of
-`utils/native.py`, else the NumPy CSR walk over `csr_expand`, copied here
-from `lattice_tpu/ops/graph_kernels.py`), paths, search helpers and
-stats. Incremental updates: `remove_file_nodes` tombstones a file's nodes
-and drops their edges; `finalize()` rebuilds the CSR arrays.
+Port of `lattice_tpu/index/graph_store.py`: the node table (qualified
+name <-> dense id, entity-type code, file id, lines, names), the
+per-`EdgeType` edge lists that `finalize()` turns into sorted COO + CSR
+(host NumPy), the host traversals (the C++ bounded BFS of
+`utils/native.py`, else the NumPy CSR walk over `ops/graph_kernels.
+csr_expand`), paths, search helpers and stats. Incremental updates:
+`remove_file_nodes` tombstones a file's nodes and drops their edges;
+`finalize()` rebuilds the CSR arrays.
 
-The device methods (`to_sharded`, `device_edges`, `device_alive`,
-`device_degree`, `k_hop(device=True)` and `k_hop_batch`'s device branch)
-are ROADMAP queue 1, item 10: each raises `NotImplementedError` naming
-it. `LATTICE_SHARDED=1` with more than one CUDA device raises too, as the
-port's `ChunkStore` plan does.
+The device methods (`device_edges`, `device_alive`, `device_degree`,
+`k_hop(device=True)` and `k_hop_batch`'s device branch, over the frontier
+ops of `ops/graph_kernels.py`) run on the store's device, `"cuda"` by
+default, or on the one the caller names. The store builds and walks its
+graph on the host without touching that device; the first device method
+resolves it, and `"cuda"` without CUDA raises there rather than landing
+on the CPU. Device tensors are cached per `finalize` generation.
+`to_sharded` and `LATTICE_SHARDED=1` with more than one CUDA device raise
+`NotImplementedError` (ROADMAP queue 1, item 11: the sharded graph).
 """
 
 from __future__ import annotations
@@ -26,34 +30,17 @@ import torch
 
 from lattice_tpu_torch.core.errors import GraphError
 from lattice_tpu_torch.core.types import EdgeType, EntityType
+from lattice_tpu_torch.ops import graph_kernels as gk
+from lattice_tpu_torch.ops.graph_kernels import csr_expand
 
 
-def _device_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to lattice_tpu_torch yet (ROADMAP queue 1, "
-        "item 10: the graph device paths)")
-
-
-def csr_expand(indptr: np.ndarray, indices: np.ndarray, ids: np.ndarray,
-               *values: np.ndarray) -> tuple[np.ndarray, ...]:
-    """Vectorized CSR adjacency expansion on the host (a copy of
-    `lattice_tpu/ops/graph_kernels.py:csr_expand`).
-
-    Gathers `indices[indptr[i]:indptr[i+1]]` for every i in `ids` with
-    three NumPy primitives (repeat/arange/fancy-index) — no Python loop
-    over rows. Aligned per-id `values` come back repeated per expanded
-    entry."""
-    ids = np.asarray(ids, dtype=np.int64)
-    starts = indptr[ids]
-    degs = (indptr[ids + 1] - starts).astype(np.int64)
-    total = int(degs.sum())
-    if total == 0:
-        return (np.empty(0, indices.dtype),
-                *(np.empty(0, v.dtype) for v in values))
-    offs = np.arange(total, dtype=np.int64) - np.repeat(
-        np.cumsum(degs) - degs, degs)
-    out = indices[np.repeat(starts, degs) + offs]
-    return (out, *(np.repeat(v, degs) for v in values))
+def _device(device: str | torch.device) -> torch.device:
+    """A graph device, exactly as asked: "cuda" on a machine without CUDA
+    raises rather than landing on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise GraphError(f"device {dev} requested but CUDA is not available")
+    return dev
 
 
 @dataclass(slots=True)
@@ -84,7 +71,8 @@ class _EdgeSet:
 
 
 class GraphStore:
-    def __init__(self) -> None:
+    def __init__(self, device: str | torch.device = "cuda") -> None:
+        self.device = device       # of the device methods; resolved there
         self._ids: dict[str, int] = {}
         self._qns: list[str] = []
         self._names: list[str] = []
@@ -264,9 +252,8 @@ class GraphStore:
             es.rev_indptr = np.zeros(n + 1, dtype=np.int64)
             np.add.at(es.rev_indptr, es.rev_src + 1, 1)
             np.cumsum(es.rev_indptr, out=es.rev_indptr)
-        self._sharded_graphs = {}   # multi-chip views rebuild on next use
-        self._device_edges = {}     # HBM-resident edge arrays rebuild too
-        self._device_alive = None
+        # device tensors (edges, liveness, degree) rebuild on next use
+        self._device_edges = {}
         self._alive_np = None
         self.generation += 1
         self._finalized = True
@@ -436,18 +423,48 @@ class GraphStore:
     def to_sharded(self, edge_type: EdgeType, mesh=None):
         """Edge-partitioned multi-device view (reference:
         `parallel/sharded_graph.py`); not ported."""
-        raise _device_not_ported("GraphStore.to_sharded")
+        raise NotImplementedError(
+            "GraphStore.to_sharded is not ported to lattice_tpu_torch yet "
+            "(ROADMAP queue 1, item 11: the sharded graph)")
 
-    def device_edges(self, edge_type: EdgeType, reverse: bool = False):
-        """Device-resident padded (src, dst) arrays; not ported."""
-        raise _device_not_ported("GraphStore.device_edges")
+    def _graph_device(self, device=None) -> torch.device:
+        return _device(self.device if device is None else device)
 
-    def device_alive(self):
-        """Device liveness mask; not ported."""
-        raise _device_not_ported("GraphStore.device_alive")
+    def device_edges(self, edge_type: EdgeType, reverse: bool = False,
+                     device=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device-resident padded (src, dst) int32 edge tensors of one edge
+        type, on the store's device or `device`. Built once per `finalize`
+        generation and cached, so traversals never pay an O(E) upload per
+        call; edge counts pad to geometric buckets with (0, 0) self-loops
+        (`gk.pad_edges`)."""
+        self._ensure_final()
+        dev = self._graph_device(device)
+        cache = self._device_edges
+        ent = cache.get((edge_type, reverse, dev))
+        if ent is None:
+            src, dst = self.edges(edge_type, reverse=reverse)
+            psrc, pdst = gk.pad_edges(src, dst, geometric=True)
+            ent = (torch.from_numpy(psrc).to(dev),
+                   torch.from_numpy(pdst).to(dev))
+            cache[(edge_type, reverse, dev)] = ent
+        return ent
+
+    def device_alive(self, device=None) -> torch.Tensor:
+        """[n_padded] bool liveness mask on the device, cached per finalize
+        generation (tombstoned nodes must not surface from device
+        traversals)."""
+        self._ensure_final()
+        dev = self._graph_device(device)
+        cache = self._device_edges
+        alive = cache.get(("alive", dev))
+        if alive is None:
+            host = np.zeros(self._n_padded(), dtype=bool)
+            host[:self.n_nodes()] = self._alive
+            alive = cache[("alive", dev)] = torch.from_numpy(host).to(dev)
+        return alive
 
     def _n_padded(self) -> int:
-        raise _device_not_ported("GraphStore._n_padded")
+        return gk.geometric_bucket(self.n_nodes())
 
     def degree_vector(self, edge_type: EdgeType) -> np.ndarray:
         """[n_nodes] i32 total (in+out) degree — the centrality signal of
@@ -456,9 +473,19 @@ class GraphStore:
         es = self._edges[edge_type]
         return (np.diff(es.indptr) + np.diff(es.rev_indptr)).astype(np.int32)
 
-    def device_degree(self, edge_type: EdgeType):
-        """degree_vector as a device column; not ported."""
-        raise _device_not_ported("GraphStore.device_degree")
+    def device_degree(self, edge_type: EdgeType, device=None) -> torch.Tensor:
+        """[n_padded] int32 degree_vector on the device, cached per finalize
+        generation (a device column for the fused hybrid rank)."""
+        self._ensure_final()
+        dev = self._graph_device(device)
+        cache = self._device_edges
+        ent = cache.get(("degree", edge_type, dev))
+        if ent is None:
+            deg = np.zeros(self._n_padded(), dtype=np.int32)
+            deg[:self.n_nodes()] = self.degree_vector(edge_type)
+            ent = cache[("degree", edge_type, dev)] = \
+                torch.from_numpy(deg).to(dev)
+        return ent
 
     def k_hop(self, node_ids: list[int], edge_type: EdgeType, hops: int,
               reverse: bool = False, device: bool | None = None,
@@ -503,7 +530,26 @@ class GraphStore:
     def _k_hop_device(self, node_ids: list[int], edge_type: EdgeType,
                       hops: int, reverse: bool, limit: int | None = None
                       ) -> dict[int, int]:
-        raise _device_not_ported("GraphStore.k_hop(device=True)")
+        n_pad = self._n_padded()
+        psrc, pdst = self.device_edges(edge_type, reverse=reverse)
+        alive = self.device_alive()
+        # seeds scatter on the device: the upload is O(seeds), not O(N)
+        ids = torch.as_tensor(np.asarray(node_ids, dtype=np.int32),
+                              device=psrc.device)
+        if limit and limit > 0:
+            # one selection on the device and an O(limit) readback; exact,
+            # so the `limit` shallowest (depth, id) pairs come back as they
+            # are (the reference widened 4x for approx_min_k)
+            d, idx = gk.khop_bounded(psrc, pdst, ids, alive, n_pad, hops,
+                                     min(limit, n_pad))
+            d, idx = d.cpu().numpy(), idx.cpu().numpy()
+            keep = d < int(gk.UNREACHED)
+            return {int(v): int(dd) for dd, v in zip(d[keep], idx[keep])}
+        seeds = gk._seed_rows(ids[None, :], n_pad)[:, 0]
+        dist = gk.bfs_distances(psrc, pdst, seeds, n_pad,
+                                hops).cpu().numpy()[:self.n_nodes()]
+        reached = np.flatnonzero((dist > 0) & (dist < gk.UNREACHED))
+        return {int(v): int(dist[v]) for v in reached if self._alive[v]}
 
     def k_hop_batch(self, seed_sets: list[list[int]], edge_type: EdgeType,
                     hops: int, reverse: bool = False, limit: int = 50,
@@ -519,7 +565,11 @@ class GraphStore:
         of the graph (closures from hub seeds), where the host walk's
         O(touched) approaches O(E) anyway. Reference semantics: one Bolt
         round-trip per traversal (`graph_reasoning/engine.py:86-122`).
-        The device branch is not ported and raises."""
+
+        The device branch selects each query's `limit` shallowest nodes
+        exactly (kernel B on the card); `limit<=0` is unbounded and asks
+        for every padded node, past kernel B's 512, so that selection is
+        `stable_topk` (`gk.khop_select`, by shape alone)."""
         self._ensure_final()
         if not seed_sets:
             return []
@@ -541,7 +591,24 @@ class GraphStore:
                                 for ids, depths in res]
             return [self.k_hop(s, edge_type, hops, reverse=reverse,
                                limit=limit) for s in seed_sets]
-        raise _device_not_ported("GraphStore.k_hop_batch(device=True)")
+        n_pad = self._n_padded()
+        psrc, pdst = self.device_edges(edge_type, reverse=reverse)
+        alive = self.device_alive()
+        s_max = max(len(s) for s in seed_sets)
+        seed_arr = np.full((len(seed_sets), s_max), -1, dtype=np.int32)
+        for i, s in enumerate(seed_sets):
+            seed_arr[i, :len(s)] = s
+        cap = n_pad if limit <= 0 else min(limit, n_pad)
+        d, idx = gk.khop_batch_bounded(
+            psrc, pdst, torch.from_numpy(seed_arr).to(psrc.device), alive,
+            n_pad, hops, cap)
+        d, idx = d.cpu().numpy(), idx.cpu().numpy()
+        out = []
+        for i in range(len(seed_sets)):
+            keep = d[i] < int(gk.UNREACHED)
+            out.append({int(v): int(dd)
+                        for dd, v in zip(d[i][keep], idx[i][keep])})
+        return out
 
     def degree(self, node_ids: list[int], edge_type: EdgeType) -> list[tuple[int, int]]:
         """[(out_degree, in_degree)] — `GET_ENTITY_CENTRALITY` (`queries.py:314-329`)."""

@@ -52,6 +52,7 @@ _ENTRIES: dict[str, tuple] = {
     "lt_scan_topk_int8_scalar": (_P,) * 5 + (_I,) * 8 + (_P, _P, _P),
     "lt_scan_topk_int4": (_P,) * 5 + (_I,) * 8 + (_P, _P, _P),
     "lt_merge_candidates": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "lt_merge_positions": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "lt_ivf_probe_bf16": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
     "lt_ivf_probe_f32": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
     "lt_paired_attention_bf16": (_P,) * 4 + (_I,) * 3 + (_F, _P, _P),

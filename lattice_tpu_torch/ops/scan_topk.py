@@ -14,7 +14,11 @@ Port of `lattice_tpu/ops/pallas_topk.py`. Four hand-written CUDA kernels
   (`lt_scan_topk_f32`). The shape alone picks the route (`bf16_route`).
 - `merge_candidates` (kernel B, `csrc/merge_candidates.cu`) replaces the
   `approx_max_k` finish of `_binned_candidates` (:525): the exact top-k1
-  over the per-block lists, by a block-wide radix select.
+  over the per-block lists, by a block-wide radix select. Its positional
+  entry (`merge_positions`, ids = columns) is the exact top-k over whole
+  score rows (`topk_rows`): the deep path's fused [Q, N] rows and the
+  negated BFS distances of `graph_kernels.khop_select`, where the
+  reference finished `approx_max_k` / `approx_min_k` the same way.
 - `scan_topk_int8` (kernel C) replaces `_binned_kernel_int8` (:466) via
   `binned_topk_int8` (:720): the i8·i8 -> i32 dot, times the query and
   row scales, masked, selected like kernel A and finished by kernel B.
@@ -280,6 +284,50 @@ def merge_candidates(cand_s: torch.Tensor, cand_i: torch.Tensor, k1: int
             k1, g, 0 if scratch is None else scratch.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(), _stream(device))
     return out_s, out_i
+
+
+def merge_positions(scores: torch.Tensor, k1: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B over whole score rows: sorted top-k1 ([B, k1] f32, [B, k1]
+    i32) of [B, m] scores whose ids are their columns, by (score desc,
+    column asc); `lt_merge_positions`, which reads no id tensor. Its plain
+    version is `stable_topk`, which is `merge_candidates_plain` with the
+    ids `arange(m)`."""
+    if _on_cpu(scores):
+        return stable_topk(scores, k1)
+    _check(scores, "scores", torch.float32, 2)
+    b, m = scores.shape
+    if not 1 <= k1 <= min(m, MAX_K1_LONG):
+        raise KernelError(f"merge_positions: k1={k1}, shape "
+                          f"{tuple(scores.shape)}")
+    device = scores.device
+    out_s, out_i = _empty_lists(b, k1, device)
+    if b == 0:
+        return out_s, out_i
+    g = merge_splits(b, m, k1, _sm_count(device))
+    scratch = (torch.empty(2 * b * g * k1 * 3, dtype=torch.int32,
+                           device=device) if g > 1 else None)
+    with torch.cuda.device(device):
+        MERGE_CANDIDATES.launch(
+            "lt_merge_positions", scores.data_ptr(), b, m, k1, g,
+            0 if scratch is None else scratch.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), _stream(device))
+    return out_s, out_i
+
+
+def topk_rows(scores: torch.Tensor, k: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact sorted top-k along the last axis of [m] or [B, m] f32 scores,
+    ties to the lower column, ids int32. The shape alone picks the route:
+    kernel B (`merge_positions`) for 1 <= k <= `MAX_K1_LONG`, the longest
+    list it keeps; `stable_topk` above that, on any device (the unbounded
+    `k_hop_batch(device=True, limit<=0)` asks for every padded node)."""
+    k = min(k, scores.shape[-1])
+    if not 1 <= k <= MAX_K1_LONG:
+        return stable_topk(scores, k)
+    rows = scores.reshape(-1, scores.shape[-1]).contiguous()
+    s, i = merge_positions(rows, k)
+    return s.reshape(*scores.shape[:-1], k), i.reshape(*scores.shape[:-1], k)
 
 
 # ---- plain versions of kernels A and C --------------------------------------

@@ -11,7 +11,8 @@ tolerance. The differences from the reference:
 - placement is explicit: `PipelineOrchestrator(..., device="cuda")`
   (and `run_indexing`, which passes its keywords on) builds its
   `VectorIndexer` there, and the default "cuda" raises without CUDA like
-  every entry point of the port. The store dtype keeps the reference's rule (`index_dtype` unless
+  every entry point of the port; its `GraphStore`'s device methods run
+  there too. The store dtype keeps the reference's rule (`index_dtype` unless
   `settings.device.platform == "cpu"`, then float32).
 - `metadata/` is not ported (ROADMAP queue 1, item 6): with
   `settings.metadata.enabled` and no generator given, the constructor
@@ -38,6 +39,7 @@ from lattice_tpu_torch.embeddings.chunker import CodeChunker
 from lattice_tpu_torch.embeddings.embedder import Embedder
 from lattice_tpu_torch.embeddings.indexer import VectorIndexer
 from lattice_tpu_torch.graph.builder import GraphBuilder
+from lattice_tpu_torch.index.graph_store import GraphStore
 from lattice_tpu_torch.parsing.models import FileInfo, ParsedFile
 from lattice_tpu_torch.parsing.parser import CodeParser
 from lattice_tpu_torch.parsing.scanner import FileScanner
@@ -98,7 +100,8 @@ class PipelineOrchestrator:
             settings=settings,
             scanner=FileScanner(repo_path, settings.files),
             parser=CodeParser(),
-            graph_builder=graph_builder or GraphBuilder(),
+            graph_builder=graph_builder or GraphBuilder(
+                GraphStore(device=device)),
             indexer=indexer or VectorIndexer(
                 embedder, CodeChunker(settings.indexing),
                 dtype=settings.device.index_dtype

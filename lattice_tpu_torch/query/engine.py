@@ -20,16 +20,21 @@ degradation above covers host failures only: a kernel that fails to build
 or launch, the card out of memory, or a path that is not ported raises
 (`_DEVICE_ERRORS`). `deep_search` serves stores below
 `DEEP_DEVICE_THRESHOLD` rows through its host branch and
-`ops/ranking.fused_rank` on the store's device; the resident-column
-branch above it, `deep_search_batch`'s batched branch and their evidence
-helpers raise `NotImplementedError` (ROADMAP queue 1, item 5), and the
-sharded branch raises through `GraphStore._want_sharded` (item 11).
+`ops/ranking.fused_rank` on the store's device; at or above it, the
+device branch: a budgeted host CSR walk, expanded to rows through the
+store's resident rank columns, packed (`pack_reach`) and fused with the
+f32 query's cosine of every row on the store's device
+(`hybrid_rank_device_packed`); `deep_search_batch` runs Q queries through
+`hybrid_rank_device_packed_batch`, `DEEP_BATCH_CHUNK` at a time. The
+sharded branch raises through `GraphStore._want_sharded` (ROADMAP queue 1,
+item 11).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -38,20 +43,28 @@ import torch
 
 from lattice_tpu_torch.config.settings import QuerySettings
 from lattice_tpu_torch.core.errors import KernelError
-from lattice_tpu_torch.core.types import ResultSource
+from lattice_tpu_torch.core.types import EdgeType, ResultSource
 from lattice_tpu_torch.embeddings.indexer import VectorIndexer, VectorSearcher
 from lattice_tpu_torch.index.chunk_store import query_token_set
 from lattice_tpu_torch.index.graph_store import GraphStore
 from lattice_tpu_torch.ops import topk as topk_ops
 from lattice_tpu_torch.ops.graph_kernels import UNREACHED
-from lattice_tpu_torch.ops.ranking import (NEG_INF, FuseWeights, fused_rank,
-                                           pack_weights)
+from lattice_tpu_torch.ops.ranking import (
+    NEG_INF,
+    FuseWeights,
+    fused_rank,
+    hybrid_rank_device_packed,
+    hybrid_rank_device_packed_batch,
+    pack_reach,
+    pack_weights,
+)
 from lattice_tpu_torch.query.context.builder import ContextBuilder
 from lattice_tpu_torch.query.context.models import EnrichedContext
 from lattice_tpu_torch.query.graph_reasoning.engine import GraphReasoningEngine
 from lattice_tpu_torch.query.graph_reasoning.models import GraphContext
 from lattice_tpu_torch.query.query_planner import (
     SUMMARY_INTENTS,
+    QueryIntent,
     QueryPlan,
     QueryPlanner,
 )
@@ -60,6 +73,7 @@ from lattice_tpu_torch.query.ranking.ranker import HybridRanker
 from lattice_tpu_torch.query.ranking.scorer import (
     _DEFAULT_RELEVANCE,
     _RELATIONSHIP_RELEVANCE,
+    DEEP_CALLS_DEMOTE_INTENTS,
     SUBJECT_DEMOTE_INTENTS,
     SUBJECT_EXACT_CAP,
 )
@@ -74,12 +88,6 @@ logger = logging.getLogger(__name__)
 # re-raise them rather than answer with an empty side.
 _DEVICE_ERRORS = (KernelError, torch.cuda.OutOfMemoryError,
                   NotImplementedError)
-
-
-def _deep_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to lattice_tpu_torch yet (ROADMAP queue 1, "
-        "item 5: the device deep path)")
 
 
 def _weights_tuple(cfg, plan):
@@ -267,7 +275,7 @@ class QueryEngine:
         once, the six [N] fuse columns are built there (as the
         reference does), and `fused_rank` runs on the store's device.
         Stores of `DEEP_DEVICE_THRESHOLD` rows or more take the
-        resident-column path, which is ROADMAP queue 1, item 5.
+        resident-column path (`_deep_search_device`).
         """
         limit = limit or self.settings.search_limit
         plan = self.planner.plan_heuristic(query_text)
@@ -399,8 +407,16 @@ class QueryEngine:
         )
 
     # rows above which the host payload walk is replaced by the
-    # device-resident join (ops/ranking.fused_rank_rows)
+    # device-resident join (ops/ranking.hybrid_rank_device_packed)
     DEEP_DEVICE_THRESHOLD = 100_000
+
+    # max queries per batched rank: bounds its [Q, N] f32 score slab
+    # (128 * 1M rows * 4 B = 512 MB)
+    DEEP_BATCH_CHUNK = 128
+    # reference traversal cap (`graph_reasoning/models.py:5`); the batch
+    # path precomputes walks at this depth for _deep_evidence to consume,
+    # so both MUST read the same constant
+    DEEP_HOPS = 5
 
     def _sharded_deep_enabled(self) -> bool:
         """Deep rank over several cards: same opt-in convention as the
@@ -409,22 +425,70 @@ class QueryEngine:
         ROADMAP queue 1, item 11)."""
         return self.graph_store._want_sharded()
 
+    def _pack_deep_evidence(self, evs: list[dict]):
+        """Stack per-query evidence into padded [Q, R] / [Q, M] arrays (-1
+        pads, masked inside the fuse): R and M are the longest reach and
+        match lists of the batch. Shared by the single-query device path
+        (Q=1, row 0) and `deep_search_batch`, so the packed-reach format
+        has exactly one producer."""
+        r_cap = max(max(len(e["r_rows"]) for e in evs), 1)
+        packed_b = np.stack([
+            pack_reach(e["r_rows"], e["r_depths"], e["r_cls"], r_cap)
+            for e in evs])
+        m_cap = max(max(len(e["match_rows"]) for e in evs), 1)
+        match_b = np.full((len(evs), m_cap), -1, np.int32)
+        for i, e in enumerate(evs):
+            match_b[i, :len(e["match_rows"])] = e["match_rows"]
+        return packed_b, match_b
+
     def _deep_search_device(self, query_text: str, plan, limit: int
                             ) -> QueryResult:
-        """Corpus-scale hybrid rank: sparse host BFS + a device fuse over
-        the store's resident rank columns. It needs
-        `ChunkStore.device_rank_columns` and
-        `ops/ranking.hybrid_rank_device_packed`, which are not ported."""
+        """Corpus-scale hybrid rank: sparse host BFS + device fuse.
+
+        plan -> budgeted host CSR walk (both directions; O(edges touched))
+        -> node -> row expansion through the store's resident rank
+        columns -> the f32 query's cosine of every row, the packed reach
+        scattered to rows, fuse and selection on the store's device (the
+        reference's semantics `query/engine.py:102-220` with the ranker
+        formulas of `ranking/scorer.py:9-126`). Host work per query is
+        O(seeds + reached + k), never O(corpus)."""
         self._sharded_deep_enabled()
-        raise _deep_not_ported("QueryEngine._deep_search_device")
+        t0 = time.perf_counter()
+        store = self.indexer.code
+        ev = self._deep_evidence(plan)
+        cols = ev["cols"]
+        packed_b, match_b = self._pack_deep_evidence([ev])
+        qvec = np.asarray(
+            self.vector_searcher.embedder.embed(query_text),
+            dtype=np.float32)
+        w_np = pack_weights(FuseWeights(
+            *_weights_tuple(self.ranker.config, plan)))
+        emb, valid = store.device_arrays
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a).to(emb.device)
+
+        scores, rows = hybrid_rank_device_packed(
+            put(qvec), emb, valid, put(packed_b[0]), put(ev["rel_table"]),
+            put(match_b[0]), cols.degree, cols.quality, put(w_np), limit)
+        scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
+        elapsed_ms = (time.perf_counter() - t0) * 1000
+        results = self._deep_results(scores, rows, ev["reach_set"])
+        return QueryResult(
+            query=query_text, answer="", results=results, query_plan=plan,
+            graph_context=self._deep_context(plan, ev),
+            phase_times_ms={"deep_fuse_ms": elapsed_ms},
+        )
 
     def deep_search_batch(self, query_texts: list[str],
                           limit: int | None = None) -> list[QueryResult]:
         """Corpus-wide hybrid ranking for many queries. Below
         `DEEP_DEVICE_THRESHOLD` rows (or for one query) it runs
-        `deep_search` per query, as the reference does; the batched
-        device branch above it (`hybrid_rank_device_packed_batch`) is
-        not ported."""
+        `deep_search` per query. Above it, the per-query evidence (budgeted
+        walks, entity matches, per-intent weights and relevance tables)
+        stacks to [Q, ...] arrays and goes to the store's device once a
+        chunk of `DEEP_BATCH_CHUNK` queries, which the batched rank scores
+        as one [Q, N] slab (`hybrid_rank_device_packed_batch`)."""
         if not query_texts:
             return []
         limit = limit or self.settings.search_limit
@@ -433,23 +497,261 @@ class QueryEngine:
                 or store.capacity < self.DEEP_DEVICE_THRESHOLD):
             return [self.deep_search(t, limit) for t in query_texts]
         self._sharded_deep_enabled()
-        raise _deep_not_ported("QueryEngine.deep_search_batch's batched "
-                               "branch")
+        t0 = time.perf_counter()
+        plans = [self.planner.plan_heuristic(t) for t in query_texts]
+        evs = self._deep_evidence_batch(plans)
+        # one embedding call for all queries
+        qvecs = np.asarray(
+            self.vector_searcher.embedder.embed_batch(query_texts),
+            dtype=np.float32)
+        # mixed intents ride per-query weight/relevance tables
+        w_b = np.stack([
+            pack_weights(FuseWeights(
+                *_weights_tuple(self.ranker.config, p))) for p in plans])
+        rel_b = np.stack([e["rel_table"] for e in evs])
+        emb, valid = store.device_arrays
+        cols = evs[0]["cols"]
 
-    # the device branch's evidence: seeds, budgeted reach expanded to rows
-    # through the store's resident rank columns, packed for the fuse
-    # (reference `engine.py:384-408, 557-734`)
-    def _deep_seeds(self, plan) -> list[int]:
-        raise _deep_not_ported("QueryEngine._deep_seeds")
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(emb.device)
 
-    def _deep_evidence(self, plan, walks=None, seeds=None) -> dict:
-        raise _deep_not_ported("QueryEngine._deep_evidence")
+        scores_parts: list[np.ndarray] = []
+        rows_parts: list[np.ndarray] = []
+        for lo in range(0, len(evs), self.DEEP_BATCH_CHUNK):
+            sl = slice(lo, lo + self.DEEP_BATCH_CHUNK)
+            packed_b, match_b = self._pack_deep_evidence(evs[sl])
+            sc, rw = hybrid_rank_device_packed_batch(
+                put(qvecs[sl]), emb, valid, put(packed_b), put(rel_b[sl]),
+                put(match_b), cols.degree, cols.quality, put(w_b[sl]), limit)
+            scores_parts.append(sc.cpu().numpy())
+            rows_parts.append(rw.cpu().numpy())
+        scores_b = np.concatenate(scores_parts)
+        rows_b = np.concatenate(rows_parts)
+        per_q_ms = (time.perf_counter() - t0) * 1000 / len(plans)
+        out = []
+        for text, plan, e, sc, rw in zip(query_texts, plans, evs,
+                                         scores_b, rows_b):
+            out.append(QueryResult(
+                query=text, answer="",
+                results=self._deep_results(sc, rw, e["reach_set"]),
+                query_plan=plan, graph_context=self._deep_context(plan, e),
+                phase_times_ms={"deep_fuse_ms": per_q_ms}))
+        return out
 
     def _deep_evidence_batch(self, plans: list) -> list[dict]:
-        raise _deep_not_ported("QueryEngine._deep_evidence_batch")
+        """Evidence for Q plans with the BFS walks batched: all forward
+        walks in one native call, all backward walks in another
+        (`GraphStore._host_bfs_batch`, OpenMP across queries on
+        multi-core hosts). Results are identical to the sequential path:
+        `_deep_evidence` receives each plan's own walk pair and applies
+        the same budget trim."""
+        graph = self.graph_store
+        seedss = [self._deep_seeds(p) for p in plans]
+        walks: list = [None] * len(plans)
+        if graph.n_edges(EdgeType.CALLS):
+            hops, budget = self.DEEP_HOPS, self._reach_budget()
+            fw = graph._host_bfs_batch(seedss, EdgeType.CALLS, hops,
+                                       limit=budget)
+            bw = graph._host_bfs_batch(seedss, EdgeType.CALLS, hops,
+                                       reverse=True, limit=budget)
+            walks = list(zip(fw, bw))
+        return [self._deep_evidence(p, walks=w, seeds=s)
+                for p, w, s in zip(plans, walks, seedss)]
 
-    def _pack_deep_evidence(self, evs: list[dict]):
-        raise _deep_not_ported("QueryEngine._pack_deep_evidence")
+    def _deep_seeds(self, plan) -> list[int]:
+        """Graph seed ids for a plan's entities (exact name, then fuzzy;
+        <=5 ids/entity, <=16 total, deduplicated in plan order)."""
+        graph = self.graph_store
+        graph._ensure_final()
+        n_pad = graph._n_padded()
+        seeds: list[int] = []
+        for e in plan.entities:
+            ids = graph.find_by_name(e.name)
+            # fuzzy fallback only for confident extractions — a lone
+            # 0.5-confidence capitalized word must not seed the BFS
+            # with arbitrary contains-matches (same gate as
+            # GraphReasoningEngine.find_entity)
+            if not ids and e.confidence >= 0.6:
+                ids = [nid for nid, _ in graph.find_fuzzy(e.name, limit=3)]
+            seeds.extend(ids[:5])
+        return list(dict.fromkeys(s for s in seeds if s < n_pad))[:16]
+
+    @staticmethod
+    def _reach_budget() -> int:
+        """Per-direction evidence budget: the shallowest `budget` reached
+        nodes per direction ride to the device; beyond it the depth decay
+        (0.8^5 ~= 0.33) has flattened graph credit. Floor of 1: 0 would
+        pass limit=0 = UNBOUNDED to the walk, then trim every reached node
+        away."""
+        return max(
+            int(os.environ.get("LATTICE_REACH_BUDGET", 32768)) // 2, 1)
+
+    def _deep_evidence(self, plan, walks=None, seeds=None) -> dict:
+        """Host-side evidence for one deep query: seeds, budgeted BFS
+        reach expanded node->row through the resident reverse CSR,
+        entity-match rows, and the intent relevance table. O(seeds +
+        reached + matches) host work, never O(corpus). `walks`/`seeds`
+        optionally inject precomputed ((f_ids, f_d), (b_ids, b_d)) walk
+        results and the seed list they were computed for (the batch path
+        runs all Q queries' walks as two native calls)."""
+        graph = self.graph_store
+        store = self.indexer.code
+        graph._ensure_final()
+        relevance_map = _RELATIONSHIP_RELEVANCE.get(plan.intent,
+                                                    _DEFAULT_RELEVANCE)
+        rel_caller = relevance_map.get(
+            "caller", _DEFAULT_RELEVANCE["caller"])
+        rel_callee = relevance_map.get(
+            "callee", _DEFAULT_RELEVANCE["callee"])
+        rel_primary = relevance_map.get("primary", 1.0)
+
+        if seeds is None:
+            seeds = self._deep_seeds(plan)
+
+        cols = store.device_rank_columns(graph)
+        hops = self.DEEP_HOPS
+        budget = self._reach_budget()
+        if seeds:
+            # seeds always carry their depth-0 primary credit, even in a
+            # graph with no CALLS edges (hierarchy/import-only corpora)
+            if graph.n_edges(EdgeType.CALLS):
+                if walks is not None:
+                    (f_ids, f_d), (b_ids, b_d) = walks
+                else:
+                    f_ids, f_d = graph._host_bfs(seeds, EdgeType.CALLS,
+                                                 hops, limit=budget)
+                    b_ids, b_d = graph._host_bfs(seeds, EdgeType.CALLS,
+                                                 hops, reverse=True,
+                                                 limit=budget)
+                # the NumPy fallback walk ignores `limit`; trim to the
+                # same shallowest-(depth, id) prefix the native walk
+                # returns so rankings are backend-independent
+                if len(f_ids) > budget:
+                    o = np.lexsort((f_ids, f_d))[:budget]
+                    f_ids, f_d = f_ids[o], f_d[o]
+                if len(b_ids) > budget:
+                    o = np.lexsort((b_ids, b_d))[:budget]
+                    b_ids, b_d = b_ids[o], b_d[o]
+            else:
+                f_ids = b_ids = np.empty(0, np.int64)
+                f_d = b_d = np.empty(0, np.int32)
+            n_ids = np.concatenate([
+                np.asarray(seeds, np.int64), f_ids, b_ids])
+            n_depths = np.concatenate([
+                np.zeros(len(seeds), np.int32), f_d, b_d])
+            # rel CLASS per node (0=primary, 1=callee, 2=caller); the
+            # relevance values ride in a [4] table so the reach packs to
+            # one int32 per entry (pack_reach)
+            n_cls = np.concatenate([
+                np.zeros(len(seeds), np.uint8),
+                np.full(len(f_ids), 1, np.uint8),
+                np.full(len(b_ids), 2, np.uint8)])
+        else:
+            f_ids = b_ids = np.empty(0, np.int64)
+            f_d = b_d = np.empty(0, np.int32)
+            n_ids = np.empty(0, np.int64)
+            n_depths = np.empty(0, np.int32)
+            n_cls = np.empty(0, np.uint8)
+        # relation-directed intents: the seeds ARE the subject, not the
+        # answer — scale their class-0 relevance by the subject cap and
+        # keep them out of the binary match slots so the relation members
+        # (class 1/2 at rel 1.0) outrank them. CALLS-answer intents only:
+        # this walk's reach classes are primary/callee/caller, so the
+        # answers of methods/hierarchy/imports intents never ride it
+        # (scorer.py's rationale at DEEP_CALLS_DEMOTE_INTENTS).
+        demote = plan.intent in DEEP_CALLS_DEMOTE_INTENTS
+        if demote:
+            rel_primary *= SUBJECT_EXACT_CAP
+        rel_table = np.asarray(
+            [rel_primary, rel_callee, rel_caller, 0.0], np.float32)
+        reach_set = {int(v): int(d) for v, d in zip(n_ids, n_depths)}
+        # node->row expansion through the resident reverse CSR, host-side
+        r_rows, r_depths, r_cls = cols.rows_for_nodes(n_ids, n_depths,
+                                                      n_cls)
+        match_rows: list[int] = []
+        inverted = store._inverted["graph_node_id"]
+        seed_rows: set[int] = set()
+        for sd in seeds:
+            seed_rows.update(
+                inverted.get(graph.node(sd).qualified_name, ()))
+        if not demote:
+            match_rows.extend(seed_rows)
+        # lexical channel: the packed match slots are binary, so only
+        # strong name-coverage hits ride along (name coverage >= 0.6, a
+        # name the query mostly spells out), capped to leave room for
+        # the seeds
+        match_rows.extend(
+            r for r, _s in store.lexical_candidates(
+                query_token_set(plan.raw_query), limit=32,
+                min_name_cov=0.6)
+            if not (demote and r in seed_rows))
+        return {
+            "seeds": seeds, "f_ids": f_ids, "f_d": f_d,
+            "b_ids": b_ids, "b_d": b_d,
+            "r_rows": r_rows, "r_depths": r_depths, "r_cls": r_cls,
+            "rel_table": rel_table, "reach_set": reach_set,
+            "match_rows": match_rows, "cols": cols,
+        }
+
+    def _deep_results(self, scores, rows, reach_set) -> list:
+        graph = self.graph_store
+        store = self.indexer.code
+        results = []
+        for score, row in zip(scores, rows):
+            # sentinel check BEFORE the payload lookup: NEG_INF filler
+            # slots don't reference a meaningful row
+            if score <= -1e29:
+                continue
+            payload = store.payload(int(row))
+            if payload is None:
+                continue
+            qn = payload.get("graph_node_id") or ""
+            nid = graph.id_of(qn) if qn else None
+            in_graph = nid is not None and nid in reach_set
+            results.append(RankedResult(
+                name=(payload.get("name") or "").rsplit(".", 1)[-1],
+                qualified_name=qn,
+                entity_type=payload.get("entity_type") or "",
+                file_path=payload.get("file_path") or "",
+                start_line=payload.get("start_line") or 0,
+                end_line=payload.get("end_line") or 0,
+                source=(ResultSource.HYBRID if in_graph
+                        else ResultSource.VECTOR),
+                score=float(score),
+                content=payload.get("content") or "",
+            ))
+        return results
+
+    # intents whose context is the CALLS reach the fuse ranked on
+    _CALLS_INTENTS = frozenset({
+        QueryIntent.FIND_USAGE, QueryIntent.FIND_CALLEES,
+        QueryIntent.FIND_CALL_CHAIN, QueryIntent.FIND_SIMILAR,
+        QueryIntent.FIND_EXAMPLES, QueryIntent.GENERAL_SEARCH,
+    })
+
+    def _deep_context(self, plan, ev) -> GraphContext:
+        """CALLS-centric intents get their context from the SAME reach the
+        fuse ranked on (no second traversal; the walk's order is depth
+        order, so the head of each direction is the Cypher-capped result
+        set). Intents whose context lives on other edge types
+        (hierarchy/methods/imports/file structure) still run the
+        reasoning engine: this path never walked those edges."""
+        if not ev["seeds"]:
+            return GraphContext()
+        if plan.intent in self._CALLS_INTENTS:
+            cap = 50
+            to_node = self.graph_engine._to_node
+            return GraphContext(
+                primary_entities=[to_node(s, 0, "primary")
+                                  for s in ev["seeds"]],
+                callees=[to_node(int(v), int(d), "callee")
+                         for v, d in zip(ev["f_ids"][:cap],
+                                         ev["f_d"][:cap])],
+                callers=[to_node(int(v), int(d), "caller")
+                         for v, d in zip(ev["b_ids"][:cap],
+                                         ev["b_d"][:cap])],
+            )
+        return self._graph_phase(plan)
 
     def get_statistics(self) -> dict:
         """Reference: `engine.py:281-309` (+ span aggregates, SURVEY §5)."""

@@ -460,8 +460,7 @@ class TestPlanTable:
 
     def test_unported_surfaces_raise(self, pair):
         _, ps, _ = pair
-        for call in (ps.build_pq, ps.to_sharded,
-                     lambda: ps.device_rank_columns(None)):
+        for call in (ps.build_pq, ps.to_sharded):
             with pytest.raises(NotImplementedError):
                 call()
 

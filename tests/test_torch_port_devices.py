@@ -1,8 +1,9 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: built with no `device` on a machine without CUDA, each one raises
-rather than landing quietly on the CPU. What the port has not ported
-raises rather than taking another path: the graph store's device
-methods and the metadata stage."""
+rather than landing quietly on the CPU; the graph store's device methods
+do the same on a store made with no `device`. What the port has not
+ported raises rather than taking another path: the sharded graph and
+deep rank, and the metadata stage."""
 
 import asyncio
 
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 from lattice_tpu_torch.config.settings import Settings
-from lattice_tpu_torch.core.errors import EmbeddingError, VectorStoreError
+from lattice_tpu_torch.core.errors import (EmbeddingError, GraphError,
+                                          VectorStoreError)
 from lattice_tpu_torch.core.types import EdgeType, EntityType
 from lattice_tpu_torch.embeddings.embedder import Embedder
 from lattice_tpu_torch.embeddings.indexer import VectorIndexer
@@ -66,8 +68,8 @@ def test_cpu_is_asked_for_by_name():
     assert next(model.encoder.parameters()).device.type == "cpu"
 
 
-def _graph() -> GraphStore:
-    store = GraphStore()
+def _graph(device: str = "cuda") -> GraphStore:
+    store = GraphStore(device=device)
     a = store.add_node("m.a", EntityType.FUNCTION, "m.py")
     b = store.add_node("m.b", EntityType.FUNCTION, "m.py")
     store.add_edge(a, b, EdgeType.CALLS)
@@ -75,22 +77,41 @@ def _graph() -> GraphStore:
     return store
 
 
-@pytest.mark.parametrize("call", [
-    lambda g: g.k_hop([0], EdgeType.CALLS, 2, device=True),
-    lambda g: g.k_hop_batch([[0]] * 4, EdgeType.CALLS, 2, device=True),
-    lambda g: g.device_edges(EdgeType.CALLS),
-    lambda g: g.device_alive(),
-    lambda g: g.device_degree(EdgeType.CALLS),
-    lambda g: g.to_sharded(EdgeType.CALLS),
-], ids=["k_hop", "k_hop_batch", "device_edges", "device_alive",
-        "device_degree", "to_sharded"])
-def test_graph_device_methods_raise_not_ported(monkeypatch, call):
-    store = _graph()
+GRAPH_DEVICE_CALLS = {
+    "k_hop": lambda g: g.k_hop([0], EdgeType.CALLS, 2, device=True),
+    "k_hop_batch": lambda g: g.k_hop_batch([[0]] * 4, EdgeType.CALLS, 2,
+                                           device=True),
+    "device_edges": lambda g: g.device_edges(EdgeType.CALLS),
+    "device_alive": lambda g: g.device_alive(),
+    "device_degree": lambda g: g.device_degree(EdgeType.CALLS),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_DEVICE_CALLS))
+def test_graph_device_methods_default_to_cuda(monkeypatch, name):
+    """A graph store made with no `device` builds and walks its graph on
+    the host; its device methods raise without CUDA, and run on the CPU
+    when it is asked for by name (the store's or the call's)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # k_hop_batch keeps the reference's host walk below its edge threshold
     monkeypatch.setattr(GraphStore, "DEVICE_BFS_THRESHOLD", 0)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    store = _graph()
+    assert store.k_hop([0], EdgeType.CALLS, 2) == {1: 1}
+    with pytest.raises(GraphError, match="CUDA is not available"):
+        GRAPH_DEVICE_CALLS[name](store)
+    GRAPH_DEVICE_CALLS[name](_graph("cpu"))
+    assert store.device_alive(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("call", [
+    lambda g: g.to_sharded(EdgeType.CALLS),
+], ids=["to_sharded"])
+def test_graph_device_methods_raise_not_ported(monkeypatch, call):
+    store = _graph("cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
         call(store)
     assert store.k_hop([0], EdgeType.CALLS, 2) == {1: 1}
+    assert store.k_hop([0], EdgeType.CALLS, 2, device=True) == {1: 1}
 
 
 def test_graph_sharded_flag_raises_only_with_several_cards(monkeypatch):
@@ -145,19 +166,21 @@ def test_engine_serves_on_its_stores_device(engine):
         "who calls drain?", "what does Jobs extend?"]
 
 
-@pytest.mark.parametrize("call", [
-    lambda e: e.deep_search("who calls drain?"),
-    lambda e: e.deep_search_batch(["who calls drain?", "Jobs.run"]),
-    lambda e: e._deep_seeds(e.planner.plan_heuristic("who calls drain?")),
-    lambda e: e._deep_evidence(e.planner.plan_heuristic("who calls drain?")),
-    lambda e: e._deep_evidence_batch([]),
-    lambda e: e._pack_deep_evidence([]),
-], ids=["deep_search", "deep_search_batch", "_deep_seeds", "_deep_evidence",
-        "_deep_evidence_batch", "_pack_deep_evidence"])
-def test_device_deep_branch_raises_not_ported(monkeypatch, engine, call):
-    monkeypatch.setattr(type(engine), "DEEP_DEVICE_THRESHOLD", 1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        call(engine)
+def test_device_deep_branch_serves_on_the_stores_device(monkeypatch, engine):
+    """Forced onto the device branch, the engine answers on its CPU
+    stores: the rank columns live there, the caller is found through the
+    reach, and the batch answers as the sequential calls do."""
+    monkeypatch.setattr(engine, "DEEP_DEVICE_THRESHOLD", 1)
+    result = engine.deep_search("who calls drain?")
+    names = [r.qualified_name for r in result.results]
+    assert any(n.endswith("Jobs.run") for n in names), names
+    cols = engine.indexer.code.device_rank_columns(engine.graph_store)
+    assert cols.degree.device.type == cols.quality.device.type == "cpu"
+    texts = ["who calls drain?", "what does Jobs extend?"]
+    batch = engine.deep_search_batch(texts)
+    assert [[r.qualified_name for r in b.results] for b in batch] == [
+        [r.qualified_name for r in engine.deep_search(t).results]
+        for t in texts]
 
 
 def test_sharded_deep_branch_raises_not_ported(monkeypatch, engine):

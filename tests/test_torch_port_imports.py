@@ -13,7 +13,9 @@ launched on the CPU and that asking for "cuda" without CUDA raises, then
 indexes a three-file repository through the port's `PipelineOrchestrator`
 on the CPU (the host stack: settings, scan, parse, graph, chunk, embed)
 and asks it questions through the port's `QueryEngine` (`search_sync`,
-`query_sync`, `deep_search`).
+`query_sync`, `deep_search`), then through the deep path's device branch
+(forced: `deep_search`, `deep_search_batch`) and the graph store's device
+traversal (`k_hop(device=True)`), with no kernel launched on the CPU.
 """
 
 import subprocess
@@ -158,6 +160,20 @@ assert ans.answer and ans.enriched_context is not None, ans
 assert ans.query_plan.intent.value == "find_hierarchy", ans.query_plan
 deep = qe.deep_search("who calls drain?")
 assert deep.results and all(r.score > -1e29 for r in deep.results), deep
+# the device branch, forced on these small CPU stores
+qe.DEEP_DEVICE_THRESHOLD = 1
+fdeep = qe.deep_search("who calls drain?")
+assert any(r.qualified_name.endswith("Jobs.run") for r in fdeep.results), fdeep
+fbatch = qe.deep_search_batch(["who calls drain?", "what does Jobs extend?"])
+assert [r.query for r in fbatch] == ["who calls drain?",
+                                     "what does Jobs extend?"]
+assert [r.qualified_name for r in fbatch[0].results] == \
+    [r.qualified_name for r in fdeep.results]
+graph = pctx.graph_builder.store
+drain = graph.find_by_name("drain")
+assert graph.k_hop(drain, EdgeType.CALLS, 3, reverse=True, device=True) == \
+    graph.k_hop(drain, EdgeType.CALLS, 3, reverse=True)
+assert set(_build.launch_counts().values()) == {0}, _build.launch_counts()
 assert not any(m == "lattice_tpu" or m.startswith("lattice_tpu.")
                for m in sys.modules), "the port imported the JAX package"
 print("PORT-OK")
