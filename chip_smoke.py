@@ -7,8 +7,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. Device: require CUDA; print the card and its power limit; build the
    kernels of `lattice_tpu_torch/csrc/` and print the build time, and the
    registers and local memory per thread (`cuobjdump`) of kernel D's
-   instances, of kernels A's and C's two wgmma instances each (no local
-   memory allowed) and of their probes' four each.
+   three wmma and three wgmma instances, of kernels A's and C's two wgmma
+   instances each (no local memory allowed on any wgmma instance of A, C
+   and D) and of their probes' four each and the int4 probe's two.
 2. Kernels against their plain versions on the card, at N in {4099,
    1048576}, B in {1, 16, 256}, k in {1, 10, 64}, with masked rows.
    bf16 (kernel A + B) on A's wgmma route at the sweep of C's below (N in
@@ -27,7 +28,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    chunk edges, invalid chunks, fewer live rows than k1) at B in {1, 130}.
    int4 (kernel D + B) at the `Int4View` widths (k1 = max(k, 16) and
    max(8k, 32): up to 512) and at d = 100: ids identical, scores
-   bit-equal; kernel B alone on D's lists, bit-equal; the same on
+   bit-equal; kernel B alone on D's lists, bit-equal; the same on D's
+   wgmma route at N in {4099, 1048576}, d in {256, 320, 768, 1024} (320:
+   a partial last packed slab), B in {1, 63, ..., 300}, k1 in {1, 16, 24,
+   32, 33, 80, 128} (both instances, serial and batched), on its wmma
+   route at d = 100 and with misaligned queries or packed rows; and on
    `selection_cases` (the CPU tests' adversarial inputs of D's selection:
    ties across tile and chunk edges, scores rising and falling with the
    row id, whole chunks invalid, fewer live rows than k1) at 20,000 rows,
@@ -60,8 +65,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    to its plain version on CPU copies; k1 = 513 refused.
    `score_probe` at every type and mode on 64 queries x 262,144 rows (+ a
    ragged tail of 100) x 768 at tiles 2048 and 8192, 300 x 65,636 x 1024
-   at tile 2048 (bf16 and int8 at kernel A's and C's instances for k1 =
-   16 and 80), and 16 x 4,133 x 100 at tile 256: int8 and int4 bit-equal,
+   and 130 x 20,000 x 320 at tile 2048 (each type at kernel A's, C's and
+   D's instances for k1 = 16 and 80), and 16 x 4,133 x 100 at tile 256
+   (the wmma routes): int8 and int4 bit-equal,
    bf16 rawmax within 1e-4, bf16 pack within one score step of the key and
    equal on >= 99.9% of bins.
 3a. The flat-tier path: 1,048,576 x 768 rows around 1024 centers at
@@ -88,9 +94,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 4d. Timings: "int4" and "refined" QPS at B=256 and p50 at B=1; kernel D
    at B in {1, 256} beside its plain version, its bound and the bare int8
    product; kernel D (and C) at B in {256, 1} by list length, k1 in {16,
-   80, 128, 512}, beside the int4 floor (its probe at that B) and the
-   selection share; D on rows whose scores rise with the row id (every
-   tile beats every list), timed once.
+   32, 80, 128, 512}, beside the int4 floor (its probe at that B and at
+   D's instance for that k1) and the selection share; D on rows whose
+   scores rise with the row id (every tile beats every list), timed once.
 3f. The dissection path on the same store, its int8 and int4 views and
    the 256 queries (`lattice_tpu_torch/tools/dissect.py`): `score_probe`
    at every (type, mode, tile) the round-2 scripts timed, each held to its
@@ -241,14 +247,17 @@ the queue full, so the host's issue is not counted) and back to back.
 Launch counts are zeroed just before each of 3a, 3d, 3f, 3i, 3b, 3e, 3c,
 3g and 3h and read just after it; each path's kernels, and every registered
 kernel, must have launched, and the C entries each path must have run with them (kernel
-A's and C's wgmma routes on corpus A, the bf16 and int8 probes' in 3f).
+A's and C's wgmma routes on corpus A, D's in 3d and 3e, the bf16, int8
+and int4 probes' in 3f).
 
 The line before the last is the kernel table as JSON: per kernel its
-launches on those paths (and by C entry), its largest error against its
-plain version, its time, its plain version's time, its bound (the larger
-of its bytes over 3.35 TB/s and its operations over the H100's dense peak
-for their type, from this run's shapes) and the time of one PyTorch call
-computing the same function where one exists. The last line is
+launches on those paths (and by C entry; "routes": every C entry that
+phase 2 and those paths launched, with its count), its largest error
+against its plain version, its time, its plain version's time, its bound
+(the larger of its bytes over 3.35 TB/s and its operations over the
+H100's dense peak for their type, from this run's shapes) and the time
+of one PyTorch call computing the same function where one exists. The
+last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -397,42 +406,61 @@ def phase_device() -> tuple[str, str]:
 def log_scan_resources() -> None:
     """Registers, stack and local memory (spills) per thread, as `cuobjdump
     --dump-resource-usage` reads them from the built library, of kernel D's
-    three instances (serial: 64 queries a block, lists <= 16; batched: 64
-    queries, lists <= 128; 32 queries, <= 512), the two wgmma instances
-    (128 and 64 queries a block) of kernels A and C, and the four of each
-    of their probes (the same two, rawmax and pack). A's and C's wgmma
-    instances must use no local memory."""
+    three wmma instances (serial: 64 queries a block, lists <= 16; batched:
+    64 queries, lists <= 128; 32 queries, <= 512) and its three wgmma
+    instances (128 queries, serial; 64 queries, serial and batched), the
+    two wgmma instances (128 and 64 queries a block) of kernels A and C,
+    and the four of each of their probes (the same two, rawmax and pack)
+    and two of the int4 probe's. The wgmma instances of A, C and D and the
+    int4 probe's must use no local memory."""
     from lattice_tpu_torch.ops import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     lines = subprocess.run(
         [str(tool), "--dump-resource-usage", str(_build.library_path())],
         capture_output=True, text=True, check=True, timeout=120
     ).stdout.splitlines()
-    found = {"D": 0, "A": 0, "C": 0, "bf16 probe": 0, "int8 probe": 0}
+    found = {"D": 0, "A": 0, "C": 0, "D (wgmma)": 0, "bf16 probe": 0,
+             "int8 probe": 0, "int4 probe": 0}
+
+    def no_local(usage: str, what: str, regs: str) -> None:
+        require(re.search(r"LOCAL:0\b", usage) is not None,
+                f"{what} uses local memory: {regs}")
+
     for name, usage in zip(lines, lines[1:]):
         regs = " ".join(usage.split()[:5])
-        if inst := (re.search(r"scan_topk_int4_kernelILi(\d+)ELi(\d+)E", name)
-                    or re.search(r"scan_topk_kernelILi3ELi(\d+)ELi(\d+)E",
-                                 name)):
+        if inst := re.search(r"scan_topk_int4_wg_kernelILi(\d+)ELb(\d)E",
+                             name):
+            found["D (wgmma)"] += 1
+            what = (f"kernel D (wgmma), {inst[1]} queries a block, "
+                    f"{'batched' if inst[2] == '1' else 'serial'}")
+            log(f"{what}: {regs}")
+            no_local(usage, what, regs)
+        elif inst := (re.search(r"scan_topk_int4_kernelILi(\d+)ELi(\d+)E",
+                                name)
+                      or re.search(r"scan_topk_kernelILi3ELi(\d+)ELi(\d+)E",
+                                   name)):
             found["D"] += 1
             kind = ("batched, lists <= " + inst[2] if "int4" in name
                     else "serial")
-            log(f"kernel D, {kind}, {inst[1]} queries a block: {regs}")
+            log(f"kernel D (wmma), {kind}, {inst[1]} queries a block: {regs}")
         elif inst := re.search(r"scan_topk_(bf16|int8)_wg_kernelILi(\d+)E",
                                name):
             kernel = "A" if inst[1] == "bf16" else "C"
             found[kernel] += 1
             log(f"kernel {kernel} (wgmma), {inst[2]} queries a block: {regs}")
-            require(re.search(r"LOCAL:0\b", usage) is not None,
-                    f"kernel {kernel} ({inst[2]} queries) uses local "
-                    f"memory: {regs}")
+            no_local(usage, f"kernel {kernel} ({inst[2]} queries)", regs)
         elif inst := re.search(
                 r"score_probe_(bf16|int8)_wg_kernelILi(\d+)ELb(\d)E", name):
             found[f"{inst[1]} probe"] += 1
             log(f"{inst[1]} probe (wgmma), {inst[2]} queries a block, "
                 f"{'pack' if inst[3] == '1' else 'rawmax'}: {regs}")
-    require(found == {"D": 3, "A": 2, "C": 2, "bf16 probe": 4,
-                      "int8 probe": 4},
+        elif inst := re.search(r"score_probe_int4_wg_kernelILi(\d+)E", name):
+            found["int4 probe"] += 1
+            what = f"int4 probe (wgmma), {inst[1]} queries a block"
+            log(f"{what}: {regs}")
+            no_local(usage, what, regs)
+    require(found == {"D": 3, "A": 2, "C": 2, "D (wgmma)": 3,
+                      "bf16 probe": 4, "int8 probe": 4, "int4 probe": 2},
             f"cuobjdump shows these instances: {found}")
 
 
@@ -615,6 +643,58 @@ def phase_int8_kernel(err: dict) -> None:
                        valid, INT8_K1, err, f"{name} b={b}")
         log(f"kernels ok: scan_topk_int8 on {name} (N={ev.shape[0]}, "
             f"k1 in {INT8_K1}): bit-equal")
+
+
+INT4_K1 = (1, 16, 24, 32, 33, 80, 128)   # 1 ... 32: 128 queries past B=64
+INT4_DIMS = (256, 320, 768, 1024)        # 320: a partial last packed slab
+
+
+def phase_int4_kernel(err: dict) -> None:
+    """Kernel D + B bit-equal to its plain version on its wgmma route at n
+    in {4099, 1048576}, d in INT4_DIMS (d = 320 ends in a partial packed
+    slab, whose fill bytes unpack to -8), B in INT8_BATCHES, k1 in INT4_K1
+    (both instances: 128 queries a block at B > 64 and k1 <= 32, serial;
+    else 64, batched past WG_SERIAL_K1); on its wmma route at d = 100 and
+    with 16-byte misaligned queries or packed rows. `selection_cases` and
+    the lists past MAX_K1 (the wmma route) are held in phase_kernels."""
+    from lattice_tpu_torch.ops import quant, scan_topk as scan
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for n in (4099, N_ROWS):
+        for d in INT4_DIMS:
+            ep, eps = quant.quantize_rows_int4_device(normalize(torch.randn(
+                n, d, device="cuda", generator=gen)).to(torch.bfloat16))
+            valid = torch.rand(n, device="cuda", generator=gen) > 0.1
+            for b in INT8_BATCHES:
+                qv, qs = quant.quantize_rows_device(normalize(torch.randn(
+                    b, d, device="cuda", generator=gen)))
+                require(all(scan.int4_route(qv, ep, k1) == "lt_scan_topk_int4"
+                            for k1 in INT4_K1),
+                        f"kernel D took its wmma route at d={d}")
+                check_int4(qv, qs, ep, eps, valid, K, err,
+                           f"wgmma, n={n} d={d} b={b}", INT4_K1)
+            log(f"kernels ok: scan_topk_int4 (wgmma) n={n} d={d}, B in "
+                f"{INT8_BATCHES}, k1 in {INT4_K1}: bit-equal")
+            del ep, eps, valid
+    n = 4099
+    for d, shift in ((100, 0), (DIM, 1), (DIM, 0)):
+        ep, eps = quant.quantize_rows_int4_device(normalize(torch.randn(
+            n, d, device="cuda", generator=gen)).to(torch.bfloat16))
+        valid = torch.rand(n, device="cuda", generator=gen) > 0.1
+        if d == DIM and not shift:  # rows 8 bytes past a 16-byte boundary
+            buf = torch.empty(n * d // 2 + 16, dtype=torch.int8, device="cuda")
+            ep = buf[8:8 + n * d // 2].view(n, d // 2).copy_(ep)
+        for b in (1, 65, 256):
+            qv, qs = quant.quantize_rows_device(normalize(torch.randn(
+                b, d, device="cuda", generator=gen)))
+            if shift:  # queries `shift` bytes past a 16-byte boundary
+                buf = torch.empty(b * d + 16, dtype=torch.int8, device="cuda")
+                qv = buf[shift:shift + b * d].view(b, d).copy_(qv)
+            require(scan.int4_route(qv, ep, 16) == "lt_scan_topk_int4_scalar",
+                    f"kernel D took its wgmma route at d={d}, shift={shift}")
+            check_int4(qv, qs, ep, eps, valid, K, err,
+                       f"wmma route, d={d} b={b} shift={shift}", INT4_K1)
+        log(f"kernels ok: scan_topk_int4 (wmma route) d={d}"
+            f"{' misaligned' if d == DIM else ''}: bit-equal")
 
 
 TIE_TOL = 1e-5     # two f32 sums of the same bf16 products, any order
@@ -1149,10 +1229,11 @@ def phase_probe_kernel(err: dict) -> None:
     """`score_probe` against its plain version on the card, at every type
     and mode, by `dissect.check_probe`: 64 queries x 262,144 + 100 rows x
     768 at tiles 2048 and 8192 (the 100 tail rows must be dropped), 300
-    queries x 65,636 rows x 1024 at tile 2048 (three query tiles, the last
-    partial; bf16 and int8 at kernel A's and C's instances for k1 = 16 and
-    80), and 16 queries x 4,133 rows x 100 at tile 256 (scalar loads, a
-    partial query tile; bf16 and int8 on kernel A's and C's wmma routes).
+    queries x 65,636 rows x 1024 and 130 x 20,000 x 320 (a partial last
+    packed slab) at tile 2048 (query tiles, the last partial; each type at
+    kernel A's, C's and D's instances for k1 = 16 and 80), and 16 queries
+    x 4,133 rows x 100 at tile 256 (scalar loads, a partial query tile; on
+    kernel A's, C's and D's wmma routes).
     int8 and int4 bit-equal (exact integer sums); bf16 rawmax within
     1e-4, as kernel A's scores are held; bf16 pack within one score step of
     the key and equal on >= 99.9% of bins. The dissection path holds the
@@ -1164,6 +1245,7 @@ def phase_probe_kernel(err: dict) -> None:
     for b, n, d, tiles in ((PROBE_QUERIES, PROBE_ROWS + 100, DIM,
                             (2048, 8192)), (300, (1 << 16) + 100, 1024,
                                             (2048,)),
+                           (130, 20_000, 320, (2048,)),
                            (16, 4133, 100, (256,))):
         emb = normalize(torch.randn(n, d, device="cuda", generator=gen)
                         ).to(torch.bfloat16)
@@ -1175,7 +1257,7 @@ def phase_probe_kernel(err: dict) -> None:
         for tile in tiles:
             for kind, qq, rows in cases:
                 modes = ("rawmax",) if kind == "int4" else probe.MODES
-                k1s = (16, 80) if kind != "int4" and b > 64 else (16,)
+                k1s = (16, 80) if b > 64 else (16,)
                 for mode, k1 in ((m, k) for m in modes for k in k1s):
                     out = probe.score_probe(qq, rows, tile=tile, mode=mode,
                                             k1=k1)
@@ -2606,28 +2688,29 @@ def phase_int4_timings(ctx: dict, kernels_ms: dict, err: dict,
                         kk, "shuffled kernel D lists", err)
         del cs, ci
     # what the list length costs: kernel D, and kernel C on the int8 view,
-    # at B=256 and B=1 over k1 = 16 (the first stage alone), 80 (8k at
-    # k=10), 128 (8k at k=16, where D stages fewer candidates a query) and
-    # 512 (8k at k=64, D only), beside the int4 floor (its probe at the
-    # same B) and the selection share (D ms - floor ms) / D ms
+    # at B=256 and B=1 over k1 = 16 (the first stage alone), 32 (8k at
+    # k <= 4), 80 (8k at k=10), 128 (8k at k=16) and 512 (8k at k=64, D
+    # only, on its wmma route), beside the int4 floor (its probe at the
+    # same B, at the instance and route D takes at that k1) and the
+    # selection share (D ms - floor ms) / D ms
     from lattice_tpu_torch.ops.probe import score_probe
     from lattice_tpu_torch.tools.dissect import FLOOR_TILE
     i8 = store._quant
     for b in (256, 1):
         qv, qs = quant.quantize_rows_device(q256[:b].contiguous())
-        floor = cuda_ms(lambda: score_probe(qv, view.values, tile=FLOOR_TILE),
-                        5)
         sweep = {k1: (cuda_ms(lambda: scan.scan_blocks_int4(
             qv, qs, view.values, view.scales, valid, k1), 3, 1),
+                      cuda_ms(lambda: score_probe(
+            qv, view.values, tile=FLOOR_TILE, k1=k1), 3, 1),
                       cuda_ms(lambda: scan.scan_blocks_int8(
             qv, qs, i8.values, i8.scales, valid, k1), 3, 1)
                       if k1 <= scan.MAX_K1 else None)
-                 for k1 in (16, 80, 128, 512)}
-        log(f"kernel D (C) at B={b} by list length, int4 floor "
-            f"{floor:.4f} ms: " + ", ".join(
-                f"k1={k1}: {d_ms:.4f} ms, selection "
-                f"{(d_ms - floor) / d_ms:.1%} ({c_ms})"
-                for k1, (d_ms, c_ms) in sweep.items()) + f" ({smi})")
+                 for k1 in (16, 32, 80, 128, 512)}
+        log(f"kernel D (C) at B={b} by list length: " + ", ".join(
+                f"k1={k1} ({scan.int4_route(qv, view.values, k1)}): "
+                f"{d_ms:.4f} ms, int4 floor {f_ms:.4f} ms, selection "
+                f"{(d_ms - f_ms) / d_ms:.1%} ({c_ms})"
+                for k1, (d_ms, f_ms, c_ms) in sweep.items()) + f" ({smi})")
     # the gate's worst case, timed once: every dimension +1 and positive
     # queries, row scales rising with the row id, so every tile beats
     # every list (kernel D at B=256, k1=80)
@@ -3265,13 +3348,18 @@ def main() -> int:
                                        ivf, probe)
     t_start = time.perf_counter()
     err = {k.name: 0.0 for k in _build.KERNELS}
+    _build.reset_launch_counts()
     phase_kernels(err)
     phase_bf16_kernel(err)
     phase_int8_kernel(err)
+    phase_int4_kernel(err)
     phase_merge_kernel(err)
     phase_ivf_kernels(err)
     phase_attention_kernel(err)
     phase_probe_kernel(err)
+    # every route (C entry) of each kernel that phase 2 held to its plain
+    # version, with its launches there; the main paths' are added below
+    routes = {k.name: dict(k.entry_launches) for k in _build.KERNELS}
 
     ctx: dict = {}
     kernels_ms: dict = {}
@@ -3285,17 +3373,17 @@ def main() -> int:
               "lt_scan_topk_bf16", "lt_scan_topk_int8")),
             ("int4 tier", phase_int4_path,
              ("scan_topk_int4", "merge_candidates", "scan_topk",
-              "lt_scan_topk_bf16")),
+              "lt_scan_topk_bf16", "lt_scan_topk_int4")),
             ("dissection", phase_dissect_path,
              ("score_probe", "scan_topk", "scan_topk_int8",
               "scan_topk_int4", "lt_score_probe_bf16",
-              "lt_score_probe_int8")),
+              "lt_score_probe_int8", "lt_score_probe_int4")),
             ("deep path", phase_deep_path,
              ("merge_candidates", "lt_merge_positions")),
             ("ivf", phase_ivf_path,
              ("ivf_probe", "merge_candidates", "scan_topk_int8")),
             ("capacity", phase_capacity_path,
-             ("scan_topk_int4", "merge_candidates")),
+             ("scan_topk_int4", "merge_candidates", "lt_scan_topk_int4")),
             ("encoder", phase_encoder_path,
              ("paired_attention", "scan_topk_int8", "merge_candidates")),
             ("indexing", phase_index_path,
@@ -3313,6 +3401,7 @@ def main() -> int:
             launches[k.name] += k.launches
             for e, v in k.entry_launches.items():
                 entries[k.name][e] = entries[k.name].get(e, 0) + v
+                routes[k.name][e] = routes[k.name].get(e, 0) + v
         if path == "flat tier":
             phase_timings(ctx, kernels_ms, err, smi)
         elif path == "int4 tier":
@@ -3356,7 +3445,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
-         "entries": entries[k.name], "max_abs_err": err[k.name],
+         "entries": entries[k.name], "routes": routes[k.name],
+         "max_abs_err": err[k.name],
          **kernels_ms[k.name]}
         for k in _build.KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-// The per-tile product of the flat scans, shared by the scan kernels A and
-// D, kernel C where its shape keeps it off the wgmma main loop
-// (scan_wg.cuh), and the score-floor probe of each (score_probe.cu).
+// The per-tile product of the flat scans' wmma routes: kernels A, C and D
+// where their shape (or D's list length) keeps them off the wgmma main
+// loop (scan_wg.cuh), and the score-floor probe of each (score_probe.cu).
 //
 // `score_tile` computes one [BQ_, BN] block of scores: the queries
 // [q0, q0 + BQ_) against the rows [row0, row0 + BN) (rows at or past r_end

@@ -29,24 +29,25 @@
 // bf16, 0.20 ms at 1,979 TOP/s in int8); the [B, N/tile * 128] f32 output
 // adds 67 MB at tile 2048. Design: the loads and products of its scan, so
 // that a scan's time minus its probe's is what its selection costs.
-// - int4, and bf16 and int8 on kernels A's and C's wmma routes: the same
-//   blocks, loads and wmma products as kernel D and those routes
-//   (`score_tile`, scan_tile.cuh). A block owns 64 queries and a run of
+// - bf16, int8 and int4 on kernels A's, C's and D's wmma routes: the same
+//   blocks, loads and wmma products as those routes (`score_tile`,
+//   scan_tile.cuh). A block owns 64 queries and a run of
 //   whole probe tiles; each warp maxes its own fragments of a row tile's
 //   scores into the running bin max it keeps in the shared score tile (a
 //   wmma load, an element-wise max, a store: the accumulator layout is the
 //   same on both sides, so no element needs its position), and the block
 //   writes [64, 128] once per probe tile.
-// - bf16 and int8 where kernels A and C run on wgmma (rows of a multiple
-//   of 16 bytes, 16-byte aligned): their main loop itself (scan_wg.cuh:
-//   the instance the scan takes at the caller's k1, one block an SM, the
-//   TMA producer, the MMA warps that store each tile's f32 or i32 sums,
-//   the register budget; bf16 from the wrapper's bf16 copy of the
-//   queries, as kernel A), with the epilogue warps folding the stored
-//   tiles into a running bin max in registers instead of selecting. That
-//   loop is not serial: what bounds the floor is the operands' traffic
-//   through L2 and shared memory, twice the bytes in bf16 as in int8
-//   (scan_wg.cuh; PERF.md section 6).
+// - bf16, int8 and int4 where kernels A, C and D run on wgmma (rows of a
+//   multiple of 16 bytes, 16-byte aligned): their main loop itself
+//   (scan_wg.cuh: the instance the scan takes at the caller's k1, one
+//   block an SM, the TMA producer, the MMA warps that store each tile's
+//   f32 or i32 sums, the register budget; bf16 from the wrapper's bf16
+//   copy of the queries, as kernel A; int4 with each packed slab unpacked
+//   as the scripts unpack it, NIB_SIGNED), with the epilogue warps
+//   folding the stored tiles into a running bin max in registers instead
+//   of selecting. That loop is not serial: what bounds the floor is the
+//   operands' traffic through L2 and shared memory, twice the bytes in
+//   bf16 as in int8 (scan_wg.cuh; PERF.md section 6).
 // In pack mode a fragment element only knows its row tile i, so the
 // running max holds (key bits) | (i << 7) and the column j joins at the
 // write: max over i of (a_i | j) = (max over i of a_i) | j when no a_i has
@@ -304,17 +305,35 @@ score_probe_bf16_wg_kernel(const __grid_constant__ CUtensorMap qmap,
                               tiles_per_chunk, out);
 }
 
+// kernel D's floor: the scripts' two's-complement low nibble (NIB_SIGNED)
+template <int BQ_>
+__global__ void __maxnreg__((WgCfg<BQ_>::REGS))
+score_probe_int4_wg_kernel(const __grid_constant__ WgQMaps2 qmaps,
+                           const __grid_constant__ CUtensorMap rmap, int B,
+                           int dh, int tile, int n_tiles, int tiles_per_chunk,
+                           float* __restrict__ out) {
+  probe_wg<BQ_, WgS4<NIB_SIGNED>, false>(qmaps.m, &rmap, B, dh, tile,
+                                         n_tiles, tiles_per_chunk, out);
+}
+
 constexpr int PROBE_K1 = 16;   // the list length whose smem the probe reserves
+
+// The probe's block checks, shared by the wgmma launches.
+inline bool probe_wg_args_ok(int B, int n_tiles, int tile,
+                             int tiles_per_chunk, int n_chunks, int vec) {
+  return B >= 1 && tile >= BN && tile % BN == 0 && n_tiles >= 1 && vec == 1 &&
+         tiles_per_chunk >= 1 && n_chunks >= 1 &&
+         (n_chunks - 1) * tiles_per_chunk < n_tiles &&
+         n_chunks * tiles_per_chunk >= n_tiles;
+}
 
 template <typename Op, int BQ_, bool PACK>
 int launch_probe_wg(const void* q, const void* e, int B, int n, int d,
                     int tile, int tiles_per_chunk, int n_chunks, int bq,
                     int vec, void* out, void* stream) {
   const int n_tiles = tile >= BN ? n / tile : 0;
-  if (B < 1 || tile < BN || tile % BN != 0 || n_tiles < 1 || bq != BQ_ ||
-      vec != 1 || tiles_per_chunk < 1 || n_chunks < 1 ||
-      (n_chunks - 1) * tiles_per_chunk >= n_tiles ||
-      n_chunks * tiles_per_chunk < n_tiles)
+  if (bq != BQ_ ||
+      !probe_wg_args_ok(B, n_tiles, tile, tiles_per_chunk, n_chunks, vec))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, rmap;
   if (!wg_maps<Op>(&qmap, &rmap, q, e, B, n, d))
@@ -331,6 +350,31 @@ int launch_probe_wg(const void* q, const void* e, int B, int n, int d,
   kern<<<grid, WgCfg<BQ_>::THREADS, smem,
          static_cast<cudaStream_t>(stream)>>>(qmap, rmap, B, d, tile, n_tiles,
                                               tiles_per_chunk,
+                                              static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <int BQ_>
+int launch_probe_int4_wg(const void* q, const void* e, int B, int n, int d,
+                         int tile, int tiles_per_chunk, int n_chunks, int bq,
+                         int vec, void* out, void* stream) {
+  const int n_tiles = tile >= BN ? n / tile : 0;
+  WgQMaps2 qmaps;
+  CUtensorMap rmap;
+  if (bq != BQ_ ||
+      !probe_wg_args_ok(B, n_tiles, tile, tiles_per_chunk, n_chunks, vec) ||
+      !wg_maps_int4(&qmaps, &rmap, q, e, B, n, d))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wg_smem_bytes<BQ_, WgS4<NIB_SIGNED>>(
+      2 * round_up((size_t)BQ_ * PROBE_K1 * 4));
+  auto kern = score_probe_int4_wg_kernel<BQ_>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_chunks, (B + BQ_ - 1) / BQ_);
+  kern<<<grid, WgCfg<BQ_>::THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(qmaps, rmap, B, d / 2, tile,
+                                              n_tiles, tiles_per_chunk,
                                               static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
@@ -405,10 +449,25 @@ int lt_score_probe_int8_scalar(const void* q, const void* e, int B, int n,
                                              vec, out, stream);
 }
 
-// q int8 [B, d], packed rows int8 [n, d/2]; the int4 probe has no pack mode
+// q int8 [B, d], packed rows int8 [n, d/2], d/2 % 16 == 0 and 16-byte
+// aligned (vec = 1): kernel D's main loop; bq = BQ_WIDE or 64, as kernel D
+// chose. The int4 probe has no pack mode.
 int lt_score_probe_int4(const void* q, const void* e, int B, int n, int d,
                         int tile, int tiles_per_chunk, int n_chunks, int bq,
                         int pack, int vec, void* out, void* stream) {
+  if (pack) return (int)cudaErrorInvalidValue;
+  if (bq == BQ_WIDE)
+    return launch_probe_int4_wg<BQ_WIDE>(q, e, B, n, d, tile, tiles_per_chunk,
+                                         n_chunks, bq, vec, out, stream);
+  return launch_probe_int4_wg<64>(q, e, B, n, d, tile, tiles_per_chunk,
+                                  n_chunks, bq, vec, out, stream);
+}
+
+// every other int4 shape: the score_tile of kernel D's wmma route
+int lt_score_probe_int4_scalar(const void* q, const void* e, int B, int n,
+                               int d, int tile, int tiles_per_chunk,
+                               int n_chunks, int bq, int pack, int vec,
+                               void* out, void* stream) {
   if (pack) return (int)cudaErrorInvalidValue;
   return launch_probe<MODE_I4, false>(q, e, B, n, d, tile, tiles_per_chunk,
                                       n_chunks, bq, vec, out, stream);

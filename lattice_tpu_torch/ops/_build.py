@@ -51,6 +51,7 @@ _ENTRIES: dict[str, tuple] = {
     "lt_scan_topk_int8": (_P,) * 5 + (_I,) * 8 + (_P, _P, _P),
     "lt_scan_topk_int8_scalar": (_P,) * 5 + (_I,) * 8 + (_P, _P, _P),
     "lt_scan_topk_int4": (_P,) * 5 + (_I,) * 8 + (_P, _P, _P),
+    "lt_scan_topk_int4_scalar": (_P,) * 5 + (_I,) * 8 + (_P, _P, _P),
     "lt_merge_candidates": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "lt_merge_positions": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "lt_ivf_probe_bf16": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
@@ -62,6 +63,7 @@ _ENTRIES: dict[str, tuple] = {
     "lt_score_probe_int8": (_P, _P) + (_I,) * 9 + (_P, _P),
     "lt_score_probe_int8_scalar": (_P, _P) + (_I,) * 9 + (_P, _P),
     "lt_score_probe_int4": (_P, _P) + (_I,) * 9 + (_P, _P),
+    "lt_score_probe_int4_scalar": (_P, _P) + (_I,) * 9 + (_P, _P),
 }
 
 _lock = threading.Lock()

@@ -42,7 +42,7 @@ from lattice_tpu_torch.ops import _build
 from lattice_tpu_torch.ops.scan_topk import (BN, BQ, PLAIN_BLOCK, _aligned,
                                              _check, _chunking, _on_cpu,
                                              _sm_count, _stream, bf16_route,
-                                             int8_route, wg_plan)
+                                             int4_route, int8_route, wg_plan)
 from lattice_tpu_torch.ops.topk import full_f32
 
 MODES = ("rawmax", "pack")
@@ -140,10 +140,10 @@ def score_probe(q: torch.Tensor, rows: torch.Tensor, *, tile: int,
     """[B, (N // tile) * 128] f32 bin maxima of q against rows; the type
     from `rows` (bf16; int8; packed int8 with q twice as wide). On the card
     the kernel runs its scan's loads and products at its register budget
-    (A, C or D), so that the two differ only by the selection. bf16 and
-    int8 take kernel A's and C's route for the shape and, on the wgmma
-    route, the instance and chunking the scan takes at list length `k1`
-    (bf16 from a bf16 copy of q, as kernel A)."""
+    (A, C or D), so that the two differ only by the selection. Each type
+    takes its scan's route for the shape (kernel A's, C's or D's at list
+    length `k1`) and, on the wgmma route, the instance and chunking the
+    scan takes at `k1` (bf16 from a bf16 copy of q, as kernel A)."""
     kind = _check_args(q, rows, tile, mode)
     if _on_cpu(q, rows):
         return score_probe_plain(q, rows, tile=tile, mode=mode)
@@ -162,15 +162,17 @@ def score_probe(q: torch.Tensor, rows: torch.Tensor, *, tile: int,
     entry, bq = f"lt_score_probe_{kind}", BQ
     if kind == "bf16":
         wg = bf16_route(q, rows) == "lt_scan_topk_bf16"
+    elif kind == "int8":
+        wg = int8_route(q, rows) == "lt_scan_topk_int8"
     else:
-        wg = kind == "int8" and int8_route(q, rows) == "lt_scan_topk_int8"
+        wg = int4_route(q, rows, k1) == "lt_scan_topk_int4"
     if wg:
         bq, rows_per_chunk, n_chunks = wg_plan(n_tiles * BN, b, k1,
                                                _sm_count(q.device))
         if kind == "bf16":  # kernel A's copy, held until the launch
             q = q.to(torch.bfloat16)
     else:
-        entry += "" if kind == "int4" else "_scalar"
+        entry += "_scalar"
         rows_per_chunk, n_chunks = _chunking(n_tiles * BN, b, q.device)
     with torch.cuda.device(q.device):
         SCORE_PROBE.launch(

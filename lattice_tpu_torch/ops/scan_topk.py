@@ -30,8 +30,14 @@ Port of `lattice_tpu/ops/pallas_topk.py`. Four hand-written CUDA kernels
 - `scan_topk_int4` (kernel D) replaces the packed-int4 bodies of
   `binned_topk_int4` (:980): `_binned_kernel_int4_hoistq` (:894, its
   default), `_binned_kernel_int4` (:938), `_fma` (:843) and `_matmul`
-  (:793). Kernel C's path over packed rows [N, d/2], unpacked in
-  registers; lists up to 512 long (the int4 view's 8k candidates).
+  (:793), over packed rows [N, d/2]; lists up to 512 long (the int4
+  view's 8k candidates). Where d/2 % 16 == 0, the int8 queries and packed
+  rows are 16-byte aligned and k1 <= MAX_K1 (every store's view at the
+  plans' widths) it runs kernel C's `wgmma` loop and plan, each packed
+  slab unpacked in shared memory for the s8 products; any other shape or
+  longer list takes its wmma tile loop, which unpacks in registers
+  (`lt_scan_topk_int4_scalar`). Shape and list length alone pick the
+  route (`int4_route`).
 
 The TPU's other scans compute functions these kernels already compute
 exactly, so they are entry points over them: `fused_topk` (`_topk_kernel`
@@ -87,6 +93,10 @@ WG_SC_LD = WG_BN + 8  # row stride of its score tile
 SMEM_MAX = 232_448  # shared memory one block may have on the H100
 MAX_K1 = 128     # longest first-stage list a block keeps per query
 MAX_K1_LONG = 512  # longest list of kernels D and B
+# kernel D on wgmma (csrc/scan_wg.cuh `WgRing`, csrc/scan_topk.cu)
+INT4_STAGES = {BQ_WIDE: 3, BQ: 4}  # ring slots by queries a block
+WG_SERIAL_K1 = 16  # longest list it folds by serial `offer` at 64 queries
+SEL_CAP = 32       # staging entries a query past it, at most
 MERGE_CAP = 16384  # candidates one block of kernel B holds
 # kernel B splits a query's candidates over blocks only past this many: up
 # to it one block takes about as long as split blocks plus a second pass
@@ -180,6 +190,11 @@ def wg_block_queries(b: int, k1: int) -> int:
     return BQ_WIDE if b > BQ and k1 <= K1_WIDE else BQ
 
 
+def _up(x: int) -> int:
+    """x rounded up to 128 bytes (`round_up`, csrc/scan_tile.cuh)."""
+    return -(-x // 128) * 128
+
+
 def wg_smem_bytes(bq: int, k1: int) -> int:
     """Dynamic shared memory of kernels A and C on `wgmma` (`scan_wg.cuh`
     `wg_smem_bytes`, `select_epi_bytes` in scan_topk.cu): alignment slack,
@@ -187,11 +202,9 @@ def wg_smem_bytes(bq: int, k1: int) -> int:
     bytes and a 64 x 128-byte query slab per warpgroup, bf16 or int8
     alike), its mbarriers, the f32 or i32 score tile and two lists of k1
     per query."""
-    def up(x):
-        return -(-x // 128) * 128
     stages = 6 if bq == BQ_WIDE else 8
     ring = stages * (WG_BN * WG_BK + bq // BQ * BQ * WG_BK)
-    return 1024 + ring + 256 + up(bq * WG_SC_LD * 4) + 2 * up(bq * k1 * 4)
+    return 1024 + ring + 256 + _up(bq * WG_SC_LD * 4) + 2 * _up(bq * k1 * 4)
 
 
 def wg_plan(n: int, b: int, k1: int, sms: int) -> tuple[int, int, int]:
@@ -204,11 +217,36 @@ def wg_plan(n: int, b: int, k1: int, sms: int) -> tuple[int, int, int]:
     return (bq, *_rows_per_chunk(n, max(1, sms // q_tiles)))
 
 
-# kernel C's names of the plan that kernel A shares with it (a k slab is
-# 128 bytes of each row in either type)
+# kernel C's names of the plan that kernels A and D share with it (a k slab
+# is 128 bytes of each row in any type)
 int8_block_queries = wg_block_queries
 int8_smem_bytes = wg_smem_bytes
 int8_plan = wg_plan
+
+
+def int4_smem_bytes(bq: int, k1: int, cap: int = 0) -> int:
+    """Dynamic shared memory of kernel D on `wgmma` (`int4_wg_smem_bytes`
+    in scan_topk.cu): alignment slack, the ring (3 slots at 128 queries, 4
+    at 64, each a packed row slab of 64 x 128 bytes and two 64 x 128-byte
+    query slabs, the halves', per warpgroup), two s8 slab pairs to unpack
+    into, the mbarriers, the i32 score tile, two lists of k1 per query and
+    `cap` staging entries (f32 + i32) a query and their fills."""
+    ring = INT4_STAGES[bq] * (WG_BN * WG_BK + bq // BQ * 2 * BQ * WG_BK)
+    staging = 2 * _up(bq * cap * 4) + _up(bq * 4) if cap else 0
+    return (1024 + ring + 4 * WG_BN * WG_BK + 256 + _up(bq * WG_SC_LD * 4)
+            + 2 * _up(bq * k1 * 4) + staging)
+
+
+def int4_staging_cap(bq: int, k1: int) -> int:
+    """Staging entries a query of kernel D on `wgmma` (`int4_wg_cap`): 0
+    (serial `offer`) at 128 queries a block or up to WG_SERIAL_K1, else
+    SEL_CAP or the most that fit beside the ring and the lists."""
+    if bq == BQ_WIDE or k1 <= WG_SERIAL_K1:
+        return 0
+    cap = SEL_CAP
+    while cap > 1 and int4_smem_bytes(bq, k1, cap) > SMEM_MAX:
+        cap -= 1
+    return cap
 
 
 def int8_route(q_values: torch.Tensor, e_values: torch.Tensor) -> str:
@@ -218,6 +256,19 @@ def int8_route(q_values: torch.Tensor, e_values: torch.Tensor) -> str:
     d = q_values.shape[1]
     return ("lt_scan_topk_int8" if d % 16 == 0 and _aligned(q_values, e_values)
             else "lt_scan_topk_int8_scalar")
+
+
+def int4_route(q_values: torch.Tensor, e_packed: torch.Tensor, k1: int
+               ) -> str:
+    """Kernel D's entry by shape and list length: the wgmma route where TMA
+    can read the int8 queries' halves and the packed rows (d/2 % 16 == 0,
+    16-byte aligned) and the lists fit beside its ring (k1 <= MAX_K1),
+    else the wmma tile loop."""
+    dh = e_packed.shape[1]
+    return ("lt_scan_topk_int4"
+            if dh % 16 == 0 and k1 <= MAX_K1
+            and _aligned(q_values, e_packed)
+            else "lt_scan_topk_int4_scalar")
 
 
 def bf16_route(queries: torch.Tensor, embeddings: torch.Tensor) -> str:
@@ -494,10 +545,11 @@ def scan_blocks_int4(q_values: torch.Tensor, q_scales: torch.Tensor,
                      e_packed: torch.Tensor, e_scales: torch.Tensor,
                      valid: torch.Tensor, k1: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel D alone on CUDA tensors: the unmerged per-chunk lists. Any
-    even d; 16-byte loads where d/2 % 16 == 0. Past k1 = MAX_K1 a block
-    owns BQ_LONG queries instead of BQ (shared memory for the longer
-    lists); this is the one place that rule is made."""
+    """Kernel D alone on CUDA tensors: the unmerged per-chunk lists, from
+    the route `int4_route` names (the wgmma route at kernel C's plan). Any
+    even d; on the wmma route 16-byte loads where d/2 % 16 == 0, and past
+    k1 = MAX_K1 a block owns BQ_LONG queries instead of BQ (shared memory
+    for the longer lists); this is the one place that rule is made."""
     _check(q_values, "q_values", torch.int8, 2)
     _check(q_scales, "q_scales", torch.float32, 1)
     _check(e_packed, "e_packed", torch.int8, 2)
@@ -510,12 +562,17 @@ def scan_blocks_int4(q_values: torch.Tensor, q_scales: torch.Tensor,
     if q_scales.shape != (b,) or e_scales.shape != (n,):
         raise KernelError(f"scan_topk_int4: scales {tuple(q_scales.shape)} "
                           f"{tuple(e_scales.shape)} for B={b}, N={n}")
+    pointers = (q_values.data_ptr(), q_scales.data_ptr(), e_packed.data_ptr(),
+                e_scales.data_ptr(), valid.data_ptr())
+    device = e_packed.device
+    entry = int4_route(q_values, e_packed, k1)
+    if entry == "lt_scan_topk_int4":
+        bq, rows, n_chunks = wg_plan(n, b, k1, _sm_count(device))
+        return _launch_scan(SCAN_TOPK_INT4, entry, k1, b, n, d, 1, pointers,
+                            device, bq, (rows, n_chunks))
     vec = int((d // 2) % 16 == 0 and _aligned(q_values, e_packed))
-    return _launch_scan(
-        SCAN_TOPK_INT4, "lt_scan_topk_int4", k1, b, n, d, vec,
-        (q_values.data_ptr(), q_scales.data_ptr(), e_packed.data_ptr(),
-         e_scales.data_ptr(), valid.data_ptr()), e_packed.device,
-        BQ if k1 <= MAX_K1 else BQ_LONG)
+    return _launch_scan(SCAN_TOPK_INT4, entry, k1, b, n, d, vec, pointers,
+                        device, BQ if k1 <= MAX_K1 else BQ_LONG)
 
 
 def _empty_lists(b: int, k1: int, device: torch.device):

@@ -22,6 +22,7 @@ Two numeric rules carry over from the JAX version:
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -29,16 +30,32 @@ import torch
 NEG_INF = -1e30
 
 
+_TF32_LOCK = threading.Lock()
+_tf32_depth = 0          # full_f32 blocks open, in every thread
+_tf32_saved = False      # the flag as the first of them found it
+
+
 @contextlib.contextmanager
 def full_f32():
-    """f32 matrix products at full precision on the card: TF32 is turned
-    off for the duration (PyTorch's default, stated and enforced here)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """f32 matrix products at full precision on the card: TF32 is off
+    inside every block (PyTorch's default, stated and enforced here).
+    The flag is process-wide and blocks overlap across threads
+    (`QueryEngine` scores in a worker thread), so a lock and a depth count
+    guard it: the first block to open saves the flag and clears it, the
+    last to close restores it, the others only count."""
+    global _tf32_depth, _tf32_saved
+    with _TF32_LOCK:
+        if _tf32_depth == 0:
+            _tf32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _TF32_LOCK:
+            _tf32_depth -= 1
+            if _tf32_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _tf32_saved
 
 
 def l2_normalize(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:

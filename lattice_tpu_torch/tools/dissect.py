@@ -225,22 +225,24 @@ def library_products(q, rows, q8, view8, view4, log=print) -> dict:
     return out
 
 
-def instance_floors(q, rows, q8, view8, log=print) -> dict:
-    """The bf16 and int8 probes at FLOOR_TILE, rawmax, at each k1 of
-    SCAN_K1 where kernels A and C take another instance than at k1 = 16
+def instance_floors(q, rows, q8, view8, view4, log=print) -> dict:
+    """The bf16, int8 and int4 probes at FLOOR_TILE, rawmax, at each k1 of
+    SCAN_K1 where kernels A, C and D take another instance than at k1 = 16
     (64 queries a block past K1_WIDE), so that each scan's selection share
     is read over the floor of the blocks it ran."""
     b, d = q.shape
     n = rows.shape[0]
     out = {}
     for kind, qq, rr, row_bytes in (("bf16", q, rows, 2 * d),
-                                    ("int8", q8, view8.values, d)):
+                                    ("int8", q8, view8.values, d),
+                                    ("int4", q8, view4.values, d / 2)):
         for k1 in SCAN_K1:
             if scan.wg_block_queries(b, k1) == scan.wg_block_queries(b, 16):
                 continue
             ms = cuda_ms(lambda: score_probe(qq, rr, tile=FLOOR_TILE, k1=k1),
                          10, warmup=2)
-            bnd = probe_bound(n, d, b, FLOOR_TILE, row_bytes, kind)
+            bnd = probe_bound(n, d, b, FLOOR_TILE, row_bytes,
+                              "int8" if kind == "int4" else kind)
             out[f"{kind}_rawmax_t{FLOOR_TILE}_k{k1}"] = {
                 "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "bound_share": bnd[0] / ms}
@@ -328,7 +330,8 @@ def dissect(store, q: torch.Tensor, trace_dir: str, log=print) -> dict:
     report = {"probes": floors, "scans": scans,
               "library": library_products(q, rows, q8, view8, view4, log),
               "shares": selection_shares(
-                  {**floors, **instance_floors(q, rows, q8, view8, log)},
+                  {**floors, **instance_floors(q, rows, q8, view8, view4,
+                                               log)},
                   scans),
               "batch_sweep": batch_sweep(q, rows, valid, view8, log),
               "traces": trace_plans(store, q, trace_dir, log)}

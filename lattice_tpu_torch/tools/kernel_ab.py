@@ -1,8 +1,8 @@
 """Time kernels A, C and D of one or more checkouts on one card, in one
 call.
 
-    python lattice_tpu_torch/tools/kernel_ab.py [--k1 16,80,128,512]
-        [--k1-4m 16,80] [--skip-4m] CHECKOUT [CHECKOUT ...]
+    python lattice_tpu_torch/tools/kernel_ab.py [--k1 16,32,80,128,512]
+        [--k1-4m 16,32] [--skip-4m] CHECKOUT [CHECKOUT ...]
 
 A checkout is a directory that holds `lattice_tpu_torch/` (this one, or a
 `git archive` of another commit unpacked under `build/`). Each runs in a
@@ -19,10 +19,13 @@ packed to int4) and times with CUDA events, on the card, at B=256 and B=1:
 - the int8 probe (`score_probe` at tile 2048, rawmax): kernel C's floor;
 - `scan_blocks_int8` (kernel C alone) at k1 = 16 (the plans' width; 128
   queries a block at B=256) and 64 (64 queries a block);
-- the int4 probe (kernel D's floor) and `scan_blocks_int4` (kernel D
-  alone) at each k1 of --k1;
+- the int4 probe (kernel D's floor) at the k1 = 16 instance and
+  `scan_blocks_int4` (kernel D alone) at each k1 of --k1, each beside the
+  int4 probe at the instance and route D takes at that k1 (`floor_..._k`;
+  D's selection share is (D - floor) / D);
 - unless --skip-4m, corpus D (4,194,304 x 768 rows from the same
-  centers, B=1024): the int4 probe and kernel D at each k1 of --k1-4m;
+  centers, B=1024): the int4 probe and kernel D at each k1 of --k1-4m,
+  the probe again at each k1's instance;
 
 and prints one line `kernel_ab {json}` with the card's name and power
 limit. Run the checkouts to compare as A, B, B, A in one call: numbers
@@ -128,6 +131,8 @@ def measure(checkout: str, k1s: list[int], k1s_4m: list[int]) -> dict:
         for k1 in k1s:
             out[f"d_b{b}_k{k1}"] = ms(lambda: scan.scan_blocks_int4(
                 qb, sb, packed, scales, valid, k1), 5)
+            out[f"floor_b{b}_k{k1}"] = ms(lambda: score_probe(
+                qb, packed, tile=2048, k1=k1), 5)
     del rows, values8, scales8, packed, scales, valid
     torch.cuda.empty_cache()
     if k1s_4m:
@@ -139,14 +144,16 @@ def measure(checkout: str, k1s: list[int], k1s_4m: list[int]) -> dict:
         for k1 in k1s_4m:
             out[f"d_4m_k{k1}"] = ms(lambda: scan.scan_blocks_int4(
                 qv, qs, packed, scales, valid, k1), 3)
+            out[f"floor_4m_k{k1}"] = ms(lambda: score_probe(
+                qv, packed, tile=2048, k1=k1), 3)
     return out
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("checkouts", nargs="+")
-    ap.add_argument("--k1", default="16,80,128,512")
-    ap.add_argument("--k1-4m", default="16,80")
+    ap.add_argument("--k1", default="16,32,80,128,512")
+    ap.add_argument("--k1-4m", default="16,32")
     ap.add_argument("--skip-4m", action="store_true")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
