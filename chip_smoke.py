@@ -252,7 +252,8 @@ and int4 probes' in 3f).
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on those paths (and by C entry; "routes": every C entry that
-phase 2 and those paths launched, with its count), its largest error
+phase 2 or those paths launched, with its count on those paths alone, so a
+route the main paths never took reads 0), its largest error
 against its plain version, its time, its plain version's time, its bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 H100's dense peak for their type, from this run's shapes) and the time
@@ -3357,9 +3358,11 @@ def main() -> int:
     phase_ivf_kernels(err)
     phase_attention_kernel(err)
     phase_probe_kernel(err)
+    log(f"phase 2 launches by C entry: {_build.entry_launch_counts()}")
     # every route (C entry) of each kernel that phase 2 held to its plain
-    # version, with its launches there; the main paths' are added below
-    routes = {k.name: dict(k.entry_launches) for k in _build.KERNELS}
+    # version, counted from 0 on the main paths below
+    routes = {k.name: dict.fromkeys(k.entry_launches, 0)
+              for k in _build.KERNELS}
 
     ctx: dict = {}
     kernels_ms: dict = {}

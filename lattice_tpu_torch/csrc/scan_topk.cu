@@ -50,7 +50,8 @@
 // accumulators and so the score-tile handoff. The ring has fewer, larger
 // slots (3 at 128 queries, 4 at 64: as many dims in flight as C's 6 and
 // 8) and two s8 pairs, which leaves room for the lists up to K1_WIDE at
-// 128 queries and MAX_K1 at 64 (ops/scan_topk.py `int4_smem_bytes`).
+// 128 queries and MAX_K1 at 64 (mirrored in
+// tests/test_torch_port_scan_int4.py).
 //
 // Lists of kernels D and B reach k1 = MAX_K1_LONG = 512 (the int4 view
 // widens to 8k candidates, 512 at k = 64). A block keeps two lists of k1
@@ -154,7 +155,7 @@ constexpr int SERIAL_K1 = 16;
 // a block: serial `offer` in the epilogue warps up to this list length,
 // batches past it. At 128 queries a block (lists up to K1_WIDE) it always
 // folds serially: its ring and lists leave room for 5-20 staged entries a
-// query, and serial `offer` took 10-27% less time than those batches at k1
+// query, and serial `offer` took 1-27% less time than those batches at k1
 // in {16, 24, 32} (1M x 768, B=256; 4M x 768, B=1024). At 64 queries,
 // batches took 28% less at k1 = 80 and B=256, 2-4% less at k1 in {24, 32}
 // and B=1, as much at k1 = 16, and 8% more at k1 = 80 on 4M x 768 rows,
@@ -744,7 +745,7 @@ size_t int4_wg_smem_bytes(int k1, int cap) {
 // queries or up to WG_SERIAL_K1, else SEL_CAP or the most that fit beside
 // its ring and lists (one block an SM whatever the cap, so only the
 // block's limit counts). Mirrored by `int4_staging_cap` in
-// ops/scan_topk.py.
+// tests/test_torch_port_scan_int4.py.
 template <int BQ_>
 int int4_wg_cap(int k1) {
   if (BQ_ == BQ_WIDE || k1 <= WG_SERIAL_K1) return 0;

@@ -232,7 +232,8 @@ struct WgS4 : WgS8 {
 // The ring of Op's operands: WgCfg's for one query slab a warpgroup (bf16,
 // int8); for int4 fewer, larger slots (a slot's 256 dims are two of int8's)
 // and, past them, the two s8 slab pairs the packed slabs are unpacked into.
-// Mirrored by `wg_smem_bytes` and `int4_smem_bytes` in ops/scan_topk.py.
+// Mirrored by `wg_smem_bytes` in ops/scan_topk.py and `int4_smem_bytes` in
+// tests/test_torch_port_scan_int4.py.
 template <int BQ_, typename Op>
 struct WgRing {
   using C = WgCfg<BQ_>;

@@ -93,10 +93,6 @@ WG_SC_LD = WG_BN + 8  # row stride of its score tile
 SMEM_MAX = 232_448  # shared memory one block may have on the H100
 MAX_K1 = 128     # longest first-stage list a block keeps per query
 MAX_K1_LONG = 512  # longest list of kernels D and B
-# kernel D on wgmma (csrc/scan_wg.cuh `WgRing`, csrc/scan_topk.cu)
-INT4_STAGES = {BQ_WIDE: 3, BQ: 4}  # ring slots by queries a block
-WG_SERIAL_K1 = 16  # longest list it folds by serial `offer` at 64 queries
-SEL_CAP = 32       # staging entries a query past it, at most
 MERGE_CAP = 16384  # candidates one block of kernel B holds
 # kernel B splits a query's candidates over blocks only past this many: up
 # to it one block takes about as long as split blocks plus a second pass
@@ -222,31 +218,6 @@ def wg_plan(n: int, b: int, k1: int, sms: int) -> tuple[int, int, int]:
 int8_block_queries = wg_block_queries
 int8_smem_bytes = wg_smem_bytes
 int8_plan = wg_plan
-
-
-def int4_smem_bytes(bq: int, k1: int, cap: int = 0) -> int:
-    """Dynamic shared memory of kernel D on `wgmma` (`int4_wg_smem_bytes`
-    in scan_topk.cu): alignment slack, the ring (3 slots at 128 queries, 4
-    at 64, each a packed row slab of 64 x 128 bytes and two 64 x 128-byte
-    query slabs, the halves', per warpgroup), two s8 slab pairs to unpack
-    into, the mbarriers, the i32 score tile, two lists of k1 per query and
-    `cap` staging entries (f32 + i32) a query and their fills."""
-    ring = INT4_STAGES[bq] * (WG_BN * WG_BK + bq // BQ * 2 * BQ * WG_BK)
-    staging = 2 * _up(bq * cap * 4) + _up(bq * 4) if cap else 0
-    return (1024 + ring + 4 * WG_BN * WG_BK + 256 + _up(bq * WG_SC_LD * 4)
-            + 2 * _up(bq * k1 * 4) + staging)
-
-
-def int4_staging_cap(bq: int, k1: int) -> int:
-    """Staging entries a query of kernel D on `wgmma` (`int4_wg_cap`): 0
-    (serial `offer`) at 128 queries a block or up to WG_SERIAL_K1, else
-    SEL_CAP or the most that fit beside the ring and the lists."""
-    if bq == BQ_WIDE or k1 <= WG_SERIAL_K1:
-        return 0
-    cap = SEL_CAP
-    while cap > 1 and int4_smem_bytes(bq, k1, cap) > SMEM_MAX:
-        cap -= 1
-    return cap
 
 
 def int8_route(q_values: torch.Tensor, e_values: torch.Tensor) -> str:

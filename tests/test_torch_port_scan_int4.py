@@ -9,8 +9,9 @@ tested here, with inputs made from a numpy seed:
 
 - (a) the plan (`wg_plan`, shared with kernels A and C) at kernel D's
   shapes, every instance's shared memory (`int4_smem_bytes`, with its
-  staging cap) under the H100's 227 KB at every list it takes, and the
-  constants the CUDA source shares with it;
+  staging cap, mirrored here from the constants the CUDA source declares)
+  under the H100's 227 KB at every list it takes, and the constants the
+  CUDA source shares with `ops/scan_topk.py`;
 - (b) the blocking emulated on the CPU: per chunk of the plan, per 64-row
   tile, the sums built slab by slab as the kernel builds them (a packed
   slab past d/2 reads as 0 bytes, which unpack to -8 in the low nibble;
@@ -44,6 +45,50 @@ t = torch.from_numpy
 SMS = 132                       # the H100's SMs
 EMPTY_ID = 0x7FFFFFFF           # an empty list slot's id (topk_select.cuh)
 CSRC = Path(scan.__file__).resolve().parent.parent / "csrc"
+WG_SRC = (CSRC / "scan_wg.cuh").read_text()
+TOPK_SRC = (CSRC / "scan_topk.cu").read_text()
+SEL_SRC = (CSRC / "batch_select.cuh").read_text()
+
+
+def _const(src, name, kind="int"):
+    return int(re.search(rf"constexpr {kind} {name} = (\d+);", src)[1])
+
+
+# kernel D's shared memory on wgmma, mirrored from the CUDA source
+# (`WgRing` in scan_wg.cuh, `int4_wg_smem_bytes` / `int4_wg_cap` in
+# scan_topk.cu): ring slots by queries a block, the longest list folded by
+# serial `offer` at 64 queries, the most staging entries a query past it
+_STAGES = re.search(r"Op::QSLABS == 1 \? C::STAGES : "
+                    r"\(BQ_ == BQ_WIDE \? (\d+) : (\d+)\);", WG_SRC)
+INT4_STAGES = {scan.BQ_WIDE: int(_STAGES[1]), scan.BQ: int(_STAGES[2])}
+WG_SERIAL_K1 = _const(TOPK_SRC, "WG_SERIAL_K1")
+SEL_CAP = _const(SEL_SRC, "SEL_CAP")
+
+
+def int4_smem_bytes(bq: int, k1: int, cap: int = 0) -> int:
+    """Dynamic shared memory of kernel D on `wgmma`: alignment slack, the
+    ring (each slot a packed row slab of 64 x 128 bytes and two 64 x
+    128-byte query slabs, the halves', per warpgroup), two s8 slab pairs
+    to unpack into, the mbarriers, the i32 score tile, two lists of k1 per
+    query and `cap` staging entries (f32 + i32) a query and their fills."""
+    up = scan._up
+    ring = INT4_STAGES[bq] * (scan.WG_BN * scan.WG_BK
+                              + bq // scan.BQ * 2 * scan.BQ * scan.WG_BK)
+    staging = 2 * up(bq * cap * 4) + up(bq * 4) if cap else 0
+    return (1024 + ring + 4 * scan.WG_BN * scan.WG_BK + 256
+            + up(bq * scan.WG_SC_LD * 4) + 2 * up(bq * k1 * 4) + staging)
+
+
+def int4_staging_cap(bq: int, k1: int) -> int:
+    """Staging entries a query: 0 (serial `offer`) at 128 queries a block
+    or up to WG_SERIAL_K1, else SEL_CAP or the most that fit beside the
+    ring and the lists."""
+    if bq == scan.BQ_WIDE or k1 <= WG_SERIAL_K1:
+        return 0
+    cap = SEL_CAP
+    while cap > 1 and int4_smem_bytes(bq, k1, cap) > scan.SMEM_MAX:
+        cap -= 1
+    return cap
 
 
 # ---- (a) the plan -----------------------------------------------------------
@@ -66,12 +111,12 @@ def test_one_block_an_sm_at_the_main_path_shapes():
 def test_every_instance_fits_its_shared_memory(bq):
     top = scan.MAX_K1 if bq == scan.BQ else scan.K1_WIDE
     for k1 in range(1, top + 1):
-        cap = scan.int4_staging_cap(bq, k1)
-        assert (cap == 0) == (bq == scan.BQ_WIDE or k1 <= scan.WG_SERIAL_K1)
-        assert 0 <= cap <= scan.SEL_CAP
-        assert scan.int4_smem_bytes(bq, k1, cap) <= scan.SMEM_MAX, (bq, k1)
-        if cap and cap < scan.SEL_CAP:  # the largest cap that fits
-            assert scan.int4_smem_bytes(bq, k1, cap + 1) > scan.SMEM_MAX
+        cap = int4_staging_cap(bq, k1)
+        assert (cap == 0) == (bq == scan.BQ_WIDE or k1 <= WG_SERIAL_K1)
+        assert 0 <= cap <= SEL_CAP
+        assert int4_smem_bytes(bq, k1, cap) <= scan.SMEM_MAX, (bq, k1)
+        if cap and cap < SEL_CAP:  # the largest cap that fits
+            assert int4_smem_bytes(bq, k1, cap + 1) > scan.SMEM_MAX
     # the instance the route gives every (B, k1) it takes is one of these
     for b in (1, 64, 65, 256, 1024):
         for k1 in range(1, scan.MAX_K1 + 1):
@@ -83,39 +128,30 @@ def test_staging_at_the_main_path_widths():
     """k1 = 80 stages a full buffer of 32 a query at 64 queries a block;
     k1 = 128 one fewer (the lists take the room); k1 = 16 and the 128-query
     instance stage nothing."""
-    assert scan.int4_staging_cap(scan.BQ, 80) == scan.SEL_CAP
-    assert scan.int4_staging_cap(scan.BQ, 128) == scan.SEL_CAP - 1
-    assert scan.int4_staging_cap(scan.BQ, 16) == 0
+    assert int4_staging_cap(scan.BQ, 80) == SEL_CAP
+    assert int4_staging_cap(scan.BQ, 128) == SEL_CAP - 1
+    assert int4_staging_cap(scan.BQ, 16) == 0
     for k1 in (16, 32):  # 128 queries a block fold serially
-        assert scan.int4_staging_cap(scan.BQ_WIDE, k1) == 0
+        assert int4_staging_cap(scan.BQ_WIDE, k1) == 0
 
 
 def test_python_mirrors_the_cuda_constants():
-    wg = (CSRC / "scan_wg.cuh").read_text()
-    topk = (CSRC / "scan_topk.cu").read_text()
-    sel = (CSRC / "batch_select.cuh").read_text()
-
-    def const(src, name, kind="int"):
-        return int(re.search(rf"constexpr {kind} {name} = (\d+);", src)[1])
-
-    stages = re.search(r"Op::QSLABS == 1 \? C::STAGES : "
-                       r"\(BQ_ == BQ_WIDE \? (\d+) : (\d+)\);", wg)
-    assert scan.INT4_STAGES == {scan.BQ_WIDE: int(stages[1]),
-                                scan.BQ: int(stages[2])}
-    assert "UNPACKED = Op::QSLABS == 1 ? 0 : 2 * 2 * WG_RSLAB;" in wg
-    assert "WG_RSLAB + C::CONSUMERS * Op::QSLABS * WG_QSLAB" in wg
-    assert const(topk, "WG_SERIAL_K1") == scan.WG_SERIAL_K1
-    assert const(topk, "WG_SMEM_MAX", "size_t") == scan.SMEM_MAX
-    assert const(sel, "SEL_CAP") == scan.SEL_CAP
-    assert const(wg, "WG_BAR_BYTES") == 256
+    assert INT4_STAGES == {scan.BQ_WIDE: 3, scan.BQ: 4}
+    assert "UNPACKED = Op::QSLABS == 1 ? 0 : 2 * 2 * WG_RSLAB;" in WG_SRC
+    assert "WG_RSLAB + C::CONSUMERS * Op::QSLABS * WG_QSLAB" in WG_SRC
+    assert "if (BQ_ == BQ_WIDE || k1 <= WG_SERIAL_K1) return 0;" in TOPK_SRC
+    assert ("(cap > 0 ? 2 * round_up((size_t)BQ_ * cap * 4) "
+            "+ round_up(BQ_ * 4)") in TOPK_SRC
+    assert _const(TOPK_SRC, "WG_SMEM_MAX", "size_t") == scan.SMEM_MAX
+    assert _const(WG_SRC, "WG_BAR_BYTES") == 256
     # smem less the ring and the two s8 pairs is alignment, barriers,
     # score tile, lists and staging
     for bq in (scan.BQ, scan.BQ_WIDE):
         slot = scan.WG_BN * scan.WG_BK * (1 + 2 * bq // scan.BQ)
         rest = 1024 + 256 + bq * scan.WG_SC_LD * 4 + 2 * bq * 8 * 4
-        assert scan.int4_smem_bytes(bq, 8) == (
-            scan.INT4_STAGES[bq] * slot + 4 * scan.WG_BN * scan.WG_BK + rest)
-        assert scan.int4_smem_bytes(bq, 8, 3) == scan.int4_smem_bytes(
+        assert int4_smem_bytes(bq, 8) == (
+            INT4_STAGES[bq] * slot + 4 * scan.WG_BN * scan.WG_BK + rest)
+        assert int4_smem_bytes(bq, 8, 3) == int4_smem_bytes(
             bq, 8) + 2 * scan._up(bq * 3 * 4) + scan._up(bq * 4)
 
 
