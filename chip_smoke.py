@@ -1,5 +1,6 @@
 """Drive the port's main paths (vector search, the encoder, indexing a
-repository, answering questions about it) once on one NVIDIA card.
+repository, answering questions about it, the CLI over a persisted index)
+once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -144,6 +145,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    through "ivf" and "quantized" at B in {1, 8, 32, 64, 128, 256} (the
    crossover that sets `IVF_SMALL_BATCH`), B=1 p50 of each; `ivf_probe`
    beside its plain version at B in {1, 256}.
+3j(c). Corpus B's store, still resident after 4b, through
+   `persistence.save_chunks` / `load_chunks` on the card with its IVF
+   partition, every row: the reloaded rows bit-equal in the compacted
+   order, the partition and its verdict restored without k-means (a
+   k-means build raises during the load), "ivf" at B=256 the same ids
+   (mapped to the compacted rows) and scores; save and load seconds.
 3e. The capacity tier at the bench's shape (`bench.py:1071-1157`), after
    the second store is freed: 4,194,304 x 768 rows at spread 0.35 made on
    the card in blocks of 131,072, each scored exactly against the first
@@ -175,10 +182,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3g. Indexing through the port, after 3c, with 3c's encoder; the C++ host
    library (`csrc/host/`, `utils/native.py`) must have built and loaded.
    (a) `tests/fixtures/golden_project` through `PipelineOrchestrator`
-   (scan, parse, graph, chunk, embed, summarize; metadata off) with the
-   hash embedder at dim 256, on `device="cuda"` and again on "cpu": the
-   same graph (nodes and the edges of every type), the same code and
-   summary payloads in row order, bit-equal bf16 vectors, no errors. The
+   (scan, parse, graph, chunk, embed, summarize, metadata: default
+   settings, on a scratch copy) with the hash embedder at dim 256, on
+   `device="cuda"` and again on "cpu": the same graph (nodes and the edges
+   of every type), the same code and summary payloads in row order,
+   bit-equal bf16 vectors, no errors, and both runs' metadata in the
+   copy's `.lattice/metadata.sqlite3` (versions 1 and 2, completed). The
    104 golden query texts through `search_code` on the card (auto plan
    "quantized": kernels C + B) equal the CPU store's forced "quantized":
    rows in order, scores within 1e-5; the same vectors through a forced
@@ -228,6 +237,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    on the golden engine (the 104 query texts) and on the real
    repository's (its 16 questions), with the p50 of each `phase_times_ms`
    key, beside the card's name and power limit.
+3j. The CLI, after 4h: `lattice_tpu_torch.main` on a copy of the golden
+   fixture (hash embedder at dim 256 from an env file, the default bf16
+   store, no `--device`: the card), each command a `python3 -c` process
+   of its own that prints its kernel launches on its last line (added to
+   this path's): `index` (metadata on, no file errors, the manifest's
+   dtype "bfloat16"), `search --json` on 8 golden questions, `search
+   --deep --json` on 4 of them, one `search --batch-file` of 16, `query`
+   on 4, `status`, `projects list`, `projects show`, `metadata show` and
+   `settings`. Each process exits 0 and answers as an in-process
+   `QueryEngine` over the orchestrator's in-memory stores of a second
+   copy: the same names in the same order (within a run of exactly equal
+   scores, which both packages order by the process's string hash seed,
+   in any order) and equal scores after a JSON round trip; `query` the
+   same text (tied lines may be reordered); `status`, `projects`,
+   `metadata` (up to the tie order of the diagram's edges) and `settings`
+   what the in-process index and settings give. Kernels C and B must
+   have launched in the processes. Each process's wall time beside the
+   same call in-process, and `save_index` / `load_index` seconds.
+   (b) `FileWatcher` (inotify) over the second copy's stores on the card:
+   one file changed, one created, one deleted; after `process_events` the
+   live graph (nodes, and the distinct edges of every type), the code
+   store's payloads and bf16 rows equal a fresh index of the mutated tree
+   (edges that repeat a pair are printed: the watch re-adds EXTENDS,
+   IMPORTS and DEFINES_METHOD edges, as the JAX package's does), and the
+   104 golden questions through `search_sync` (near-tie swaps as in 3h)
+   and `search_code` answer alike.
 4c. Encoder timings (information only): chunks/s at B=128, L=512 on
    device-resident ids (CUDA events) with the achieved TFLOP/s, the host
    tokenizer per batch, B=1 query encode and `search_code` p50 (host
@@ -245,7 +280,7 @@ at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
 `torch.topk` on them by device time (`device_ms`: a sleep kernel keeps
 the queue full, so the host's issue is not counted) and back to back.
 Launch counts are zeroed just before each of 3a, 3d, 3f, 3i, 3b, 3e, 3c,
-3g and 3h and read just after it; each path's kernels, and every registered
+3g, 3h and 3j and read just after it; each path's kernels, and every registered
 kernel, must have launched, and the C entries each path must have run with them (kernel
 A's and C's wgmma routes on corpus A, D's in 3d and 3e, the bf16, int8
 and int4 probes' in 3f).
@@ -1554,13 +1589,14 @@ STAGES = ("scanning", "parsing", "graph_building", "embedding",
 
 def index_repo(repo: Path, embedder, device: str, project: str,
                indexer=None):
-    """One `PipelineOrchestrator.run()` with the metadata stage off (not
-    ported; `build_golden_engine` turns it off too)."""
+    """One `PipelineOrchestrator.run()` with default settings: its metadata
+    stage writes `<repo>/.lattice/metadata.sqlite3`, so `repo` is a
+    scratch copy."""
     import asyncio
     from lattice_tpu_torch.config.settings import Settings
     from lattice_tpu_torch.pipeline.orchestrator import PipelineOrchestrator
     settings = Settings()
-    settings.metadata.enabled = False
+    require(settings.metadata.enabled, "metadata is off by default")
     orch = PipelineOrchestrator(repo, embedder, project_name=project,
                                 settings=settings, indexer=indexer,
                                 device=device)
@@ -1609,18 +1645,29 @@ def phase_index_golden(ctx: dict) -> None:
     card ("quantized": kernels C + B) held to the CPU store's forced
     "quantized", and through a forced "pallas" (kernels A + B) held to the
     CPU's under kernel A's bar."""
+    import shutil
+    import tempfile
     from lattice_tpu_torch.embeddings.embedder import Embedder
     from lattice_tpu_torch.embeddings.indexer import VectorSearcher
+    from lattice_tpu_torch.metadata.repository import MetadataRepository
     from lattice_tpu_torch.ops import _build
     from lattice_tpu_torch.providers.hash_provider import HashEmbedder
     embedder = Embedder(HashEmbedder(dimensions=GOLDEN_DIM))
-    t0 = time.perf_counter()
-    card = index_repo(GOLDEN, embedder, "cuda", "golden_eval")
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    host = index_repo(GOLDEN, embedder, "cpu", "golden_eval")
-    host_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        repo = Path(tmp) / "golden"
+        shutil.copytree(GOLDEN, repo)
+        t0 = time.perf_counter()
+        card = index_repo(repo, embedder, "cuda", "golden_eval")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = index_repo(repo, embedder, "cpu", "golden_eval")
+        host_s = time.perf_counter() - t0
+        meta = MetadataRepository(repo / ".lattice").list_versions(
+            "golden_eval")
+        require([(v, st) for v, st, _ in meta] == [(2, "completed"),
+                                                    (1, "completed")],
+                 f"metadata versions {meta}")
     require(graph_signature(card.graph_builder.store)
             == graph_signature(host.graph_builder.store),
             "the card's and the CPU's runs built different graphs")
@@ -1640,7 +1687,8 @@ def phase_index_golden(ctx: dict) -> None:
     log(f"golden fixture indexed on the card in {card_s:.2f} s, on the CPU "
         f"in {host_s:.2f} s: {len(card.files)} files, graph {gstats['nodes']}"
         f" nodes, edges {gstats['edges']}; {card.indexer.stats}; graphs, "
-        f"payloads and bf16 vector bits equal")
+        f"payloads and bf16 vector bits equal; metadata written by both "
+        f"runs (versions 1 and 2, completed)")
 
     cases = golden_cases()
     store, cpu_store = card.indexer.code, host.indexer.code
@@ -2202,6 +2250,521 @@ def phase_query_timings(ctx: dict, smi: str) -> None:
             log(f"3h timing, {label}, {path}: p50 "
                 f"{statistics.median(lat):.3f} ms over {len(texts)} queries "
                 f"(host clock); phase p50 ms {keys}; {smi}")
+
+
+# ---- 3j: the CLI, as separate processes over one persisted index ----------
+
+CLI_PROJECT = "golden_cli"
+CLI_SEARCH = 8             # `search --json` processes, one question each
+CLI_DEEP = 4               # `search --deep --json` processes (of those 8)
+CLI_BATCH = 16             # questions of the one `search --batch-file`
+CLI_QUERY = 4              # `query` processes (of those 8)
+WATCH_CHANGED = "app/utils/textdiff.py"
+WATCH_CREATED = "app/utils/slug.py"
+WATCH_DELETED = "app/importers/csv_import.py"
+
+# one CLI process: `main(argv)` of the port, then, on its last line, the
+# kernel launches it made (by kernel, by C entry) and its timings
+CLI_SCRIPT = r"""
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import torch
+from lattice_tpu_torch import main as cli
+from lattice_tpu_torch.ops import _build
+t1 = time.perf_counter()
+rc = cli.main(sys.argv[2:])
+t2 = time.perf_counter()
+cuda = torch.cuda.is_available()
+print(json.dumps({
+    "rc": rc, "import_s": t1 - t0, "main_s": t2 - t1,
+    "cuda_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+    "launches": _build.launch_counts(),
+    "entries": _build.entry_launch_counts(),
+    "by_kernel": {k.name: k.entry_launches for k in _build.KERNELS}}),
+    flush=True)
+"""
+
+
+class CliProcesses:
+    """Runs `lattice <argv>` of the port, each call in a process of its own
+    (`python3 -c CLI_SCRIPT`), with HOME (the projects registry) in a
+    scratch directory; keeps each process's wall time and launches."""
+
+    def __init__(self, env_file: Path, home: Path, device: str):
+        import os
+        self.head = ["--env", str(env_file)] + (
+            [] if device == "cuda" else ["--device", device])
+        self.env = {**os.environ, "HOME": str(home)}
+        self.cwd = home
+        self.launches: dict[str, int] = {}
+        self.by_kernel: dict[str, dict[str, int]] = {}
+        self.times: list[tuple[str, float, float, float]] = []
+
+    def __call__(self, label: str, *argv: str) -> tuple[str, dict]:
+        cmd = [sys.executable, "-c", CLI_SCRIPT, str(ROOT), *self.head, *argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              env=self.env, cwd=self.cwd, timeout=600)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"`lattice {' '.join(argv)}` exited "
+                f"{proc.returncode}: {proc.stderr[-3000:]}")
+        out, _, last = proc.stdout.rstrip("\n").rpartition("\n")
+        tail = json.loads(last)
+        require(tail["rc"] == 0, f"`lattice {' '.join(argv)}` returned "
+                f"{tail['rc']}: {proc.stderr[-3000:]}")
+        for name, n in tail["launches"].items():
+            self.launches[name] = self.launches.get(name, 0) + n
+        for name, entries in tail["by_kernel"].items():
+            mine = self.by_kernel.setdefault(name, {})
+            for e, n in entries.items():
+                mine[e] = mine.get(e, 0) + n
+        self.times.append((label, wall, tail["import_s"], tail["main_s"]))
+        return out, tail
+
+
+def cli_texts(cases: list[dict]) -> tuple[list[str], list[str], list[str]]:
+    """The golden questions of 3j: CLI_SEARCH spread over the set (each
+    through `search --json`; the first CLI_DEEP and CLI_QUERY of them also
+    through `search --deep` and `query`), and CLI_BATCH for the batch."""
+    texts = list(dict.fromkeys(c["query"] for c in cases))
+    search = texts[::len(texts) // CLI_SEARCH][:CLI_SEARCH]
+    batch = texts[3::len(texts) // CLI_BATCH][:CLI_BATCH]
+    return search, batch, texts
+
+
+def json_round_trip(results) -> list[dict]:
+    from lattice_tpu_torch.query.ranking.utils import (
+        ranked_results_to_search_results)
+    return json.loads(json.dumps(ranked_results_to_search_results(results)))
+
+
+def tie_groups(results) -> list[tuple[int, int]]:
+    """[lo, hi) runs of results whose scores are exactly equal. Both
+    packages order such ties by the iteration order of sets of strings,
+    which follows the process's string hash seed: two processes may order
+    them differently."""
+    groups, lo = [], 0
+    for i in range(1, len(results) + 1):
+        if i == len(results) or results[i].score != results[lo].score:
+            groups.append((lo, i))
+            lo = i
+    return groups
+
+
+def same_cli_results(got: list[dict], results, where: str
+                     ) -> tuple[int, set[str]]:
+    """A process's `--json` results against the in-process engine's
+    `results` after the same JSON round trip: the same names in the same
+    order (but within a run of exactly equal scores, where the same names
+    in any order) and equal scores. Returns (tie runs ordered otherwise,
+    the other fields that differ somewhere, `metadata.*` by subkey)."""
+    want = json_round_trip(results)
+    require(len(got) == len(want) > 0, f"{where}: {len(got)} results from "
+            f"the process, {len(want)} in-process")
+    require([r["score"] for r in got] == [r["score"] for r in want],
+            f"{where}: scores {[r['score'] for r in got]} / "
+            f"{[r['score'] for r in want]}")
+    permuted = 0
+    for lo, hi in tie_groups(results):
+        a = [r["name"] for r in got[lo:hi]]
+        b = [r["name"] for r in want[lo:hi]]
+        require(a == b or (hi - lo > 1 and sorted(a) == sorted(b)),
+                f"{where}: names {[r['name'] for r in got]} / "
+                f"{[r['name'] for r in want]}")
+        permuted += a != b
+    # compared as JSON text: a NaN signal equals itself there
+    same = functools.partial(json.dumps, sort_keys=True)
+    other = set()
+    for lo, hi in tie_groups(results):
+        if hi - lo == 1:
+            a, b = got[lo], want[lo]
+            other |= {k for k in a if k != "metadata"
+                      and same(a[k]) != same(b.get(k))}
+            other |= {f"metadata.{k}" for k in a["metadata"]
+                      if same(a["metadata"][k])
+                      != same(b["metadata"].get(k))}
+    return permuted, other
+
+
+def same_query_text(out: str, res, where: str) -> int:
+    """`lattice query`'s output against the in-process answer: the same
+    text, or, where the top 8 results hold exact ties, the same lines in
+    an order that differs only there. Returns 1 if it differs."""
+    want = query_text(res)
+    if out == want:
+        return 0
+    tied = [g for g in tie_groups(res.results[:8]) if g[1] - g[0] > 1]
+    require(tied and sorted(out.splitlines()) == sorted(want.splitlines()),
+            f"{where}: the process printed {out[:400]!r}, the engine "
+            f"{want[:400]!r}")
+    return 1
+
+
+def diagram_key(mermaid: str) -> tuple:
+    """A metadata architecture diagram up to the order of its edges of
+    equal weight, which follows the string hash order of the process that
+    drew it: its header, its weights in order, and its lines above the
+    last weight (lines of the last weight may be cut at the 30th edge)."""
+    lines = mermaid.splitlines()
+    weights = [int(m.group(1)) for m in map(
+        re.compile(r".*-->\|(\d+)\|").match, lines[1:]) if m]
+    last = min(weights, default=0)
+    return lines[0], len(lines), weights, sorted(
+        ln for ln, w in zip(lines[1:], weights) if w > last)
+
+
+def query_text(res) -> str:
+    """What `lattice query` prints for one result (`main.run_query`)."""
+    lines = [res.answer]
+    if res.results:
+        lines.append("\nsources:")
+        lines += [f"  {r.file_path}:{r.start_line} "
+                  f"({r.qualified_name or r.name})" for r in res.results[:5]]
+    return "\n".join(lines)
+
+
+def live_graph(store) -> tuple:
+    """A graph as a set: its live nodes (qualified name, type, file, lines)
+    and each edge type's distinct (source, target) qualified-name pairs;
+    with the number of edges that repeat a pair."""
+    nodes = sorted((r.qualified_name, r.entity_type.value, r.file_path,
+                    r.start_line, r.end_line)
+                   for r in map(store.node, range(store.n_nodes()))
+                   if store._alive[r.node_id])
+    edges, repeats = {}, {}
+    for et in store._edges:
+        src, dst = store.edges(et)
+        pairs = [(store._qns[a], store._qns[b])
+                 for a, b in zip(src.tolist(), dst.tolist())]
+        edges[et.value] = sorted(set(pairs))
+        repeats[et.value] = len(pairs) - len(edges[et.value])
+    return (nodes, edges), repeats
+
+
+def row_bits(store) -> dict[str, bytes]:
+    """Each live row's bf16 bits, keyed by its payload."""
+    live = [r for r, p in enumerate(store._payloads) if p is not None]
+    bits = store._emb[torch.as_tensor(live, device=store.device)].view(
+        torch.int16).cpu().numpy()
+    return {json.dumps(store._payloads[r], sort_keys=True): bits[i].tobytes()
+            for i, r in enumerate(live)}
+
+
+def phase_cli_path(ctx: dict, device: str = "cuda") -> None:
+    """3j: the port's CLI on a copy of the golden fixture, each command a
+    process of its own over one persisted index, against an in-process
+    `QueryEngine` over the orchestrator's in-memory stores of another
+    copy; then `FileWatcher` on that copy against a fresh index."""
+    import asyncio
+    import shutil
+    import tempfile
+    from lattice_tpu_torch.config.settings import Settings
+    from lattice_tpu_torch.embeddings.embedder import Embedder
+    from lattice_tpu_torch.metadata.repository import MetadataRepository
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.pipeline.orchestrator import PipelineOrchestrator
+    from lattice_tpu_torch.providers.factory import get_embedding_provider
+    from lattice_tpu_torch.query.engine import QueryEngine
+    from lattice_tpu_torch.storage import persistence
+    t_phase = time.perf_counter()
+    search, batch, _ = cli_texts(golden_cases())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cli_repo, own_repo = tmp / "cli" / "golden", tmp / "own" / "golden"
+        shutil.copytree(GOLDEN, cli_repo)
+        shutil.copytree(GOLDEN, own_repo)
+        env_file = tmp / "cli.env"
+        env_file.write_text("EMBEDDING_PROVIDER=hash\n"
+                            f"EMBEDDING_DIMENSIONS={GOLDEN_DIM}\n")
+        (tmp / "home").mkdir()
+        lattice = CliProcesses(env_file, tmp / "home", device)
+        settings = Settings.from_env(env_file)
+        path = ["--path", str(cli_repo)]
+        inproc: dict[str, float] = {}
+
+        out, tail = lattice("index", "index", str(cli_repo), "--project",
+                            CLI_PROJECT)
+        require(f"indexed {CLI_PROJECT}:" in out and "file errors" not in out,
+                f"index: {out[-500:]}")
+        manifest = persistence.read_manifest(cli_repo / ".lattice")
+        require(manifest["dtype"] == "bfloat16"
+                and manifest["dims"] == GOLDEN_DIM, f"manifest {manifest}")
+        if device == "cuda":
+            require(tail["cuda_bytes"] > 0, "index held nothing on the card")
+
+        embedder = Embedder(get_embedding_provider(
+            settings.ai, finetune_dir=own_repo / settings.storage.data_dir,
+            device=device), batch_size=settings.indexing.embed_batch_size)
+        t0 = time.perf_counter()
+        run = asyncio.run(PipelineOrchestrator(
+            own_repo, embedder, project_name=CLI_PROJECT, settings=settings,
+            device=device).run())
+        inproc["index"] = time.perf_counter() - t0
+        require(run.errors == [], f"in-process index: {run.errors[:3]}")
+        engine = QueryEngine(run.graph_builder.store, run.indexer, None,
+                             settings.query)
+        plan = run.indexer.code._plan_search(1, GOLDEN_LIMIT, None, "auto")
+        log(f"3j: in-process index of the second copy in "
+            f"{inproc['index']:.3f} s; the store's B=1 auto plan {plan!r}")
+
+        permuted, other = 0, set()
+
+        def compare(got, results, where):
+            nonlocal permuted
+            a, b = same_cli_results(got, results, where)
+            permuted += a
+            other.update(b)
+
+        for i, text in enumerate(search):
+            out, _ = lattice(f"search {i}", "search", text, *path, "--json")
+            t0 = time.perf_counter()
+            res = engine.search_sync(text)
+            inproc[f"search {i}"] = time.perf_counter() - t0
+            compare(json.loads(out), res.results, f"search {text!r}")
+        for i, text in enumerate(search[:CLI_DEEP]):
+            out, _ = lattice(f"deep {i}", "search", text, *path, "--deep",
+                             "--json")
+            t0 = time.perf_counter()
+            res = engine.deep_search(text)
+            inproc[f"deep {i}"] = time.perf_counter() - t0
+            compare(json.loads(out), res.results, f"search --deep {text!r}")
+        batch_file = tmp / "questions.txt"
+        batch_file.write_text("\n".join(batch) + "\n")
+        out, _ = lattice("batch", "search", *path, "--json", "--batch-file",
+                         str(batch_file))
+        t0 = time.perf_counter()
+        want = engine.deep_search_batch(batch)
+        inproc["batch"] = time.perf_counter() - t0
+        got = json.loads(out)
+        require([g["query"] for g in got] == batch, "batch: queries")
+        for g, w in zip(got, want):
+            require(g["intent"] == w.query_plan.intent.value,
+                    f"batch {w.query!r}: intent")
+            compare(g["results"], w.results, f"--batch-file {w.query!r}")
+        reordered = 0
+        for i, text in enumerate(search[:CLI_QUERY]):
+            out, _ = lattice(f"query {i}", "query", text, *path)
+            t0 = time.perf_counter()
+            res = engine.query_sync(text)
+            inproc[f"query {i}"] = time.perf_counter() - t0
+            reordered += same_query_text(out, res, f"query {text!r}")
+        log(f"3j: search x{CLI_SEARCH}, --deep x{CLI_DEEP}, --batch-file of "
+            f"{CLI_BATCH}: names and scores equal to the in-process engine's "
+            f"({permuted} runs of exactly tied scores in another order; "
+            f"other fields that differ somewhere: {sorted(other)}); query "
+            f"x{CLI_QUERY}: the same text ({reordered} with tied lines in "
+            f"another order)")
+
+        out, _ = lattice("status", "status", *path)
+        stats = engine.get_statistics()
+        for line in (f"project: {CLI_PROJECT}",
+                     f"provider: hash ({GOLDEN_DIM}d, bfloat16)",
+                     f"files indexed: {len(run.files)}",
+                     f"graph: {stats['graph']['nodes']} nodes, "
+                     f"edges={stats['graph']['edges']}",
+                     f"vectors: code={len(run.indexer.code)}, "
+                     f"summaries={len(run.indexer.summaries)}"):
+            require(line in out.splitlines(), f"status lacks {line!r}: {out}")
+        out, _ = lattice("projects list", "projects", "list")
+        require(out.split() == [CLI_PROJECT, str(cli_repo),
+                                f"({len(run.files)}", "files)"],
+                f"projects list: {out!r}")
+        out, _ = lattice("projects show", "projects", "show", CLI_PROJECT)
+        require(json.loads(out) == {**manifest, "file_hashes": len(
+            manifest["file_hashes"])}, f"projects show: {out[:300]}")
+        out, _ = lattice("metadata show", "metadata", "show", *path,
+                         "--project", CLI_PROJECT)
+        shown = json.loads(out)
+        mine = MetadataRepository(own_repo / settings.storage.data_dir
+                                  ).get_latest(CLI_PROJECT)
+        differ = sorted(k for k in shown.keys() | mine.keys()
+                        if k not in ("field_timings_ms",
+                                     "architecture_diagram")
+                        and shown.get(k) != mine.get(k))
+        if diagram_key(shown["architecture_diagram"]) != diagram_key(
+                mine["architecture_diagram"]):
+            differ.append("architecture_diagram")
+        require(shown["status"] == "completed" and shown["version"] == 1
+                and not differ, f"metadata show: fields {differ} differ "
+                f"from the in-process index's: "
+                f"{[(shown.get(k), mine.get(k)) for k in differ][:2]}")
+        out, _ = lattice("settings", "settings")
+        require(json.loads(out) == json.loads(json.dumps(
+            dataclasses.asdict(settings))), "settings")
+
+        t0 = time.perf_counter()
+        persistence.save_index(tmp / "saved", run.graph_builder.store,
+                               run.indexer, project=CLI_PROJECT,
+                               provider="hash", file_hashes={})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        persistence.load_index(tmp / "saved", embedder, device=device)
+        load_s = time.perf_counter() - t0
+        for label, wall, import_s, main_s in lattice.times:
+            own = inproc.get(label)
+            log(f"3j process `{label}`: {wall:.3f} s start to exit (imports "
+                f"{import_s:.3f} s, main() {main_s:.3f} s)"
+                + (f"; the same call in-process {own * 1e3:.3f} ms"
+                   if own is not None else "") + f"; {ctx.get('smi', '')}")
+        log(f"3j: golden index save_index {save_s:.3f} s, load_index "
+            f"{load_s:.3f} s (in-process, {device}); {ctx.get('smi', '')}")
+
+        if device == "cuda":
+            for name in ("scan_topk_int8", "merge_candidates"):
+                require(lattice.launches.get(name, 0) > 0,
+                        f"{name} never ran in a CLI process")
+        # the processes' launches count with this process's own
+        for k in _build.KERNELS:
+            k.launches += lattice.launches.get(k.name, 0)
+            for e, n in lattice.by_kernel.get(k.name, {}).items():
+                k.entry_launches[e] = k.entry_launches.get(e, 0) + n
+        log(f"3j: launches in the CLI processes {lattice.launches}, by C "
+            f"entry {lattice.by_kernel}")
+        phase_cli_watch(own_repo, run, embedder, settings, device)
+    log(f"phase 3j took {time.perf_counter() - t_phase:.2f} s")
+
+
+def phase_cli_watch(repo: Path, run, embedder, settings, device: str) -> None:
+    """3j(b): `FileWatcher` (inotify) over the in-process index: one file
+    changed, one created, one deleted; the stores then hold what a fresh
+    index of the mutated tree holds, and answer alike."""
+    import asyncio
+    from lattice_tpu_torch.embeddings.indexer import VectorSearcher
+    from lattice_tpu_torch.pipeline.orchestrator import PipelineOrchestrator
+    from lattice_tpu_torch.pipeline.watcher import FileWatcher
+    from lattice_tpu_torch.query.engine import QueryEngine
+    watcher = FileWatcher(repo, run.graph_builder, run.indexer, run.parser,
+                          settings, CLI_PROJECT, backend="inotify")
+    try:
+        watcher.prime(run.parsed)
+        changed = repo / WATCH_CHANGED
+        changed.write_text(changed.read_text() + "\n\ndef watched_helper("
+                           "text):\n    return changed_ratio(text, text)\n")
+        (repo / WATCH_CREATED).write_text("def created_by_watch(x):\n"
+                                          "    return x + 1\n")
+        (repo / WATCH_DELETED).unlink()
+        events = watcher.detect_once()
+        kinds = sorted((e.kind, e.relative_path) for e in events)
+        require(kinds == [("changed", WATCH_CHANGED),
+                          ("created", WATCH_CREATED),
+                          ("deleted", WATCH_DELETED)], f"events {kinds}")
+        t0 = time.perf_counter()
+        asyncio.run(watcher.process_events(events))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        watch_s = time.perf_counter() - t0
+        require(watcher.stats.updated == 2 and watcher.stats.deleted == 1
+                and watcher.stats.errors == 0, f"watch {watcher.stats}")
+        backend = watcher.backend_name
+    finally:
+        watcher.close()
+    t0 = time.perf_counter()
+    fresh = asyncio.run(PipelineOrchestrator(
+        repo, embedder, project_name=CLI_PROJECT, settings=settings,
+        device=device).run())
+    fresh_s = time.perf_counter() - t0
+    require(fresh.errors == [], f"fresh index: {fresh.errors[:3]}")
+    (graph_w, rep_w), (graph_f, rep_f) = (
+        live_graph(run.graph_builder.store),
+        live_graph(fresh.graph_builder.store))
+    require(graph_w == graph_f, "the watched graph differs from a fresh "
+            "index of the mutated tree")
+    a, b = run.indexer.code, fresh.indexer.code
+    require(a.device.type == b.device.type == torch.device(device).type,
+            "stores off the device")
+    require(row_bits(a) == row_bits(b), "the watched code store's payloads "
+            "and bf16 rows differ from a fresh index's")
+    watched, new = QueryEngine(run.graph_builder.store, run.indexer), \
+        QueryEngine(fresh.graph_builder.store, fresh.indexer)
+    swaps = 0
+    for case in golden_cases():
+        text = case["query"]
+        swaps += len(compare_top(watched.search_sync(text, limit=K).results,
+                                 new.search_sync(text, limit=K).results,
+                                 f"watched vs fresh {text!r}"))
+        got = VectorSearcher(run.indexer).search_code(text, GOLDEN_LIMIT)
+        want = VectorSearcher(fresh.indexer).search_code(text, GOLDEN_LIMIT)
+        # row ids differ, so rows of exactly equal scores may swap
+        require([h.score for h in got] == [h.score for h in want]
+                and sorted((h.score, h.graph_node_id, h.start_line)
+                           for h in got)
+                == sorted((h.score, h.graph_node_id, h.start_line)
+                          for h in want),
+                f"search_code({text!r}) differs after the watch")
+    log(f"3j(b): FileWatcher ({backend}) applied "
+        f"{len(events)} events in {watch_s:.3f} s (a fresh index took "
+        f"{fresh_s:.3f} s): live graph ({len(graph_w[0])} nodes), code "
+        f"payloads and bf16 rows ({len(a)}) equal a fresh index's; edges "
+        f"that repeat a pair: watched {rep_w}, fresh {rep_f} (the JAX "
+        f"package's `rebuild_file` re-adds the others too); 104 golden "
+        f"questions through "
+        f"search_sync ({swaps} near-tie swaps) and search_code equal")
+
+
+def phase_cli_roundtrip(ctx: dict) -> None:
+    """3j(c), on corpus B while it is resident (after 4b): its store
+    through `save_chunks` / `load_chunks` on the card with its IVF
+    partition. The rows come back bit-equal in the compacted order, the
+    partition and its verdict without k-means, and "ivf" searches give
+    the same ids (mapped to the compacted rows) and scores."""
+    import tempfile
+    from lattice_tpu_torch.ops.ivf import IVFIndex
+    from lattice_tpu_torch.storage import persistence
+    store, q = ctx["store2"], ctx["queries2"]
+    dev = store.device
+    ivf_ = store._ivf
+    require(ivf_ is not None and not store._ivf_dirty and not ivf_.hollow,
+            "corpus B has no fresh partition to save")
+    live = persistence.live_rows(store)
+
+    def no_kmeans(*args, **kwargs):
+        raise AssertionError("load_chunks ran k-means")
+    with tempfile.TemporaryDirectory() as tmp:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        persistence.save_chunks(store, Path(tmp), "corpus_b")
+        save_s = time.perf_counter() - t0
+        size = sum(p.stat().st_size for p in Path(tmp).iterdir())
+        build = IVFIndex.build_from_device
+        IVFIndex.build_from_device = no_kmeans
+        try:
+            t0 = time.perf_counter()
+            loaded = persistence.load_chunks(Path(tmp), "corpus_b",
+                                             store.dim, "bfloat16", device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            IVFIndex.build_from_device = build
+    n = len(live)
+    idx = torch.as_tensor(live, device=dev)
+    require(len(loaded) == n and torch.equal(
+        loaded._emb[:n].view(torch.int16), store._emb[idx].view(torch.int16)),
+        "reloaded rows are not bit-equal")
+    require(loaded._payloads[:n] == [store._payloads[r] for r in live],
+            "reloaded payloads differ")
+    got = loaded._ivf
+    require(got is not None and not loaded._ivf_dirty and not got.hollow
+            and got.measured_recall == ivf_.measured_recall
+            and got.measured_nprobe == ivf_.measured_nprobe
+            and torch.equal(got.centroids, ivf_.centroids),
+            "the partition or its verdict was not restored")
+    s, i = store.search_device(q, K, method="ivf")
+    s2, i2 = loaded.search_device(q, K, method="ivf")
+    require(bool((i >= 0).all()), "'ivf' gave empty slots")
+    remap = torch.full((store.capacity,), -1, dtype=torch.int64, device=dev)
+    remap[idx] = torch.arange(n, device=dev)
+    require(torch.equal(remap[i.long()], i2.long()) and torch.equal(s, s2),
+            "'ivf' searches differ after the reload")
+    log(f"3j(c): corpus B, {n} rows x {store.dim} bf16 and its partition (C="
+        f"{got.n_clusters}, "
+        f"recall {got.measured_recall:.4f} at nprobe {got.measured_nprobe}): "
+        f"save_chunks {save_s:.3f} s ({size / 1e9:.3f} GB on disk), "
+        f"load_chunks {load_s:.3f} s without k-means; rows bit-equal, 'ivf' "
+        f"at B={q.shape[0]} the same ids and scores; {ctx.get('smi', '')}")
+    del loaded
 
 
 def probe_plain_chunked(q, probe, data, ids, k, max_batch=32):
@@ -3364,7 +3927,7 @@ def main() -> int:
     routes = {k.name: dict.fromkeys(k.entry_launches, 0)
               for k in _build.KERNELS}
 
-    ctx: dict = {}
+    ctx: dict = {"smi": smi}   # the card's name and power limit
     kernels_ms: dict = {}
     launches = {k.name: 0 for k in _build.KERNELS}
     entries = {k.name: {} for k in _build.KERNELS}
@@ -3393,7 +3956,9 @@ def main() -> int:
              ("scan_topk_int8", "merge_candidates", "scan_topk",
               "paired_attention")),
             ("query side", phase_query_path,
-             ("scan_topk_int8", "merge_candidates", "paired_attention"))):
+             ("scan_topk_int8", "merge_candidates", "paired_attention")),
+            ("CLI", phase_cli_path,
+             ("scan_topk_int8", "merge_candidates"))):
         _build.reset_launch_counts()
         phase(ctx)
         counts = {**_build.launch_counts(), **_build.entry_launch_counts()}
@@ -3429,6 +3994,7 @@ def main() -> int:
                 f" GB allocated")
         elif path == "ivf":
             phase_ivf_timings(ctx, kernels_ms, err, smi)
+            phase_cli_roundtrip(ctx)
             del ctx["store2"], ctx["queries2"]
             gc.collect()
             torch.cuda.empty_cache()

@@ -20,7 +20,11 @@ the hybrid ranker, context, responder and `query.engine.QueryEngine`
 (`search_sync`, `query_sync`, `deep_search`), which serves on the device
 of the stores it is given, with the ranking fuse of `ops/ranking.py` and
 the golden eval (`python -m lattice_tpu_torch.query.golden_eval --device
-cuda`). The device deep path above 100,000 rows is not ported yet.
+cuda`), the deep path's device branch, and the CLI (`main.py`: `index`,
+`search`, `query`, `status`, `settings`, `projects`, `metadata`,
+`watch`) over an index persisted in the JAX package's format
+(`storage/`), with the provider factory, metadata, projects and the
+inotify watcher. Serving and MCP are not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any
 
+import torch
+
 
 class LatticeError(Exception):
     """Base error. Reference analog: `CodeRAGError` (`core/errors.py:1`)."""
@@ -99,3 +101,11 @@ class MetadataError(LatticeError):
 
 class KernelError(LatticeError):
     """TPU-native addition: a Pallas/XLA kernel failed validation against its oracle."""
+
+
+# failures that are not a degraded answer nor one file's error: a kernel
+# that did not build or launch, the card out of memory, a path that is not
+# ported. The query phases, the IVF restore and the watcher re-raise them
+# where the JAX package logs and carries on.
+DEVICE_ERRORS = (KernelError, torch.cuda.OutOfMemoryError,
+                 NotImplementedError)

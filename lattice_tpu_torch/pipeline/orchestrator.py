@@ -14,11 +14,6 @@ tolerance. The differences from the reference:
   every entry point of the port; its `GraphStore`'s device methods run
   there too. The store dtype keeps the reference's rule (`index_dtype` unless
   `settings.device.platform == "cpu"`, then float32).
-- `metadata/` is not ported (ROADMAP queue 1, item 6): with
-  `settings.metadata.enabled` and no generator given, the constructor
-  raises `NotImplementedError`, before any stage runs, where the
-  reference's metadata stage records a "metadata init" error. Turn it off
-  (`settings.metadata.enabled = False`) or pass a generator.
 """
 
 from __future__ import annotations
@@ -84,11 +79,6 @@ class PipelineOrchestrator:
         device: str | torch.device = "cuda",
     ):
         settings = settings or get_settings()
-        if metadata_generator is None and settings.metadata.enabled:
-            raise NotImplementedError(
-                "the metadata stage is not ported to lattice_tpu_torch yet "
-                "(ROADMAP queue 1, item 6, metadata/): set "
-                "settings.metadata.enabled = False or pass a generator")
         repo_path = Path(repo_path).resolve()
         tracker = ProgressTracker()
         if progress_callback is not None:
@@ -217,12 +207,26 @@ class PipelineOrchestrator:
         ctx.tracker.finish_stage()
 
     async def _stage_metadata(self) -> None:
-        """Reference: `orchestrator.py:538-605`. Runs the generator it was
-        given, if any (the constructor refuses `MetadataSettings.enabled`
-        without one)."""
+        """Reference: `orchestrator.py:538-605`; the local deterministic
+        generator runs by default (`MetadataSettings.enabled`)."""
         ctx = self.ctx
         ctx.tracker.start_stage(PipelineStage.METADATA, total=1)
         generator = ctx.metadata_generator
+        if generator is None and ctx.settings.metadata.enabled:
+            try:
+                from lattice_tpu_torch.metadata.generator import (
+                    MetadataGenerator)
+                from lattice_tpu_torch.metadata.repository import (
+                    MetadataRepository)
+                repo = MetadataRepository(
+                    ctx.repo_path / ctx.settings.storage.data_dir,
+                    ctx.settings.storage.metadata_db)
+                generator = MetadataGenerator(
+                    ctx.repo_path, ctx.project_name, repository=repo,
+                    graph_store=ctx.graph_builder.store)
+            except Exception as exc:
+                ctx.errors.append(f"metadata init: {exc}")
+                generator = None
         if generator is not None:
             try:
                 await generator.generate_all()

@@ -1,2 +1,2 @@
-"""Embedding providers: the hash provider, the UniXcoder encoder, and
-their base class."""
+"""Providers: the hash provider, the UniXcoder encoder, the HTTP
+providers, their base classes and the factory that picks one."""

@@ -18,7 +18,7 @@ in `asyncio.to_thread` workers, so on the card the scan kernels launch
 from a worker thread, on the device's current stream there. The
 degradation above covers host failures only: a kernel that fails to build
 or launch, the card out of memory, or a path that is not ported raises
-(`_DEVICE_ERRORS`). `deep_search` serves stores below
+(`core.errors.DEVICE_ERRORS`). `deep_search` serves stores below
 `DEEP_DEVICE_THRESHOLD` rows through its host branch and
 `ops/ranking.fused_rank` on the store's device; at or above it, the
 device branch: a budgeted host CSR walk, expanded to rows through the
@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from lattice_tpu_torch.config.settings import QuerySettings
-from lattice_tpu_torch.core.errors import KernelError
+from lattice_tpu_torch.core.errors import DEVICE_ERRORS
 from lattice_tpu_torch.core.types import EdgeType, ResultSource
 from lattice_tpu_torch.embeddings.indexer import VectorIndexer, VectorSearcher
 from lattice_tpu_torch.index.chunk_store import query_token_set
@@ -83,11 +83,6 @@ from lattice_tpu_torch.utils.tracing import get_tracer
 logger = logging.getLogger(__name__)
 
 
-# failures that are not a degraded answer: a kernel that did not build or
-# launch, the card out of memory, a path that is not ported. The phases
-# re-raise them rather than answer with an empty side.
-_DEVICE_ERRORS = (KernelError, torch.cuda.OutOfMemoryError,
-                  NotImplementedError)
 
 
 def _weights_tuple(cfg, plan):
@@ -137,7 +132,7 @@ class QueryEngine:
     def _graph_phase(self, plan: QueryPlan) -> GraphContext:
         try:
             return self.graph_engine.execute_query_plan(plan)
-        except _DEVICE_ERRORS:
+        except DEVICE_ERRORS:
             raise
         except Exception as exc:
             logger.warning("graph phase failed: %s", exc)
@@ -163,7 +158,7 @@ class QueryEngine:
                 results += self.vector_searcher.search_summaries(
                     plan.raw_query, limit=5, filters=filters)
             return results
-        except _DEVICE_ERRORS:
+        except DEVICE_ERRORS:
             raise
         except Exception as exc:
             logger.warning("vector phase failed: %s", exc)

@@ -3,7 +3,9 @@ CPU: built with no `device` on a machine without CUDA, each one raises
 rather than landing quietly on the CPU; the graph store's device methods
 do the same on a store made with no `device`. What the port has not
 ported raises rather than taking another path: the sharded graph and
-deep rank, and the metadata stage."""
+deep rank. The metadata stage is ported: the orchestrator no longer
+refuses default settings (`test_metadata_stage_raises_not_ported` keeps
+its name and now checks that)."""
 
 import asyncio
 
@@ -124,13 +126,18 @@ def test_graph_sharded_flag_raises_only_with_several_cards(monkeypatch):
 
 
 def test_metadata_stage_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PipelineOrchestrator(".", Embedder(HashEmbedder(dimensions=8)),
-                             settings=Settings(), device="cpu")
+    """The metadata stage is ported: default settings (metadata on, no
+    generator given) construct, and a given generator is kept."""
+    orch = PipelineOrchestrator(".", Embedder(HashEmbedder(dimensions=8)),
+                                settings=Settings(), device="cpu")
+    assert orch.ctx.settings.metadata.enabled
+    assert orch.ctx.metadata_generator is None
+    assert orch.ctx.indexer.code.device.type == "cpu"
+    generator = object()
     orch = PipelineOrchestrator(".", Embedder(HashEmbedder(dimensions=8)),
                                 settings=Settings(), device="cpu",
-                                metadata_generator=object())
-    assert orch.ctx.indexer.code.device.type == "cpu"
+                                metadata_generator=generator)
+    assert orch.ctx.metadata_generator is generator
 
 
 def test_build_golden_engine_defaults_to_cuda(monkeypatch, tmp_path):

@@ -1,4 +1,4 @@
-"""The port runs with no jax, flax, optax, pydantic, tenacity or
+"""The port runs with no jax, flax, optax, pydantic, tenacity, rich or
 transformers.
 
 The machine with the card has none of them. A subprocess blocks their
@@ -15,7 +15,11 @@ on the CPU (the host stack: settings, scan, parse, graph, chunk, embed)
 and asks it questions through the port's `QueryEngine` (`search_sync`,
 `query_sync`, `deep_search`), then through the deep path's device branch
 (forced: `deep_search`, `deep_search_batch`) and the graph store's device
-traversal (`k_hop(device=True)`), with no kernel launched on the CPU.
+traversal (`k_hop(device=True)`), with no kernel launched on the CPU;
+then through the CLI (`lattice_tpu_torch.main`, every module of the port
+imported): `--device cpu index` of that repository (metadata on), a
+persisted index that `search --json` and `status` load, and `index`
+without `--device` refused for want of CUDA.
 """
 
 import subprocess
@@ -29,7 +33,7 @@ REPO = Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "pydantic", "tenacity",
-             "transformers"):
+             "transformers", "rich"):
     sys.modules[name] = None
 sys.path.insert(0, sys.argv[1])
 import importlib, pkgutil
@@ -173,6 +177,32 @@ graph = pctx.graph_builder.store
 drain = graph.find_by_name("drain")
 assert graph.k_hop(drain, EdgeType.CALLS, 3, reverse=True, device=True) == \
     graph.k_hop(drain, EdgeType.CALLS, 3, reverse=True)
+assert set(_build.launch_counts().values()) == {0}, _build.launch_counts()
+# the CLI over that repository: index, then search and status from the
+# persisted index
+import contextlib, io, json
+from lattice_tpu_torch import main as cli
+cli.PROJECTS_REGISTRY = repo.parent / "registry.json"
+env = repo.parent / "cli.env"
+env.write_text("EMBEDDING_PROVIDER=hash\nEMBEDDING_DIMENSIONS=64\n")
+def lattice(*argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["--env", str(env)] + list(argv))
+    return rc, out.getvalue(), err.getvalue()
+rc, out, err = lattice("--device", "cpu", "index", str(repo))
+assert rc == 0 and "indexed three" in out, (rc, out, err)
+assert (repo / ".lattice" / "manifest.json").is_file()
+assert (repo / ".lattice" / "metadata.sqlite3").is_file()
+rc, out, err = lattice("--device", "cpu", "search", "who calls drain?",
+                       "--path", str(repo), "--json")
+assert rc == 0, err
+assert any(r["name"].endswith("Jobs.run") for r in json.loads(out)), out
+rc, out, err = lattice("--device", "cpu", "status", "--path", str(repo))
+assert rc == 0 and "bfloat16" in out, (out, err)
+rc, out, err = lattice("index", str(repo))
+assert rc == 1 and "CUDA" in err, (rc, err)
+assert sys.modules["rich"] is None
 assert set(_build.launch_counts().values()) == {0}, _build.launch_counts()
 assert not any(m == "lattice_tpu" or m.startswith("lattice_tpu.")
                for m in sys.modules), "the port imported the JAX package"
