@@ -1,6 +1,6 @@
 """Drive the port's main paths (vector search, the encoder, indexing a
-repository, answering questions about it, the CLI over a persisted index)
-once on one NVIDIA card.
+repository, answering questions about it, the CLI over a persisted index,
+serving it over HTTP and MCP) once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -151,6 +151,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    order, the partition and its verdict restored without k-means (a
    k-means build raises during the load), "ivf" at B=256 the same ids
    (mapped to the compacted rows) and scores; save and load seconds.
+3k. Serving (cell I), corpus B's store still resident after 3j(c): a
+   `ServingHTTPServer(store, warmup=True)` on port 0, warm by `/healthz`
+   (every pad bucket 1 ... 256 through the auto plan, "ivf"); 64 client
+   threads post 8 `/v1/search_vector` requests each (k=10, auto): every
+   answer 200 and recall@10 >= `IVF_MIN_RECALL` against an exact scan;
+   QPS, batches, mean batch and the frontend's p50 / p99 beside a direct
+   `search_device` at B=256; one `/v1/search_vector_batch` of 256. Then
+   `build_pq` at full width (m=192, ksub 256, 65,536 training rows, 8
+   iterations; seconds, codes, its rescored self-measured recall, and the
+   plan `LATTICE_PQ=1` takes). For each forced plan of "quantized", "ivf"
+   and "pq": a `/v1/search_vector_batch` of 256 gives the rows of
+   `search_device` on the batches the frontend dispatched (read from its
+   stats, each padded to its bucket as the frontend pads), and their
+   scores rounded as the server rounds; the same 256 through the server's
+   router give those ids and bit-equal scores; a query's answer does not
+   depend on its partners (the batch reversed, and with every other query
+   replaced, bit-equal at B=256); every 8th query alone (B=1, another
+   shape, whose reductions may order sums otherwise) gives the same ids,
+   and the score bits that differ are printed; recall@10 printed; "pq" at
+   B=256 and its B=1 p50. `/v1/stats` reports no error, `/metrics` the corpus.
+   After its launch counts are read, kernel B is held to its plain
+   versions at "pq"'s shapes: `PQIndex.search_device` at the store's
+   k1 = 32 (`lt_merge_positions` on [B, 4096] block rows, the one-block
+   route; `lt_merge_candidates` on [B, 64] running lists) at B = 256 and
+   1, against the same call with `stable_topk` and
+   `merge_candidates_plain` in their place on the same card tensors: ids
+   equal, scores bit-equal. The store is freed after it.
 3e. The capacity tier at the bench's shape (`bench.py:1071-1157`), after
    the second store is freed: 4,194,304 x 768 rows at spread 0.35 made on
    the card in blocks of 131,072, each scored exactly against the first
@@ -242,9 +269,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    store, no `--device`: the card), each command a `python3 -c` process
    of its own that prints its kernel launches on its last line (added to
    this path's): `index` (metadata on, no file errors, the manifest's
-   dtype "bfloat16"), `search --json` on 8 golden questions, `search
-   --deep --json` on 4 of them, one `search --batch-file` of 16, `query`
-   on 4, `status`, `projects list`, `projects show`, `metadata show` and
+   dtype "bfloat16"), `search --json` on 4 golden questions, `search
+   --deep --json` on 2 of them, one `search --batch-file` of 16, `query`
+   on 2, `status`, `projects list`, `projects show`, `metadata show` and
    `settings`. Each process exits 0 and answers as an in-process
    `QueryEngine` over the orchestrator's in-memory stores of a second
    copy: the same names in the same order (within a run of exactly equal
@@ -255,6 +282,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    what the in-process index and settings give. Kernels C and B must
    have launched in the processes. Each process's wall time beside the
    same call in-process, and `save_index` / `load_index` seconds.
+3l. Serving the CLI's index, after 3j: `python -c main([... "serve",
+   "--path", <3j's persisted copy of the fixture>, "--port", "0"])` with no
+   `--device` (the card) as a process, its address read from its first
+   line of output (start-up seconds). `/v1/search` (4 golden texts) and
+   `/v1/search_batch` (16) give the rows of `search_device` on the same
+   embedded texts in this process over the same index, loaded by the
+   CLI's `_load_engine`, with scores rounded as the server rounds;
+   `/v1/query` (4; its answer text too), `/v1/deep_search` (4) and
+   `/v1/deep_search_batch` (16) give that engine's results (scores in
+   order, each run of equal scores the same items); `/healthz`,
+   `/v1/stats` (no error) and `/metrics`; SIGTERM ends it with exit 0.
+   Then `... "mcp"` as a process over stdio: initialize, tools/list and
+   tools/call of `semantic_search`, `query_code_graph`, `get_code_snippet`
+   and `deep_search_batch`, each equal to an in-process `MCPServer` over
+   the same index on the card (by the same rule; phase timings aside).
+   Kernels C and B must have launched in those processes; their launches
+   count with this path's.
    (b) `FileWatcher` (inotify) over the second copy's stores on the card:
    one file changed, one created, one deleted; after `process_events` the
    live graph (nodes, and the distinct edges of every type), the code
@@ -279,11 +323,11 @@ version on the lists each path gives it (A and C at k1=16, B in {1,
 at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
 `torch.topk` on them by device time (`device_ms`: a sleep kernel keeps
 the queue full, so the host's issue is not counted) and back to back.
-Launch counts are zeroed just before each of 3a, 3d, 3f, 3i, 3b, 3e, 3c,
-3g, 3h and 3j and read just after it; each path's kernels, and every registered
+Launch counts are zeroed just before each of 3a, 3d, 3f, 3i, 3b, 3k, 3e,
+3c, 3g, 3h, 3j and 3l and read just after it; each path's kernels, and every registered
 kernel, must have launched, and the C entries each path must have run with them (kernel
 A's and C's wgmma routes on corpus A, D's in 3d and 3e, the bf16, int8
-and int4 probes' in 3f).
+and int4 probes' in 3f, kernel B's positional entry in 3k's "pq").
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on those paths (and by C entry; "routes": every C entry that
@@ -2255,10 +2299,10 @@ def phase_query_timings(ctx: dict, smi: str) -> None:
 # ---- 3j: the CLI, as separate processes over one persisted index ----------
 
 CLI_PROJECT = "golden_cli"
-CLI_SEARCH = 8             # `search --json` processes, one question each
-CLI_DEEP = 4               # `search --deep --json` processes (of those 8)
+CLI_SEARCH = 4             # `search --json` processes, one question each
+CLI_DEEP = 2               # `search --deep --json` processes (of those 4)
 CLI_BATCH = 16             # questions of the one `search --batch-file`
-CLI_QUERY = 4              # `query` processes (of those 8)
+CLI_QUERY = 2              # `query` processes (of those 4)
 WATCH_CHANGED = "app/utils/textdiff.py"
 WATCH_CREATED = "app/utils/slug.py"
 WATCH_DELETED = "app/importers/csv_import.py"
@@ -2621,6 +2665,11 @@ def phase_cli_path(ctx: dict, device: str = "cuda") -> None:
                 k.entry_launches[e] = k.entry_launches.get(e, 0) + n
         log(f"3j: launches in the CLI processes {lattice.launches}, by C "
             f"entry {lattice.by_kernel}")
+        # 3l serves the persisted index (its copy outlives this directory)
+        keep = Path(tempfile.mkdtemp(prefix="lattice_serve_"))
+        shutil.copytree(cli_repo, keep / "golden")
+        shutil.copy(env_file, keep / "cli.env")
+        ctx["cli_index"] = keep
         phase_cli_watch(own_repo, run, embedder, settings, device)
     log(f"phase 3j took {time.perf_counter() - t_phase:.2f} s")
 
@@ -3901,6 +3950,549 @@ def phase_ivf_timings(ctx: dict, kernels_ms: dict, err: dict,
         merge_timing(*lists, K, "ivf_probe lists", smi)
 
 
+# ---- serving (cell I) --------------------------------------------------------
+
+SERVE_CLIENTS = 64         # 3k: concurrent HTTP clients
+SERVE_EACH = 8             # /v1/search_vector requests each
+SERVE_BATCH = 256          # rows of one /v1/search_vector_batch
+SERVE_FORCED = ("quantized", "ivf", "pq")
+SERVE_CLI_EACH = 4         # 3l: texts through each single endpoint
+
+
+def http_call(base: str, path: str, body: dict | None = None,
+              timeout: float = 600.0):
+    """(status, JSON body, or text for /metrics) of one request to a server
+    on this machine, over a connection with TCP_NODELAY as curl and
+    urllib3 open theirs (`http.client` writes a request's headers and body
+    apart, and Nagle's algorithm would hold the body for the server's
+    delayed ACK)."""
+    import http.client
+    import socket
+    host, port = base.split("//")[1].rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    try:
+        conn.connect()
+        conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        if body is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, body=json.dumps(body).encode(),
+                         headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        status, text = resp.status, resp.read().decode()
+    finally:
+        conn.close()
+    return status, (text if path == "/metrics" else json.loads(text))
+
+
+def wait_warm(base: str, fe, limit_s: float = 600.0) -> float:
+    """Seconds until `/healthz` says warm; a failed warmup fails."""
+    t0 = time.perf_counter()
+    while True:
+        status, body = http_call(base, "/healthz")
+        require(status == 200, f"/healthz {status}: {body}")
+        if body["warm"]:
+            return time.perf_counter() - t0
+        require(not fe.warmup_failed, "the server's warmup failed")
+        require(time.perf_counter() - t0 < limit_s, "never warm")
+        time.sleep(0.02)
+
+
+def served_rows(answers) -> torch.Tensor:
+    require(all(s == 200 for s, _ in answers),
+            f"statuses {sorted({s for s, _ in answers})}: "
+            f"{[b for s, b in answers if s != 200][:2]}")
+    return torch.tensor([[h["row"] for h in b["hits"]] for _, b in answers],
+                        dtype=torch.int32)
+
+
+def same_as_direct(items: list[dict], s: torch.Tensor, i: torch.Tensor,
+                   where: str, tol: float = 0.0) -> None:
+    """Served hits (rows, scores rounded to 4 places as the server rounds)
+    against a direct `search_device`'s [B, k] ids and scores: the same
+    rows, and the direct scores rounded alike (`tol` 0) or within `tol`."""
+    s, i = s.cpu().tolist(), i.cpu().tolist()
+    for qi, item in enumerate(items):
+        want = [(r, v) for r, v in zip(i[qi], s[qi]) if r >= 0 and v > -1e29]
+        got = [(h["row"], h["score"]) for h in item["hits"]]
+        require([r for r, _ in got] == [r for r, _ in want]
+                and all((g == round(w, 4)) if tol == 0 else abs(g - w) <= tol
+                        for (_, g), (_, w) in zip(got, want)),
+                f"{where}, query {qi}: served {got[:4]} / direct {want[:4]}")
+
+
+def dispatched(fe, n: int) -> list[int]:
+    """The sizes, in order, of a frontend's last dispatches, which served
+    its last `n` queries (its queue is FIFO)."""
+    sizes, out = list(fe.stats.batch_sizes), []
+    while sum(out) < n:
+        out.append(sizes.pop())
+    require(sum(out) == n, f"dispatches {out[::-1]} do not make {n}")
+    return out[::-1]
+
+
+def as_dispatched(store, q: torch.Tensor, sizes: list[int], method: str,
+                  max_batch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`search_device` of `q` as the frontend dispatched it: each batch
+    padded to its bucket with copies of its first query."""
+    from lattice_tpu_torch.serving.frontend import BatchingFrontend
+    out_s, out_i, lo = [], [], 0
+    for n in sizes:
+        qb = q[lo:lo + n]
+        pad = BatchingFrontend._bucket(n, max_batch) - n
+        if pad:
+            qb = torch.cat([qb, qb[:1].expand(pad, -1)])
+        s, i = store.search_device(qb.contiguous(), K, method=method)
+        out_s.append(s[:n])
+        out_i.append(i[:n])
+        lo += n
+    return torch.cat(out_s), torch.cat(out_i)
+
+
+def phase_serving_path(ctx: dict) -> None:
+    """3k: `ServingHTTPServer` over corpus B's resident store (cell I)."""
+    import os
+    import threading
+    from lattice_tpu_torch.index import chunk_store as cs
+    from lattice_tpu_torch.serving.http import ServingHTTPServer
+    store, centers, gen = ctx["store2"], ctx["centers"], ctx["gen"]
+    emb, valid = store.device_arrays
+    n_q = SERVE_CLIENTS * SERVE_EACH
+    q = cluster_rows(centers, n_q, gen, IVF_SPREAD)
+    q256 = q[:SERVE_BATCH].contiguous()
+    truth = exact_topk(q, emb, valid, K)
+    rows = q.cpu().tolist()      # f32 -> JSON -> f32 is exact
+    t0 = time.perf_counter()
+    srv = ServingHTTPServer(store, warmup=True).start()
+    try:
+        base = "http://%s:%d" % srv.address
+        fe = srv.router.peek()
+        warm_s = wait_warm(base, fe)
+        log(f"3k: server over corpus B ({len(store)} rows) warm in "
+            f"{warm_s:.3f} s ({time.perf_counter() - t0:.3f} s from its "
+            f"construction; {len(fe._warmed_buckets)} pad buckets)")
+
+        # 64 concurrent clients, one query a request, the auto plan
+        answers: list = [None] * n_q
+
+        def client(c: int) -> None:
+            for j in range(SERVE_EACH):
+                i = c * SERVE_EACH + j
+                answers[i] = http_call(base, "/v1/search_vector",
+                                       {"vector": rows[i], "k": K})
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        before = (fe.stats.queries, fe.stats.batches)
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        got = served_rows(answers).to(truth.device)
+        r_auto = recall(got, truth)
+        require(got.shape == (n_q, K) and r_auto >= cs.IVF_MIN_RECALL,
+                f"served auto recall@{K} {r_auto:.4f}")
+        st = fe.stats
+        batches = st.batches - before[1]
+        mean_batch = (st.queries - before[0]) / max(batches, 1)
+        p50, p99 = st.latency_percentile(50), st.latency_percentile(99)
+        plans = {store._plan_search(b, K, None, "auto")
+                 for b in set(st.batch_sizes)}
+        direct_ms = cuda_ms(lambda: store.search_device(q256, K), 20)
+        ctx["serve_qps"] = n_q / wall
+        log(f"3k: {SERVE_CLIENTS} clients x {SERVE_EACH} /v1/search_vector "
+            f"(k={K}, auto: plans {sorted(plans)}): {n_q / wall:.1f} QPS "
+            f"({wall:.3f} s), {batches} batches, mean batch "
+            f"{mean_batch:.2f}, frontend p50 {p50:.3f} ms, p99 {p99:.3f} ms; "
+            f"recall@{K} {r_auto:.4f}; direct search_device B={SERVE_BATCH} "
+            f"auto {direct_ms:.4f} ms ({SERVE_BATCH / direct_ms * 1e3:.1f} "
+            f"QPS); {ctx.get('smi', '')}")
+
+        t0 = time.perf_counter()
+        status, body = http_call(base, "/v1/search_vector_batch",
+                                 {"vectors": rows[:SERVE_BATCH], "k": K})
+        batch_s = time.perf_counter() - t0
+        got = served_rows([(status, it) for it in body["results"]])
+        require(recall(got.to(truth.device), truth[:SERVE_BATCH])
+                >= cs.IVF_MIN_RECALL, "batch endpoint recall")
+        log(f"3k: one /v1/search_vector_batch of {SERVE_BATCH}: "
+            f"{batch_s * 1e3:.3f} ms ({SERVE_BATCH / batch_s:.1f} QPS)")
+
+        # PQ at full width, then every forced plan against the direct call
+        t0 = time.perf_counter()
+        pq = store.build_pq()
+        torch.cuda.synchronize()
+        pq_s = time.perf_counter() - t0
+        os.environ["LATTICE_PQ"] = "1"
+        try:
+            pq_plan = store._plan_search(SERVE_BATCH, K, None, "auto")
+        finally:
+            del os.environ["LATTICE_PQ"]
+        log(f"3k: build_pq {pq_s:.3f} s: m={pq.m}, ksub={pq.ksub}, "
+            f"{pq.codes.shape[0]} x {pq.m} codes ({pq.codes.numel() / 1e6:.1f}"
+            f" MB), {pq.memory_bytes() / 1e6:.1f} MB in all; self-measured "
+            f"rescored recall@{K} {pq.measured_recall:.4f}; LATTICE_PQ=1 "
+            f"auto plan {pq_plan!r}")
+        for method in SERVE_FORCED:
+            # through HTTP: the rows and rounded scores of search_device on
+            # the batches the frontend dispatched
+            status, body = http_call(base, "/v1/search_vector_batch",
+                                     {"vectors": rows[:SERVE_BATCH], "k": K,
+                                      "method": method})
+            require(status == 200, f"{method}: {status}")
+            fe_m = srv.router.peek(method=method)
+            http_sizes = dispatched(fe_m, SERVE_BATCH)
+            same_as_direct(body["results"], *as_dispatched(
+                store, q256, http_sizes, method, fe_m.max_batch),
+                f"served {method!r} against search_device")
+            # raw f32 answers through the same router: ids and bit-equal
+            # scores of search_device on the same batches
+            futs = [srv.router.submit(v, K, method=method)
+                    for v in q256.cpu().numpy()]
+            res = [f.result(timeout=600) for f in futs]
+            s_srv = torch.tensor(np.stack([r[0] for r in res]))
+            i_srv = torch.tensor(np.stack([r[1] for r in res]))
+            sizes = dispatched(fe_m, SERVE_BATCH)
+            s_dir, i_dir = as_dispatched(store, q256, sizes, method,
+                                         fe_m.max_batch)
+            require(torch.equal(i_srv, i_dir.cpu())
+                    and same_bits(s_srv, s_dir.cpu()),
+                    f"{method}: served answers differ from search_device")
+            # partners: the same queries at the same shape, in reverse
+            # order and with every other partner replaced, bit-equal
+            s_a, i_a = store.search_device(q256, K, method=method)
+            s_b, i_b = store.search_device(q256.flip(0).contiguous(), K,
+                                           method=method)
+            mixed = q256.clone()
+            mixed[1::2] = q[SERVE_BATCH:SERVE_BATCH + SERVE_BATCH // 2]
+            s_c, i_c = store.search_device(mixed, K, method=method)
+            require(torch.equal(i_b.flip(0), i_a)
+                    and same_bits(s_b.flip(0), s_a)
+                    and torch.equal(i_c[::2], i_a[::2])
+                    and same_bits(s_c[::2], s_a[::2]),
+                    f"{method}: a query's answer depends on its batch "
+                    f"partners")
+            # every 8th query alone: B=1 is another shape, whose
+            # reductions may order sums otherwise, so scores may move in
+            # their last bits (counted), but no id may move
+            alone = [store.search_device(q256[j:j + 1], K, method=method)
+                     for j in range(0, SERVE_BATCH, 8)]
+            ids_off = sum(int((a[1][0] != i_a[j * 8]).sum())
+                          for j, a in enumerate(alone))
+            bits_off = sum(int((a[0][0].view(torch.int32)
+                                != s_a[j * 8].view(torch.int32)).sum())
+                           for j, a in enumerate(alone))
+            require(ids_off == 0, f"{method}: {ids_off} ids of "
+                    f"{len(alone)} queries alone (B=1) differ from "
+                    f"B={SERVE_BATCH}")
+            r = recall(i_a, truth[:SERVE_BATCH])
+            log(f"3k: forced {method!r} through /v1/search_vector_batch "
+                f"(dispatches {http_sizes}) and the router (dispatches "
+                f"{sizes}) equals search_device on those batches (ids, "
+                f"scores bit-equal); reversed and half-replaced partners "
+                f"at B={SERVE_BATCH} bit-equal; {len(alone)} queries alone "
+                f"(B=1): the same ids, {bits_off} of {len(alone) * K} "
+                f"score bit patterns differ from B={SERVE_BATCH}; "
+                f"recall@{K} {r:.4f}")
+            if method == "pq":
+                ctx["pq_recall"] = r
+                pq_ms = cuda_ms(lambda: store.search_device(
+                    q256, K, method="pq"), 5)
+                pq_p50 = p50_ms(lambda j: store.search_device(
+                    q[j:j + 1], K, method="pq"), 20)
+                log(f"3k: 'pq' B={SERVE_BATCH} {pq_ms:.3f} ms "
+                    f"({SERVE_BATCH / pq_ms * 1e3:.1f} QPS), B=1 p50 "
+                    f"{pq_p50:.3f} ms; {ctx.get('smi', '')}")
+        status, stats = http_call(base, "/v1/stats")
+        agg = stats["configs"]["_aggregate"]
+        require(status == 200 and agg["errors"] == 0
+                and stats["errors"] == 0, f"/v1/stats {agg}")
+        status, metrics = http_call(base, "/metrics")
+        require(status == 200 and "lattice_errors_total" in metrics
+                and f"lattice_corpus_rows {len(store)}" in metrics,
+                "/metrics")
+        log(f"3k: /v1/stats: {agg['queries']} queries in {agg['batches']} "
+            f"batches over {len(stats['configs']) - 1} configurations, "
+            f"{agg['errors']} errors, {agg['cold_compiles']} cold compiles")
+    finally:
+        srv.shutdown()
+    ctx["serve_pq"], ctx["serve_q"] = pq, normalize(q256)
+
+
+def phase_serving_kernels(ctx: dict, err: dict) -> None:
+    """3k, after its launch counts are read: kernel B at "pq"'s shapes.
+    `PQIndex.search_device` at the store's k1 = max(k, 32) (`pq_topk`:
+    `lt_merge_positions` on [B, 4096] block rows, the one-block route, and
+    `lt_merge_candidates` on [B, 2 k1] running lists) at B = 256 and 1,
+    against the same call with `stable_topk` and `merge_candidates_plain`
+    in their place on the same card tensors: ids equal, scores
+    bit-equal."""
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.ops import scan_topk as scan
+    from lattice_tpu_torch.ops import topk as topk_ops
+    from lattice_tpu_torch.ops.pq import DEFAULT_BLOCK
+    pq, q = ctx.pop("serve_pq"), ctx.pop("serve_q")
+    k1 = max(K, 32)
+    n_blocks = -(-pq.codes.shape[0] // DEFAULT_BLOCK)
+    kept = scan.merge_positions, scan.merge_candidates
+    for qb in (q, q[:1]):
+        before = _build.entry_launch_counts()
+        ks, ki = pq.search_device(qb, k1)
+        torch.cuda.synchronize()
+        after = _build.entry_launch_counts()
+        ran = {e: after.get(e, 0) - before.get(e, 0)
+               for e in ("lt_merge_positions", "lt_merge_candidates")}
+        require(all(v == n_blocks for v in ran.values()),
+                f"pq_topk at B={qb.shape[0]}: kernel B launches {ran}, "
+                f"not {n_blocks} blocks of each entry")
+        scan.merge_positions = topk_ops.stable_topk
+        scan.merge_candidates = scan.merge_candidates_plain
+        try:
+            ps, pi = pq.search_device(qb, k1)
+        finally:
+            scan.merge_positions, scan.merge_candidates = kept
+        require(torch.equal(ki, pi) and same_bits(ks, ps),
+                f"pq_topk at B={qb.shape[0]}, k1={k1}: kernel B differs "
+                f"from its plain versions: ids agree on "
+                f"{(ki == pi).float().mean().item():.6f}")
+        finite = torch.isfinite(ps)
+        if bool(finite.any()):
+            err["merge_candidates"] = max(
+                err["merge_candidates"],
+                (ks - ps)[finite].abs().max().item())
+        log(f"3k: pq_topk at B={qb.shape[0]}, k1={k1} ({n_blocks} blocks "
+            f"of {DEFAULT_BLOCK} rows; kernel B {ran}): ids equal and scores "
+            f"bit-equal to stable_topk + merge_candidates_plain")
+
+
+def same_ranked(got: list[dict], want: list[dict], where: str) -> int:
+    """Ranked results as JSON (scores rounded as the surface rounds them):
+    the same scores in order, the same items in each run of equal scores
+    (which both processes order by their own string hash seed). Returns
+    the runs in another order."""
+    require([r["score"] for r in got] == [r["score"] for r in want],
+            f"{where}: scores {[r['score'] for r in got][:6]} / "
+            f"{[r['score'] for r in want][:6]}")
+    permuted, lo = 0, 0
+    dump = functools.partial(json.dumps, sort_keys=True)
+    for i in range(1, len(want) + 1):
+        if i == len(want) or want[i]["score"] != want[lo]["score"]:
+            a, b = list(map(dump, got[lo:i])), list(map(dump, want[lo:i]))
+            require(sorted(a) == sorted(b), f"{where}: results "
+                    f"{got[lo:i][:2]} / {want[lo:i][:2]}")
+            permuted += a != b
+            lo = i
+    return permuted
+
+
+def same_text(got: str, want: str, where: str) -> int:
+    """An answer text, or the same lines in another order (tied sources).
+    Returns 1 if reordered."""
+    if got == want:
+        return 0
+    require(sorted(got.splitlines()) == sorted(want.splitlines()),
+            f"{where}: {got[:300]!r} / {want[:300]!r}")
+    return 1
+
+
+def ranked_json(results) -> list[dict]:
+    """`ServingHTTPServer._ranked` of in-process results."""
+    from lattice_tpu_torch.serving.http import ServingHTTPServer
+    return json.loads(json.dumps(ServingHTTPServer._ranked(results)))
+
+
+def phase_serving_cli(ctx: dict) -> None:
+    """3l: `lattice serve` and `lattice mcp` as processes over 3j's
+    persisted index of the golden fixture, on the card, against the same
+    index loaded in this process."""
+    import asyncio
+    import os
+    import shutil
+    import signal
+    from lattice_tpu_torch import main as cli
+    from lattice_tpu_torch.config.settings import Settings
+    from lattice_tpu_torch.mcp.server import MCPServer
+    from lattice_tpu_torch.ops import _build
+    keep = ctx.pop("cli_index")
+    try:
+        repo, env_file = keep / "golden", keep / "cli.env"
+        settings = Settings.from_env(env_file)
+        engine, _ = cli._load_engine(repo, settings, "cuda")
+        store = engine.indexer.code
+        embed = engine.vector_searcher.embedder
+        _, batch, texts = cli_texts(golden_cases())
+        singles = texts[:SERVE_CLI_EACH]
+        env = {**os.environ, "HOME": str(keep)}
+        argv = ["--env", str(env_file)]
+        t0 = time.perf_counter()
+        err_file = keep / "serve.err"
+        with open(err_file, "w") as err_out:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", CLI_SCRIPT, str(ROOT), *argv, "serve",
+                 "--path", str(repo), "--port", "0"],
+                stdout=subprocess.PIPE, stderr=err_out, text=True, env=env,
+                cwd=str(keep))
+        try:
+            line = proc.stdout.readline()
+            start_s = time.perf_counter() - t0
+            require("serving" in line and "http://" in line,
+                    f"serve printed {line!r}: "
+                    f"{err_file.read_text()[-2000:]}")
+            base = "http://" + line.split("http://")[1].split()[0]
+            require(not base.endswith(":0"), f"unbound port in {line!r}")
+            status, health = http_call(base, "/healthz")
+            require(status == 200 and health["corpus"] == len(store),
+                    f"/healthz {health}")
+            reordered = 0
+            times: dict[str, list[float]] = {}
+
+            def post(path, body):
+                t = time.perf_counter()
+                status, out = http_call(base, path, body)
+                times.setdefault(path, []).append(time.perf_counter() - t)
+                require(status == 200, f"{path}: {status} {out}")
+                return out
+
+            for text in singles:
+                vec = torch.from_numpy(embed.embed(text))[None]
+                s, i = store.search_device(vec, K)
+                same_as_direct([post("/v1/search", {"query": text, "k": K})],
+                               s, i, f"/v1/search {text!r}")
+            # the server may split the batch into other shapes than this
+            # call's, whose scores can differ in their last bits
+            out = post("/v1/search_batch", {"queries": batch, "k": K})
+            s, i = store.search_device(
+                torch.from_numpy(embed.embed_batch(batch)), K)
+            same_as_direct(out["results"], s, i, "/v1/search_batch",
+                           tol=1e-4)
+            for text in singles:
+                out = post("/v1/query", {"query": text})
+                res = engine.query_sync(text)
+                reordered += same_ranked(out["results"],
+                                         ranked_json(res.results),
+                                         f"/v1/query {text!r}")
+                reordered += same_text(out["answer"], res.answer,
+                                       f"/v1/query {text!r} answer")
+                out = post("/v1/deep_search", {"query": text})
+                reordered += same_ranked(
+                    out["results"], ranked_json(engine.deep_search(
+                        text).results), f"/v1/deep_search {text!r}")
+            out = post("/v1/deep_search_batch", {"queries": batch})
+            for item, res in zip(out["results"],
+                                 engine.deep_search_batch(batch)):
+                reordered += same_ranked(item["results"],
+                                         ranked_json(res.results),
+                                         f"/v1/deep_search_batch {res.query!r}")
+            status, stats = http_call(base, "/v1/stats")
+            require(status == 200 and stats["errors"] == 0
+                    and stats["configs"]["_aggregate"]["errors"] == 0
+                    and stats["corpus"] == len(store), f"/v1/stats {stats}")
+            status, metrics = http_call(base, "/metrics")
+            require(status == 200 and "lattice_queries_total" in metrics,
+                    "/metrics")
+            proc.send_signal(signal.SIGTERM)
+            rest, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        require(proc.returncode == 0 and "shutting down" in rest,
+                f"serve exited {proc.returncode}: "
+                f"{err_file.read_text()[-2000:]}")
+        tail = json.loads(rest.rstrip("\n").rpartition("\n")[2])
+        require(tail["rc"] == 0, f"serve returned {tail['rc']}")
+        launches, by_kernel = dict(tail["launches"]), tail["by_kernel"]
+        log(f"3l: `lattice serve` printed its address {start_s:.3f} s after "
+            f"the process started (imports {tail['import_s']:.3f} s); "
+            + "; ".join(f"{p} {statistics.median(v) * 1e3:.3f} ms p50 x"
+                        f"{len(v)}" for p, v in times.items())
+            + f"; answers equal the in-process engine's ({reordered} tie "
+            f"runs or answer lines in another order); SIGTERM: exit 0; "
+            f"launches in the process {launches}; {ctx.get('smi', '')}")
+
+        # the MCP stdio server, against an in-process MCPServer
+        calls = [("semantic_search", {"query": singles[0], "limit": K}),
+                 ("query_code_graph", {"question": singles[1]}),
+                 ("get_code_snippet", {"entity": "UserService",
+                                       "context_lines": 1}),
+                 ("deep_search_batch", {"questions": batch, "limit": K})]
+        reqs = [{"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                 "params": {}},
+                {"jsonrpc": "2.0", "id": 2, "method": "tools/list"}]
+        reqs += [{"jsonrpc": "2.0", "id": 3 + n, "method": "tools/call",
+                  "params": {"name": name, "arguments": args}}
+                 for n, (name, args) in enumerate(calls)]
+        reqs.append({"jsonrpc": "2.0", "id": 99, "method": "shutdown"})
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_SCRIPT, str(ROOT), *argv, "mcp",
+             "--path", str(repo)],
+            input="".join(json.dumps(r) + "\n" for r in reqs),
+            capture_output=True, text=True, env=env, cwd=str(keep),
+            timeout=600)
+        mcp_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"mcp exited {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        lines = proc.stdout.rstrip("\n").split("\n")
+        tail = json.loads(lines[-1])
+        require(tail["rc"] == 0, f"mcp returned {tail['rc']}")
+        for name, n in tail["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        for name, entries in tail["by_kernel"].items():
+            mine = by_kernel.setdefault(name, {})
+            for e, n in entries.items():
+                mine[e] = mine.get(e, 0) + n
+        by_id = {r["id"]: r for r in map(json.loads, lines[:-1])}
+        local = MCPServer(repo, settings, device="cuda")
+
+        def in_process(req):
+            return asyncio.run(local.handle_request(req))
+        for req in reqs[:2]:
+            require(by_id[req["id"]] == in_process(req), f"mcp {req}")
+        mcp_reordered = 0
+        for req in reqs[2:-1]:
+            got, want = by_id[req["id"]]["result"], in_process(req)["result"]
+            name = req["params"]["name"]
+            require(not got["isError"] and not want["isError"],
+                    f"{name}: {got} / {want}")
+            g = json.loads(got["content"][0]["text"])
+            w = json.loads(want["content"][0]["text"])
+            g.pop("phase_times_ms", None)
+            w.pop("phase_times_ms", None)
+            if name == "semantic_search":
+                mcp_reordered += same_ranked(g["results"], w["results"], name)
+            elif name == "query_code_graph":
+                mcp_reordered += same_ranked(g.pop("sources"),
+                                             w.pop("sources"), name)
+                mcp_reordered += same_text(g.pop("answer"), w.pop("answer"),
+                                           name)
+                require(g == w, f"{name}: {g} / {w}")
+            elif name == "deep_search_batch":
+                for ga, wa in zip(g["answers"], w["answers"], strict=True):
+                    mcp_reordered += same_ranked(ga.pop("results"),
+                                                 wa.pop("results"), name)
+                    require(ga == wa, f"{name}: {ga} / {wa}")
+            else:
+                require(g == w, f"{name}: {g} / {w}")
+        log(f"3l: `lattice mcp` over stdio: initialize, tools/list and "
+            f"tools/call of {[c[0] for c in calls]} equal an in-process "
+            f"MCPServer's ({mcp_reordered} tie runs or answer lines in "
+            f"another order); the process {mcp_s:.3f} s start to exit")
+        for name in ("scan_topk_int8", "merge_candidates"):
+            require(launches.get(name, 0) > 0,
+                    f"{name} never ran in the serve or mcp process")
+        # the processes' launches count with this process's own
+        for k in _build.KERNELS:
+            k.launches += launches.get(k.name, 0)
+            for e, n in by_kernel.get(k.name, {}).items():
+                k.entry_launches[e] = k.entry_launches.get(e, 0) + n
+        log(f"3l: launches in the serve and mcp processes {launches}, by C "
+            f"entry {by_kernel}")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this runs on the card only",
@@ -3948,6 +4540,9 @@ def main() -> int:
              ("merge_candidates", "lt_merge_positions")),
             ("ivf", phase_ivf_path,
              ("ivf_probe", "merge_candidates", "scan_topk_int8")),
+            ("serving", phase_serving_path,
+             ("ivf_probe", "merge_candidates", "lt_merge_positions",
+              "scan_topk_int8")),
             ("capacity", phase_capacity_path,
              ("scan_topk_int4", "merge_candidates", "lt_scan_topk_int4")),
             ("encoder", phase_encoder_path,
@@ -3958,6 +4553,8 @@ def main() -> int:
             ("query side", phase_query_path,
              ("scan_topk_int8", "merge_candidates", "paired_attention")),
             ("CLI", phase_cli_path,
+             ("scan_topk_int8", "merge_candidates")),
+            ("serving CLI", phase_serving_cli,
              ("scan_topk_int8", "merge_candidates"))):
         _build.reset_launch_counts()
         phase(ctx)
@@ -3995,6 +4592,8 @@ def main() -> int:
         elif path == "ivf":
             phase_ivf_timings(ctx, kernels_ms, err, smi)
             phase_cli_roundtrip(ctx)
+        elif path == "serving":
+            phase_serving_kernels(ctx, err)
             del ctx["store2"], ctx["queries2"]
             gc.collect()
             torch.cuda.empty_cache()

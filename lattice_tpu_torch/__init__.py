@@ -22,9 +22,11 @@ of the stores it is given, with the ranking fuse of `ops/ranking.py` and
 the golden eval (`python -m lattice_tpu_torch.query.golden_eval --device
 cuda`), the deep path's device branch, and the CLI (`main.py`: `index`,
 `search`, `query`, `status`, `settings`, `projects`, `metadata`,
-`watch`) over an index persisted in the JAX package's format
-(`storage/`), with the provider factory, metadata, projects and the
-inotify watcher. Serving and MCP are not ported yet.
+`watch`, `serve`, `mcp`) over an index persisted in the JAX package's
+format (`storage/`), with the provider factory, metadata, projects, the
+inotify watcher, the serving deployment (`serving/`: the batching
+frontend, its router, the HTTP server; `mcp/`) and the PQ tier
+(`ops/pq.py`, the store's "pq" plan).
 """
 
 __version__ = "0.1.0"

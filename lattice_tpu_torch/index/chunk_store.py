@@ -24,8 +24,12 @@ rescore) by default, the bf16 scan (`"pallas"`, kernel A + B + exact
 rescore) when int8 is opted out or its shadow does not fit, and the plain
 exact scan (`"flat"`) above k = 64 and on the CPU. A forced `"refined"`
 is the widened bf16 scan with an exact rescore (`scan_topk.refined_topk`,
-kernel A + B). PQ and sharded are not ported yet; they raise
-`NotImplementedError` naming their ROADMAP item.
+kernel A + B). `LATTICE_PQ=1` (the 8x-capacity mode) or a forced `"pq"`
+serves the product-quantized view (`ops/pq.PQIndex`: a decode-and-score
+of the uint8 codes, kernel B's two entries, then the exact rescore),
+gated on its build-time self-measured recall like IVF. The sharded plan
+is not ported yet; it raises `NotImplementedError` naming its ROADMAP
+item.
 
 `device_rank_columns(graph)` keeps the deep path's per-row columns (graph
 node id, content quality, CALLS degree) on the store's device with a host
@@ -50,7 +54,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from lattice_tpu_torch.core.errors import VectorStoreError
+from lattice_tpu_torch.core.errors import DEVICE_ERRORS, VectorStoreError
 from lattice_tpu_torch.core.types import EdgeType
 from lattice_tpu_torch.ops import scan_topk as scan_ops
 from lattice_tpu_torch.ops import topk as topk_ops
@@ -69,8 +73,7 @@ INDEXED_FIELDS = ("file_path", "entity_type", "language", "content_hash",
 # Plans of the JAX store whose kernels have not been ported yet, with the
 # ROADMAP item that brings each.
 _NOT_PORTED = {
-    "pq": "ROADMAP queue 1, PQ",
-    "sharded": "ROADMAP queue 1, multi-GPU",
+    "sharded": "ROADMAP queue 1, item 11 (multi-GPU)",
 }
 
 # the plans served by the widened bf16 scan (kernel A + B + exact rescore)
@@ -276,6 +279,9 @@ class ChunkStore:
         self._quant_dirty = True
         self._int4 = None          # packed-int4 shadow (4x capacity tier)
         self._int4_dirty = True
+        self._pq = None            # uint8-code capacity tier (ops/pq.py)
+        self._pq_dirty = True
+        self._pq_mutations = 0
         self._rank_cols = None     # the deep path's resident columns
         self._rank_cols_dirty = True
         self._lex_tokens = None    # name-token inverted index, lazy
@@ -423,7 +429,8 @@ class ChunkStore:
     def _mutate_views_impl(self, rows: list[int],
                            normed: torch.Tensor | None,
                            idx: torch.Tensor | None) -> None:
-        """O(delta) upkeep of the IVF partition and the int8/int4 shadows.
+        """O(delta) upkeep of the IVF partition, the int8/int4 shadows and
+        the PQ view.
 
         `normed` is the new f32 normalized rows for inserts, None for
         removals. IVF: a hollow (recall-refused) index only counts the
@@ -437,7 +444,11 @@ class ChunkStore:
         shadow holds rows of both histories, bit for bit as in JAX. Rows
         past a shadow (the store grew) mark it dirty for a full rebuild.
         Removals leave the shadows' values stale but masked by `valid`.
-        The rank columns are marked for a rebuild either way."""
+        PQ encodes the new rows with its frozen codebooks (or drops removed
+        rows from its validity) and, like IVF, is marked dirty past 20%
+        churn; a failure there marks it dirty too, except a kernel error,
+        a CUDA out-of-memory or a path not ported (`DEVICE_ERRORS`), which
+        raise. The rank columns are marked for a rebuild either way."""
         n = len(rows)
         self._rank_cols_dirty = True
         if (self._ivf is not None and not self._ivf_dirty
@@ -461,6 +472,22 @@ class ChunkStore:
                 self._ivf_dirty = True
         else:
             self._ivf_dirty = True
+        if self._pq is not None and not self._pq_dirty:
+            try:
+                if normed is None:
+                    self._pq.remove(rows)
+                else:
+                    self._pq.insert(normed, rows)
+                self._pq_mutations += n
+                # frozen codebooks drift like frozen centroids: rebuild
+                # (re-training + re-measuring recall) past 20% churn
+                if self._pq_mutations > 0.2 * max(self._size, 1):
+                    self._pq_dirty = True
+            except DEVICE_ERRORS:
+                raise
+            except Exception:
+                logger.exception("incremental PQ update failed; rebuilding")
+                self._pq_dirty = True
         if normed is None:
             return
         if (self._quant is not None and not self._quant_dirty
@@ -577,7 +604,8 @@ class ChunkStore:
 
     def _reset_views(self) -> None:
         """Drop the derived serving views (IVF, the int8 and int4
-        shadows, the rank columns); the next use rebuilds them lazily."""
+        shadows, PQ, the rank columns); the next use rebuilds them
+        lazily."""
         with self._serve_lock:  # a build mid-flight finishes first
             self._ivf = None
             self._ivf_dirty = True
@@ -586,6 +614,9 @@ class ChunkStore:
             self._quant_dirty = True
             self._int4 = None
             self._int4_dirty = True
+            self._pq = None
+            self._pq_dirty = True
+            self._pq_mutations = 0
             self._rank_cols = None
             self._rank_cols_dirty = True
 
@@ -860,13 +891,71 @@ class ChunkStore:
         return (matched >= IVF_FILTER_MIN_MATCH_PER_K * k
                 and matched >= IVF_MIN_FILTER_FRACTION * max(self._size, 1))
 
+    # ---- PQ -------------------------------------------------------------
+
+    def build_pq(self, m: int | None = None, ksub: int = 256,
+                 measure: bool = True):
+        """Build (or rebuild) the PQ capacity view over the current live
+        rows, on the store's device. uint8 codes at dsub=4 are 8x smaller
+        than the bf16 rows. With `measure`, the build self-samples the
+        RESCORED recall@10 (the number `_search_pq_device` serves), which
+        gates the auto plan as IVF's does."""
+        from lattice_tpu_torch.ops.pq import PQIndex
+        with self._serve_lock:
+            self._pq = PQIndex.build(self._emb, self._valid_host.copy(),
+                                     m=m, ksub=ksub)
+            if measure:
+                self._pq.measure_recall(self._emb, self._valid_host,
+                                        rescore=True)
+            self._pq_dirty = False
+            self._pq_mutations = 0
+            return self._pq
+
+    def _pq_ready(self) -> bool:
+        return (self._pq is not None and not self._pq_dirty
+                and self._pq.measured_recall is not None
+                and self._pq.measured_recall >= IVF_MIN_RECALL)
+
+    def search_pq(self, query_vectors: np.ndarray, k: int,
+                  filters: dict[str, Any] | None = None
+                  ) -> list[list[tuple[int, float, dict[str, Any]]]]:
+        """ADC search through the PQ codes + exact rescore; payload filters
+        AND into the validity mask exactly as on the flat path."""
+        if self._size == 0:
+            return [[] for _ in range(len(np.atleast_2d(query_vectors)))]
+        q = torch.from_numpy(topk_ops.l2_normalize(
+            np.atleast_2d(query_vectors))).to(self.device)
+        scores, ids = self._search_pq_device(q, min(k, self._cap),
+                                             self.filter_mask(filters))
+        scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
+        out: list[list[tuple[int, float, dict[str, Any]]]] = []
+        for qi in range(len(scores)):
+            hits = []
+            for score, row in zip(scores[qi], ids[qi]):
+                if row < 0 or score <= topk_ops.NEG_INF / 2:
+                    continue
+                payload = self._payloads[int(row)]
+                if payload is not None:
+                    hits.append((int(row), float(score), payload))
+            out.append(hits)
+        return out
+
+    def _search_pq_device(self, queries: torch.Tensor, k_eff: int,
+                          mask: torch.Tensor | None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """PQ first stage widened to max(k, 32) + exact rescore against the
+        resident rows (normalized queries in): PQ here buys scan bytes,
+        not recall. The view is (re)built if missing or stale, and
+        captured under the lock, since `compact` and `clear` drop it."""
+        with self._serve_lock:
+            if self._pq is None or self._pq_dirty:
+                self.build_pq()
+            pq = self._pq
+        k1 = min(max(k_eff, 32), self._cap)
+        s1, c1 = pq.search_device(queries, k1, mask=mask)
+        return scan_ops._exact_rescore(queries, self._emb, s1, c1, k_eff)
+
     # ---- plans not ported yet -----------------------------------------
-
-    def build_pq(self, *args, **kwargs):
-        raise _not_ported("build_pq", "pq")
-
-    def search_pq(self, *args, **kwargs):
-        raise _not_ported("search_pq", "pq")
 
     def to_sharded(self, *args, **kwargs):
         raise _not_ported("to_sharded", "sharded")
@@ -969,22 +1058,30 @@ class ChunkStore:
     def _plan_search_impl(self, batch: int, k_eff: int,
                           filters: dict[str, Any] | None,
                           method: str) -> str:
-        """The dispatch decision table. Returns one of "int4" | "ivf" |
-        "quantized" | "pallas" | "flat" (method strings kept as the JAX
-        store names them; serving keys on them).
+        """The dispatch decision table. Returns one of "pq" | "int4" |
+        "ivf" | "quantized" | "pallas" | "flat" (method strings kept as the
+        JAX store names them; serving keys on them).
 
         auto order, re-derived for the card:
         1. LATTICE_SHARDED=1 on more than one CUDA device (the reference's
-           `len(jax.devices()) > 1`) / LATTICE_PQ=1 — those plans are not
-           ported; raise rather than serve another plan. On one card or
-           the CPU the sharded flag falls through, as in the reference
-        2. flat      — the exact plain scan: k > 64, and every CPU store
-        3. int4      — LATTICE_INT4=1 (the 4x-capacity mode) on a CUDA
+           `len(jax.devices()) > 1`) — that plan is not ported; raise
+           rather than serve another plan. On one card or the CPU the flag
+           falls through, as in the reference
+        2. pq        — LATTICE_PQ=1 (the 8x-capacity mode), on either
+           device, as in the JAX store: the first such call builds the PQ
+           view (codebooks, codes, rescored recall self-measure) under the
+           serve lock; "pq" only if its measured recall reaches
+           IVF_MIN_RECALL, else the table falls through. On a CUDA store
+           it also needs the first stage's max(k, 32) candidates within
+           kernel B's lists (`scan_ops.MAX_K1_LONG`); a longer k falls
+           through (to "flat"), where the reference serves any k
+        3. flat      — the exact plain scan: k > 64, and every CPU store
+        4. int4      — LATTICE_INT4=1 (the 4x-capacity mode) on a CUDA
            device at k <= 64: kernel D + B at 8k candidates + exact
            rescore. It comes before IVF, as in the JAX store: the operator
            asked for it because the corpus is at the memory limit, where an
            IVF build does not fit
-        4. ivf       — CUDA device, k <= 64, >= IVF_AUTO_MIN_ROWS live rows,
+        5. ivf       — CUDA device, k <= 64, >= IVF_AUTO_MIN_ROWS live rows,
            a batch of at most IVF_SMALL_BATCH (the crossover measured
            against "quantized" on the card) or a corpus of at least
            IVF_FLAT_CROSSOVER_ROWS, rows x (1 + 2 + 1) under 85% of device
@@ -993,12 +1090,12 @@ class ChunkStore:
            through `IVFIndex.search`) under the serve lock; a build whose
            recall is under IVF_MIN_RECALL releases its buckets and keeps
            the verdict, so the plan falls through
-        5. quantized — CUDA device, k <= 64, and the bf16 rows plus the
+        6. quantized — CUDA device, k <= 64, and the bf16 rows plus the
            int8 shadow take under 75% of device memory (total_memory),
            unless LATTICE_INT8=0; LATTICE_INT8=1 forces it on CUDA at
            k <= 64 (the auto plan never hands the kernels a k they refuse).
            Int8 first stage (kernel C + B) + exact rescore.
-        6. pallas    — CUDA device, k <= 64: the bf16 scan (kernel A + B)
+        7. pallas    — CUDA device, k <= 64: the bf16 scan (kernel A + B)
            + exact rescore, when int8 is opted out or does not fit
         A forced "refined" (the widened bf16 scan + exact rescore) or
         "int4" is served on either device, through the plain versions on
@@ -1011,8 +1108,13 @@ class ChunkStore:
         if (os.environ.get("LATTICE_SHARDED") == "1"
                 and torch.cuda.device_count() > 1):
             raise _not_ported("LATTICE_SHARDED=1", "sharded")
-        if os.environ.get("LATTICE_PQ") == "1":
-            raise _not_ported("LATTICE_PQ=1", "pq")
+        if os.environ.get("LATTICE_PQ") == "1" and (
+                not self._device_is_cuda()
+                or max(k_eff, 32) <= scan_ops.MAX_K1_LONG):
+            if self._pq is None or self._pq_dirty:
+                self.build_pq()           # one-time; self-measures recall
+            if self._pq_ready():
+                return "pq"
         if not self._device_is_cuda() or k_eff > KERNEL_MAX_K:
             return "flat"
         if os.environ.get("LATTICE_INT4") == "1":
@@ -1046,7 +1148,8 @@ class ChunkStore:
         """The planned method; an unported one raises. A forced kernel plan
         is served as asked: on a CUDA store past the kernels' candidate
         lists (k1 > `scan_ops.MAX_K1`, or 8k > `scan_ops.MAX_K1_LONG` for
-        "int4") the scan wrapper raises KernelError."""
+        "int4", or max(k, 32) > `scan_ops.MAX_K1_LONG` for "pq") the
+        kernel's wrapper raises KernelError."""
         plan = self._plan_search(batch, k_eff, filters, method)
         if plan in _NOT_PORTED:
             raise _not_ported(f"method={plan!r}", plan)
@@ -1059,7 +1162,8 @@ class ChunkStore:
         """Top-k cosine search. Returns per-query [(row, score, payload)].
 
         The kernel is picked by the `_plan_search` decision table; `method`
-        forces a path ("flat"/"pallas"/"refined"/"quantized"/"int4"/"ivf").
+        forces a path ("flat"/"pallas"/"refined"/"quantized"/"int4"/"ivf"/
+        "pq").
         Payload filters AND into the validity mask (every flat plan) or
         fold into the bucket id table (ivf).
         """
@@ -1072,6 +1176,8 @@ class ChunkStore:
         if plan == "ivf":
             return self.search_ivf(q, k_eff, nprobe=IVF_AUTO_NPROBE,
                                    filters=filters)
+        if plan == "pq":
+            return self.search_pq(q, k_eff, filters=filters)
         if plan == "quantized":
             return self.search_quantized(q, k_eff, filters=filters)
         if plan == "int4":
@@ -1105,6 +1211,9 @@ class ChunkStore:
             return self._serving_ivf().search_device(
                 topk_ops.l2_normalize_t(raw), k_eff, nprobe=IVF_AUTO_NPROBE,
                 mask=mask)
+        if plan == "pq":
+            return self._search_pq_device(topk_ops.l2_normalize_t(raw),
+                                          k_eff, mask)
         valid = self._valid if mask is None else (self._valid & mask)
         if plan == "quantized":
             return self._quant_view().search_device(raw, valid, k_eff,

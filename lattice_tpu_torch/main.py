@@ -1,10 +1,10 @@
 """lattice CLI, on the port.
 
 A copy of `lattice_tpu/main.py`: argparse subcommands `index / search /
-query / status / settings / projects / metadata / watch` with progress
-display, verbose query plan, and the search result table. Rendering uses
-`rich` when it is installed and stderr is a terminal, and plain lines
-otherwise.
+query / status / settings / projects / metadata / watch / serve / mcp`
+with progress display, verbose query plan, and the search result table.
+Rendering uses `rich` when it is installed and stderr is a terminal, and
+plain lines otherwise.
 
 The differences from the reference:
 - the device is chosen by name: `--device` (a top-level option) goes to
@@ -16,12 +16,16 @@ The differences from the reference:
   `build/lattice_tpu_torch/`.
 - `settings` dumps the dataclass settings (`dataclasses.asdict`) in the
   JSON layout of the reference's `model_dump_json(indent=1)`.
-- `train`, `serve`, `mcp` and `validate-weights` keep their parsers, so
-  the surface is the same, but are not ported: each raises
-  `NotImplementedError` naming its ROADMAP item, and `main` returns 1.
+- `serve` prints its address line with a flush, so a process reading its
+  stdout through a pipe sees the bound port (`--port 0` picks a free one).
+- `train` and `validate-weights` keep their parsers, so the surface is the
+  same, but are not ported: each raises `NotImplementedError` naming its
+  ROADMAP item, and `main` returns 1.
 
     python -m lattice_tpu_torch.main --device cpu index tests/fixtures/golden_project
     python -m lattice_tpu_torch.main --device cpu search "who calls validate_email" --path ...
+    python -m lattice_tpu_torch.main serve --path ... --port 0      # on the card
+    python -m lattice_tpu_torch.main --device cpu mcp --path ...
 """
 
 from __future__ import annotations
@@ -359,13 +363,55 @@ def run_watch(args: argparse.Namespace, settings: Settings) -> int:
 
 
 def run_serve(args: argparse.Namespace, settings: Settings) -> int:
-    """HTTP serving over the loaded index: not ported."""
-    return _not_ported("serve", "6c")
+    """Reference: `main.py:348-389`. HTTP serving over the loaded index:
+    concurrent requests coalesce into batched device calls
+    (`serving/http.py`). SIGTERM drains in-flight work and exits 0."""
+    from lattice_tpu_torch.serving.http import ServingHTTPServer
+    repo_path = Path(args.path).resolve()
+    engine, _ = _load_engine(repo_path, settings, args.device)
+    if args.warmup:
+        print("warming pad buckets in the background; /healthz reports "
+              "warm=true when done", flush=True)
+    server = ServingHTTPServer(
+        engine.indexer.code, engine.vector_searcher.embedder.embed,
+        embed_batch_fn=engine.vector_searcher.embedder.embed_batch,
+        engine=engine, host=args.host, port=args.port,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        max_queue=args.max_queue, max_configs=args.max_configs,
+        warmup=args.warmup)
+    host, port = server.address
+    print(f"serving {len(engine.indexer.code)} chunks on "
+          f"http://{host}:{port} (POST /v1/search, /v1/search_batch, "
+          f"/v1/query; GET /healthz, /v1/stats, /metrics)", flush=True)
+
+    # orchestrators stop containers with SIGTERM; drain in-flight work
+    # instead of dying mid-batch. The handler only raises — shutdown()
+    # from inside a signal handler would deadlock serve_forever's poll
+    # loop (it waits for the very loop the handler interrupted).
+    import signal
+
+    def _sigterm(_signo, _frame):
+        raise KeyboardInterrupt
+    prev = signal.signal(signal.SIGTERM, _sigterm)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        print("shutting down", flush=True)
+        server.shutdown()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    return 0
 
 
 def run_mcp(args: argparse.Namespace, settings: Settings) -> int:
-    """The MCP stdio server: not ported."""
-    return _not_ported("mcp", "6c")
+    """Reference: `main.py:594-596`. The MCP JSON-RPC server over stdio;
+    its tools load the index on the CLI's device, which is checked before
+    the server starts (the tools load lazily, at their first call)."""
+    from lattice_tpu_torch.index.chunk_store import _device
+    from lattice_tpu_torch.mcp.server import run_stdio_server
+    _device(args.device)  # the stores' rule: "cuda" without CUDA raises
+    return asyncio.run(run_stdio_server(Path(args.path).resolve(), settings,
+                                        args.device))
 
 
 def run_validate_weights(args: argparse.Namespace,

@@ -18,7 +18,8 @@ Each kernel is one `Kernel` object with a plain integer `launches`, which
 goes up by one at each successful launch and nowhere else, so that a run
 can show which kernels its main path went through; `entry_launches`
 counts the same launches by C entry, so that it can show which route of a
-kernel ran.
+kernel ran. The counts are taken under a lock: serving launches from
+several worker threads at once.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ _ENTRIES: dict[str, tuple] = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
@@ -165,8 +167,9 @@ class Kernel:
         if rc != 0:
             msg = lib.lt_error_string(rc).decode()
             raise KernelError(f"{self.name} ({entry}) failed: {msg} [{rc}]")
-        self.launches += 1
-        self.entry_launches[entry] = self.entry_launches.get(entry, 0) + 1
+        with _count_lock:
+            self.launches += 1
+            self.entry_launches[entry] = self.entry_launches.get(entry, 0) + 1
 
 
 KERNELS: list[Kernel] = []

@@ -21,9 +21,13 @@ the f32 query where "flat" rounds it to bf16: there it gives mrr 0.9164
 
     python -m lattice_tpu_torch.query.golden_eval [--device D] [--misses]
 
-prints one JSON line. The reference's line also timed its HTTP
-deep-batch surface; `serving/` is ROADMAP queue 1, item 6, so this line
-has no `http_deep_batch_*` keys.
+prints one JSON line, with the reference's timing of its HTTP deep-batch
+surface (`http_deep_batch_ms_per_q`, `http_deep_batch_n`): 16 deep
+questions in one `/v1/deep_search_batch` round trip through the port's
+`ServingHTTPServer`, after one warm round trip. A kernel error, a CUDA
+out-of-memory or a path not ported (`core.errors.DEVICE_ERRORS`) raises;
+any other failure of that surface becomes `http_deep_batch_error`, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import json
 import shutil
 import tempfile
 from pathlib import Path
+
+from lattice_tpu_torch.core.errors import DEVICE_ERRORS
 
 # repo-root/tests/fixtures — the eval set lives next to the corpus it
 # labels so editing one forces thinking about the other
@@ -142,6 +148,36 @@ def build_golden_engine(fixture: str | Path | None = None,
     return QueryEngine(ctx.graph_builder.store, ctx.indexer), ctx
 
 
+def http_deep_batch(engine, cases: list[dict]) -> dict:
+    """The deep-batch HTTP surface end to end (reference
+    `golden_eval.py:162-193`): the first 16 deep questions in one
+    `/v1/deep_search_batch` round trip, timed after a warm one. Returns
+    {"http_deep_batch_ms_per_q", "http_deep_batch_n"}."""
+    import time
+    import urllib.request
+
+    from lattice_tpu_torch.serving.http import ServingHTTPServer
+    deep_qs = [c["query"] for c in cases if c["path"] == "deep"][:16]
+    body = json.dumps({"queries": deep_qs, "limit": 10}).encode()
+    with ServingHTTPServer(engine.indexer.code, engine=engine,
+                           max_wait_ms=2) as srv:
+        host, port = srv.address
+
+        def post() -> dict:
+            req = urllib.request.Request(
+                f"http://{host}:{port}/v1/deep_search_batch", data=body,
+                headers={"Content-Type": "application/json"},
+                method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())
+        post()  # warm
+        t0 = time.perf_counter()
+        out = post()
+        ms = (time.perf_counter() - t0) * 1000.0 / len(deep_qs)
+    return {"http_deep_batch_ms_per_q": round(ms, 2),
+            "http_deep_batch_n": len(out["results"])}
+
+
 def main(argv: list[str] | None = None) -> None:
     import argparse
     import time
@@ -164,6 +200,12 @@ def main(argv: list[str] | None = None) -> None:
     scores["eval_s"] = round(time.perf_counter() - t0, 1)
     scores["build_s"] = round(build_s, 1)
     scores["device"] = args.device
+    try:
+        scores.update(http_deep_batch(engine, cases))
+    except DEVICE_ERRORS:
+        raise
+    except Exception as exc:  # noqa: BLE001 — the eval line must print
+        scores["http_deep_batch_error"] = repr(exc)[:120]
     scores["n_misses"] = len(scores["misses"])
     if not args.misses:
         scores.pop("misses")

@@ -362,17 +362,39 @@ class TestPlanTable:
     @pytest.mark.parametrize("flag", ["LATTICE_INT4", "LATTICE_PQ",
                                       "LATTICE_SHARDED"])
     def test_unported_modes_raise(self, cuda_store, monkeypatch, flag):
-        """LATTICE_PQ still raises, and LATTICE_SHARDED with more than one
-        CUDA device (one device: test_sharded_flag_on_one_device_falls_
-        through); LATTICE_INT4 is ported and now plans "int4"
-        (tests/test_torch_port_int4.py)."""
+        """LATTICE_SHARDED with more than one CUDA device still raises (one
+        device: test_sharded_flag_on_one_device_falls_through), naming
+        its ROADMAP item; LATTICE_INT4 is ported and plans "int4"
+        (tests/test_torch_port_int4.py), and LATTICE_PQ builds the PQ
+        view, whose rescored recall on these rows clears the bar, and
+        plans "pq" (tests/test_torch_port_pq.py)."""
         monkeypatch.setenv(flag, "1")
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
         if flag == "LATTICE_INT4":
             assert cuda_store._plan_search(256, 10, None, "auto") == "int4"
             return
-        with pytest.raises(NotImplementedError):
+        if flag == "LATTICE_PQ":
+            assert cuda_store._plan_search(256, 10, None, "auto") == "pq"
+            assert cuda_store._pq.measured_recall >= port_cs.IVF_MIN_RECALL
+            return
+        with pytest.raises(NotImplementedError, match="item 11"):
             cuda_store._plan_search(256, 10, None, "auto")
+
+    @pytest.mark.parametrize("k, want", [
+        (10, "pq"), (65, "pq"), (scan_ops.MAX_K1_LONG, "pq"),
+        (scan_ops.MAX_K1_LONG + 1, "flat"), (600, "flat")])
+    def test_pq_flag_within_kernel_b_lists(self, cuda_store, monkeypatch,
+                                           k, want):
+        """On a CUDA store LATTICE_PQ=1 plans "pq" only while its first
+        stage's max(k, 32) candidates fit kernel B's lists; a longer k
+        (the HTTP surface takes k <= 1000) falls through to "flat" rather
+        than hand the kernel a k it refuses. On the CPU any k plans "pq",
+        as in the JAX store."""
+        monkeypatch.setenv("LATTICE_PQ", "1")
+        assert cuda_store._plan_search(256, k, None, "auto") == want
+        monkeypatch.setattr(ChunkStore, "_device_is_cuda",
+                            lambda self: False)
+        assert cuda_store._plan_search(256, k, None, "auto") == "pq"
 
     @pytest.mark.parametrize("batch, k", [(1, 10), (256, 10), (1, 64),
                                           (256, 65)])
@@ -409,11 +431,11 @@ class TestPlanTable:
 
     @pytest.mark.parametrize("method", ["refined", "pq", "int4", "sharded"])
     def test_unported_forced_methods_raise(self, pair, method):
-        """"pq" and "sharded" still raise; "refined" and "int4" are ported
+        """"sharded" still raises; "refined", "int4" and "pq" are ported
         and serve the exact flat answer here (rescored widened lists)."""
         _, ps, vecs = pair
         assert method in SEARCH_METHODS
-        if method in ("refined", "int4"):
+        if method in ("refined", "int4", "pq"):
             got = ps.search(vecs[:1], k=3, method=method)
             want = ps.search(vecs[:1], k=3, method="flat")
             assert [r for r, _, _ in got[0]] == [r for r, _, _ in want[0]]
@@ -459,10 +481,17 @@ class TestPlanTable:
                     == scan_ops.first_stage_width(k, n))
 
     def test_unported_surfaces_raise(self, pair):
+        """The sharded views raise; `build_pq` is ported and builds the
+        view over the live rows."""
         _, ps, _ = pair
-        for call in (ps.build_pq, ps.to_sharded):
-            with pytest.raises(NotImplementedError):
+        for call in (ps.to_sharded, ps.to_sharded_quantized,
+                     ps.sharded_hybrid):
+            with pytest.raises(NotImplementedError, match="item 11"):
                 call()
+        pq = ps.build_pq()
+        assert pq is ps._pq and not ps._pq_dirty
+        assert pq.codes.shape == (ps.capacity, pq.m)
+        assert pq.measured_recall is not None
 
     def test_cpu_store_launches_no_kernel(self, pair):
         _, ps, vecs = pair

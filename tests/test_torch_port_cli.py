@@ -10,10 +10,11 @@ every other field equal, numbers within 1e-5), the same `--batch-file`
 output, and the same parsed `settings` JSON for one env file. Then what
 the port adds: without `--device` the device is "cuda", so without CUDA
 `index` prints an error that names CUDA, returns 1 and writes no
-`.lattice/`; `LATTICE_PLATFORM=cpu` asks for the CPU by name; `train`,
-`serve`, `mcp` and `validate-weights` return 1 naming their ROADMAP
-item. `TestPersistentCompileCache` (XLA only) and `TestServeLifecycle`
-(serving is ROADMAP queue 1, item 6c) are not mirrored.
+`.lattice/`; `LATTICE_PLATFORM=cpu` asks for the CPU by name; `train`
+and `validate-weights` return 1 naming their ROADMAP item. `serve` runs
+as a process on port 0 (`TestServeLifecycle`: a request, `--warmup`,
+then SIGTERM and exit 0), and without `--device` `serve` and `mcp` exit
+1 naming CUDA. `TestPersistentCompileCache` (XLA only) is not mirrored.
 """
 
 import io
@@ -301,8 +302,6 @@ def test_lattice_platform_cpu_selects_the_cpu(repo, tmp_path, capsys,
 
 @pytest.mark.parametrize("argv,item", [
     (["train"], "item 11"),
-    (["serve"], "item 6c"),
-    (["mcp"], "item 6c"),
     (["validate-weights", "/nonexistent"], "item 9"),
 ])
 def test_commands_not_ported_exit_nonzero(repo, capsys, argv, item):
@@ -310,3 +309,84 @@ def test_commands_not_ported_exit_nonzero(repo, capsys, argv, item):
     assert run(argv, env) == 1
     err = capsys.readouterr().err
     assert "not ported" in err and f"ROADMAP queue 1, {item}" in err
+
+
+@pytest.mark.parametrize("argv", [["serve", "--port", "0"], ["mcp"]],
+                         ids=["serve", "mcp"])
+def test_serve_and_mcp_default_to_cuda(repo, capsys, monkeypatch, argv):
+    """Without `--device`, `serve` and `mcp` ask for "cuda", which raises
+    without CUDA: `error: ...` naming CUDA and exit 1, before a socket
+    opens or a request is read."""
+    root, env = repo
+    index(root, env, capsys)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert run([*argv, "--path", str(root)], env, device=None) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("error:") and "CUDA" in err
+
+
+class TestServeLifecycle:
+    """`lattice serve` as a process (mirror of `tests/test_cli.py`'s
+    class): the printed line names the bound port, a request answers as
+    the in-process engine's store does, `--warmup` flips `/healthz` warm,
+    and SIGTERM drains and exits 0."""
+
+    def test_sigterm_drains_and_exits_cleanly(self, repo, capsys):
+        import os
+        import signal
+        import subprocess
+        import sys
+        import time
+        import urllib.request
+
+        root, env = repo
+        index(root, env, capsys)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lattice_tpu_torch.main", "--env",
+             str(env), "--device", "cpu", "serve", "--path", str(root),
+             "--port", "0", "--max-batch", "4", "--warmup"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(cli.Path(cli.__file__).resolve().parents[1]),
+            env={**os.environ, "HOME": str(root.parent)})
+        try:
+            line = ""
+            for _ in range(50):
+                line = proc.stdout.readline()
+                if "serving" in line and "http://" in line:
+                    break
+            assert "serving" in line and "http://" in line, line
+            url = line.split("http://")[1].split()[0]
+            assert not url.endswith(":0") and int(url.rsplit(":", 1)[1]) > 0
+
+            def get(path):
+                with urllib.request.urlopen(f"http://{url}{path}",
+                                            timeout=30) as r:
+                    return r.status, json.loads(r.read())
+            deadline = time.monotonic() + 60
+            status, body = get("/healthz")
+            while status == 200 and not body["warm"] \
+                    and time.monotonic() < deadline:
+                time.sleep(0.1)
+                status, body = get("/healthz")
+            assert status == 200 and body["warm"], body
+            req = urllib.request.Request(
+                f"http://{url}/v1/search",
+                data=json.dumps({"query": "what is AdminUser",
+                                 "k": 3}).encode(),
+                headers={"Content-Type": "application/json"},
+                method="POST")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                assert r.status == 200
+                hits = json.loads(r.read())["hits"]
+            engine, _ = cli._load_engine(root, cli.Settings.from_env(env),
+                                         "cpu")
+            vec = engine.vector_searcher.embedder.embed("what is AdminUser")
+            want = engine.indexer.code.search(vec, 3)[0]
+            assert [h["row"] for h in hits] == [r for r, _, _ in want]
+            proc.send_signal(signal.SIGTERM)
+            out, _ = proc.communicate(timeout=60)
+            assert proc.returncode == 0, out
+            assert "shutting down" in out
+        finally:
+            if proc.poll() is None:
+                proc.kill()

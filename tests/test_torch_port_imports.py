@@ -210,6 +210,63 @@ print("PORT-OK")
 """
 
 
+SERVING_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "pydantic", "tenacity",
+             "transformers", "rich", "lattice_tpu"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+import asyncio, json, urllib.request
+import numpy as np
+import torch
+from lattice_tpu_torch.index.chunk_store import ChunkStore
+from lattice_tpu_torch.mcp.server import MCPServer
+from lattice_tpu_torch.mcp.tools import TOOL_SCHEMAS
+from lattice_tpu_torch.ops import _build
+from lattice_tpu_torch.ops.pq import PQIndex
+from lattice_tpu_torch.serving import (BatchingFrontend, FrontendRouter,
+                                       ServingHTTPServer)
+from lattice_tpu_torch.config.settings import Settings
+rng = np.random.default_rng(0)
+x = rng.standard_normal((300, 32)).astype(np.float32)
+pq = PQIndex.build(x, np.ones(300, bool), m=8, ksub=16, device="cpu")
+assert pq.codes.shape == (300, 8) and pq.codes.dtype == torch.uint8
+store = ChunkStore(32, dtype="float32", device="cpu")
+store.add(x, [{"file_path": f"f{i}.py"} for i in range(300)])
+with ServingHTTPServer(store, max_wait_ms=2) as srv:
+    host, port = srv.address
+    for method in ("auto", "pq", "quantized"):
+        req = urllib.request.Request(
+            f"http://{host}:{port}/v1/search_vector",
+            data=json.dumps({"vector": x[7].tolist(), "k": 3,
+                             "method": method}).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            hits = json.loads(r.read())["hits"]
+        assert hits[0]["row"] == 7, (method, hits)
+with BatchingFrontend(store, method="pq") as fe:
+    assert fe.search(x[9], 2)[1][0] == 9
+server = MCPServer(".", Settings(), device="cpu")
+resp = asyncio.run(server.handle_request(
+    {"jsonrpc": "2.0", "id": 1, "method": "tools/list"}))
+assert resp["result"]["tools"] == TOOL_SCHEMAS
+assert set(_build.launch_counts().values()) == {0}, _build.launch_counts()
+assert not any(m == "jax" or m.startswith(("jax.", "lattice_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("SERVING-OK")
+"""
+
+
+def test_serving_mcp_and_pq_run_without_jax_or_the_jax_package():
+    """`serving/`, `mcp/` and `ops/pq` import and serve with `jax` and
+    `lattice_tpu` blocked: a PQ build, HTTP searches through the "auto",
+    "pq" and "quantized" plans, a frontend, the MCP tool list; no kernel
+    launched on the CPU."""
+    proc = subprocess.run([sys.executable, "-c", SERVING_SCRIPT, str(REPO)],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SERVING-OK" in proc.stdout
+
+
 def test_port_runs_without_jax_pydantic_tenacity():
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(REPO)],
                           capture_output=True, text=True, timeout=120)

@@ -742,6 +742,9 @@ class TestPlanTable:
             cuda.setenv(flag, "1")
             if flag == "LATTICE_INT4":  # ported: the capacity tier serves
                 assert s._plan_search(4, 10, None, "auto") == "int4"
+            elif flag == "LATTICE_PQ":  # ported: built once, then served
+                assert s._plan_search(4, 10, None, "auto") == "pq"
+                assert s._pq.measured_recall >= port_cs.IVF_MIN_RECALL
             else:
                 with pytest.raises(NotImplementedError):
                     s._plan_search(256, 10, None, "auto")

@@ -7,7 +7,7 @@ Mirror of `tests/test_subsystems.py`'s `TestWatcher`,
 and `TestInotifyRecursiveMoveStress` against `lattice_tpu_torch` on the
 CPU. The fixture project is indexed by the port's orchestrator with its
 default settings (`device="cpu"`), so its metadata stage runs too. The
-MCP classes are not mirrored (ROADMAP queue 1, item 6c).
+MCP classes are mirrored in `tests/test_torch_port_mcp.py`.
 
 Then the port against the JAX package on the same workspace: the
 metadata record (every field but the timings), the metadata models'
