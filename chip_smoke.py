@@ -1,6 +1,7 @@
 """Drive the port's main paths (vector search, the encoder, indexing a
 repository, answering questions about it, the CLI over a persisted index,
-serving it over HTTP and MCP) once on one NVIDIA card.
+serving it over HTTP and MCP, fine-tuning the encoder) once on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -59,6 +60,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    2), (3, 100, 2), (5, 333, 4)}, and at L in {100, 333, 512}, B in {1,
    5, 128}, H=12 on masks that are not prefixes: every key live, the first
    64 or 128 keys masked, Bernoulli(0.5) holes, one live key at L - 1.
+   On the three column slices of one [B, L, 3 x 768] tensor (a fused
+   QKV projection's output, row stride 3W, no copy) at (B, L) in {(128,
+   512), (5, 333), (1, 64)}: bit-equal to the kernel on contiguous
+   copies, and within the same bars of the plain version.
    Kernel B on `merge_cases` (the CPU tests' adversarial lists: ties,
    NEG_INF rows, pads past the live candidates, m = k1, k1 = 512, equal
    and signed-zero scores; and, split over blocks, pads, 600,000
@@ -307,6 +312,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    IMPORTS and DEFINES_METHOD edges, as the JAX package's does), and the
    104 golden questions through `search_sync` (near-tie swaps as in 3h)
    and `search_code` answer alike.
+3m. Training (cell J), after 3l, over 3g(b)'s stores (a copy of
+   `lattice_tpu/`): (a) `ContrastiveTrainer` at `UniXcoderConfig()` from
+   seed 0 on the card and on the CPU, 3 steps on the first 3 batches of
+   `mine_pairs` + `PairBatcher` (batch 16, max_length 64): every loss
+   within 1e-2 relative, every parameter within 3 x steps x lr, and no
+   `paired_attention` launch (the trainer runs the einsum path); (b)
+   `finetune_from_index` with the CLI's defaults (100 steps, batch 16,
+   max_length 256, lr 2e-5, remat on): the report "completed", no
+   `paired_attention` launch; step p50, padded and live tokens/s, the
+   tokenizer's share of the loop, peak device memory, the checkpoint's
+   write (`np.savez`); `np.savez` and `np.savez_compressed` on one
+   layer's arrays; 5 steps with remat on and off on the same batches
+   (step p50, peak memory); (c) the checkpoint through `finetune_dir` on
+   the card (12 `paired_attention` launches a forward) and on the CPU, 16
+   chunks: every pooled cosine >= 0.999; (d) `enable_fused_qkv` at B=128,
+   L=512 on this checkout's chunks: cosine >= 0.999 against unfused, 12
+   launches a forward, one layer's fused q/k/v slices through the kernel
+   bit-equal to the kernel on contiguous copies, chunks/s of unfused,
+   fused, fused, unfused; (e) `lattice index` of a golden fixture copy,
+   `lattice train --steps 4` over it and `lattice validate-weights` on a
+   synthetic full-size checkpoint (HF layout, seed 0) as processes of the
+   port's CLI, each exiting 0 with the reference's report (the parity
+   check skipped where `transformers` does not import); their launches
+   (the f32 entry's among them) count with this path's.
 4c. Encoder timings (information only): chunks/s at B=128, L=512 on
    device-resident ids (CUDA events) with the achieved TFLOP/s, the host
    tokenizer per batch, B=1 query encode and `search_code` p50 (host
@@ -324,7 +353,7 @@ at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
 `torch.topk` on them by device time (`device_ms`: a sleep kernel keeps
 the queue full, so the host's issue is not counted) and back to back.
 Launch counts are zeroed just before each of 3a, 3d, 3f, 3i, 3b, 3k, 3e,
-3c, 3g, 3h, 3j and 3l and read just after it; each path's kernels, and every registered
+3c, 3g, 3h, 3j, 3l and 3m and read just after it; each path's kernels, and every registered
 kernel, must have launched, and the C entries each path must have run with them (kernel
 A's and C's wgmma routes on corpus A, D's in 3d and 3e, the bf16, int8
 and int4 probes' in 3f, kernel B's positional entry in 3k's "pq").
@@ -1273,6 +1302,30 @@ def check_attention(b: int, ln: int, heads: int, dtype: torch.dtype,
     return e
 
 
+def check_fused_slices(b: int, ln: int, dtype: torch.dtype, tol: float,
+                       gen: torch.Generator) -> float:
+    """`paired_attention` on the three column slices of one [B, L, 3W]
+    tensor (the fused QKV projection's layout: row stride 3W, no copy)
+    bit-equal to the kernel on contiguous copies, and within `tol` of the
+    plain version."""
+    from lattice_tpu_torch.ops import attention as attn
+    width = ATTN_HEADS * 64
+    qkv = torch.randn((b, ln, 3 * width), device="cuda",
+                      generator=gen).to(dtype)
+    q, k, v = qkv.split(width, dim=-1)
+    mask = attention_mask(b, ln, "prefix", gen)
+    out = attn.paired_attention(q, k, v, mask, SM_SCALE)
+    copies = attn.paired_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), mask, SM_SCALE)
+    where = f"{dtype} B={b} L={ln} fused slices"
+    require(torch.equal(out, copies), f"paired_attention: strided slices "
+            f"differ from contiguous copies {where}")
+    e = (out - attn.paired_attention_plain(q, k, v, mask, SM_SCALE)
+         ).abs().max().item()
+    require(e <= tol, f"paired_attention: max abs error {e:.3g} {where}")
+    return e
+
+
 def phase_attention_kernel(err: dict) -> None:
     """`paired_attention` against its plain version, bf16 and f32, at the
     encoder's widths (H=12, every length bucket), and at ragged lengths
@@ -1294,6 +1347,13 @@ def phase_attention_kernel(err: dict) -> None:
         err["paired_attention"] = max(err["paired_attention"], worst)
         log(f"kernels ok: paired_attention {dtype} (B, L, H) in {ragged}, "
             f"max abs error {worst:.3g}")
+        worst = max(check_fused_slices(b, ln, dtype, tol, gen)
+                    for b, ln in ((128, 512), (5, 333), (1, 64)))
+        err["paired_attention"] = max(err["paired_attention"], worst)
+        log(f"kernels ok: paired_attention {dtype} on the column slices of "
+            f"a fused [B, L, 3W] projection (B, L) in ((128, 512), (5, 333), "
+            f"(1, 64)), bit-equal to contiguous copies, max abs error "
+            f"{worst:.3g}")
         for kind in ATTN_MASKS:
             worst = max(check_attention(b, ln, ATTN_HEADS, dtype, tol, gen,
                                         kind)
@@ -4493,6 +4553,475 @@ def phase_serving_cli(ctx: dict) -> None:
         shutil.rmtree(keep, ignore_errors=True)
 
 
+# ---- 3m: training (cell J) --------------------------------------------------
+
+TRAIN_STEPS = 100          # 3m(b): `lattice train`'s defaults
+TRAIN_BATCH = 16
+TRAIN_LEN = 256
+TRAIN_LR = 2e-5
+CHECK_STEPS = 3            # 3m(a): the card's first steps against the CPU's
+CHECK_LEN = 64
+# bf16 products on both devices (cuBLAS and the CPU's accumulate in other
+# orders and round in other places) through 12 layers and both encodes
+CHECK_LOSS_RTOL = 1e-2
+# AdamW moves an element by about lr a step (|m_hat| / sqrt(v_hat) ~ 1,
+# a little over 1 at the first steps), and bf16 noise can flip the sign of
+# a near-zero gradient, so the devices may move an element apart by up to
+# ~2 lr a step: 3 lr a step bounds it
+CHECK_PARAM_TOL = 3 * CHECK_STEPS * TRAIN_LR
+MEM_STEPS = 5              # 3m(b): steps each with remat on and off
+WRITER_LAYER = "layer_0/"  # 3m(b): the arrays both npz writers are timed on
+FUSED_ORDER = ("unfused", "fused", "fused", "unfused")
+
+# the HF RoBERTa names of one encoder layer's tensors, [out, in] / [out]
+HF_LAYER = (("attention.self.query", True), ("attention.self.key", True),
+            ("attention.self.value", True), ("attention.output.dense", True),
+            ("attention.output.LayerNorm", False),
+            ("intermediate.dense", True), ("output.dense", True),
+            ("output.LayerNorm", False))
+
+
+def train_batches(run, n: int, max_length: int) -> tuple[list[dict], int]:
+    """The first `n` batches `lattice train` would take from 3g(b)'s
+    stores (`mine_pairs`, `PairBatcher` at the CLI's batch and seed)."""
+    from lattice_tpu_torch.models.data import PairBatcher, mine_pairs
+    from lattice_tpu_torch.models.unixcoder import UniXcoderConfig
+    from lattice_tpu_torch.text.tokenizer import CodeTokenizer
+    pairs = mine_pairs(run.indexer.code, run.indexer.summaries)
+    batcher = PairBatcher(pairs, CodeTokenizer(
+        vocab_size=UniXcoderConfig().vocab_size), batch_size=TRAIN_BATCH,
+        max_length=max_length, seed=SEED)
+    batches = batcher.batches()
+    return [next(batches) for _ in range(n)], len(pairs)
+
+
+def batch_tokens(batch: dict) -> tuple[int, int]:
+    """(padded, live) tokens of both sides of a batch."""
+    return (batch["anchor_ids"].size + batch["positive_ids"].size,
+            int(batch["anchor_mask"].sum() + batch["positive_mask"].sum()))
+
+
+def phase_train_path(ctx: dict) -> None:
+    """3m: training at full width over 3g(b)'s stores (cell J)."""
+    t0 = time.perf_counter()
+    phase_train_parity(ctx)
+    phase_train_finetune(ctx)
+    phase_fused_qkv(ctx)
+    phase_train_cli(ctx)
+    log(f"phase 3m took {time.perf_counter() - t0:.2f} s")
+
+
+def phase_train_parity(ctx: dict) -> None:
+    """3m(a): `ContrastiveTrainer`'s first steps on the card against the
+    CPU's, at `UniXcoderConfig()` from one seed, on the same batches
+    (max_length 64): losses and parameters within the stated bars; the
+    trainer never launches `paired_attention`."""
+    from lattice_tpu_torch.models.train import ContrastiveTrainer
+    from lattice_tpu_torch.ops import _build
+    batches, n_pairs = train_batches(ctx["real_run"], CHECK_STEPS, CHECK_LEN)
+    before = _build.launch_counts()["paired_attention"]
+    card = ContrastiveTrainer(learning_rate=TRAIN_LR, seed=SEED,
+                              device="cuda")
+    # remat recomputes the same layers (bit-equal on the CPU, held in
+    # tests/test_torch_port_train.py), so the CPU's steps skip it
+    host = ContrastiveTrainer(learning_rate=TRAIN_LR, seed=SEED, remat=False,
+                              device="cpu")
+    require(all(torch.equal(a.detach().cpu(), b.detach()) for a, b in zip(
+        card.module.parameters(), host.module.parameters())),
+        "the card's and the CPU's trainers start from other weights")
+    start = [p.detach().clone() for p in host.module.parameters()]
+    losses, host_s = [], 0.0
+    for batch in batches:
+        lc = card.train_step(batch)
+        t0 = time.perf_counter()
+        lh = host.train_step(batch)
+        host_s += time.perf_counter() - t0
+        losses.append((lc, lh))
+    worst = max(abs(c - h) / abs(h) for c, h in losses)
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten()
+                       for a, b in zip(card.module.parameters(),
+                                       host.module.parameters())])
+    moved = torch.cat([(a.detach() - b).abs().flatten()
+                       for a, b in zip(host.module.parameters(), start)])
+    launched = _build.launch_counts()["paired_attention"] - before
+    log(f"3m(a): {CHECK_STEPS} steps at UniXcoderConfig(), batch "
+        f"{TRAIN_BATCH}, max_length {CHECK_LEN} ({n_pairs} pairs mined from "
+        f"{REAL_REPO}/): losses card / CPU "
+        f"{[(round(c, 6), round(h, 6)) for c, h in losses]}, worst relative "
+        f"difference {worst:.3g} (bar {CHECK_LOSS_RTOL}); parameters apart "
+        f"by max {diffs.max().item():.3g} (bar {CHECK_PARAM_TOL:.3g}), mean "
+        f"{diffs.mean().item():.3g}, against a mean move of "
+        f"{moved.mean().item():.3g} from the start; the CPU's steps "
+        f"{host_s:.1f} s; paired_attention launches {launched}")
+    require(worst <= CHECK_LOSS_RTOL, f"training losses differ by {worst}")
+    require(diffs.max().item() <= CHECK_PARAM_TOL,
+            f"trained parameters differ by {diffs.max().item()}")
+    require(launched == 0, "the trainer launched paired_attention")
+
+
+def phase_train_finetune(ctx: dict) -> None:
+    """3m(b): `finetune_from_index` at full width over 3g(b)'s stores, the
+    CLI's defaults (100 steps, batch 16, max_length 256, lr 2e-5): step
+    times, tokens/s, the tokenizer's share, peak device memory, the
+    checkpoint's write; both npz writers on one layer's arrays; then remat
+    on against off on the same batches. 3m(c): the checkpoint loaded by a
+    card `UniXcoderModel(finetune_dir=...)` embeds through
+    `paired_attention` as the CPU model on the same checkpoint does."""
+    import tempfile
+    from lattice_tpu_torch.models import finetune
+    from lattice_tpu_torch.models.train import ContrastiveTrainer
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.text.tokenizer import CodeTokenizer
+    run, smi = ctx["real_run"], ctx["smi"]
+    steps, marks, tok_s = [], {}, [0.0]
+
+    class Timed(ContrastiveTrainer):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            marks["loop"] = time.perf_counter()
+            marks["init_s"] = marks["loop"] - t0
+
+        def train_step(self, batch):
+            t0 = time.perf_counter()
+            loss = super().train_step(batch)   # float(): synchronized
+            marks["last"] = time.perf_counter()
+            steps.append((marks["last"] - t0, *batch_tokens(batch)))
+            return loss
+
+    encode_batch = CodeTokenizer.encode_batch
+
+    def timed_encode(self, texts, max_length=512):
+        t0 = time.perf_counter()
+        out = encode_batch(self, texts, max_length)
+        tok_s[0] += time.perf_counter() - t0
+        return out
+
+    before = _build.launch_counts()["paired_attention"]
+    with tempfile.TemporaryDirectory() as tmp:
+        finetune.ContrastiveTrainer = Timed
+        CodeTokenizer.encode_batch = timed_encode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            report = finetune.finetune_from_index(
+                run.indexer.code, run.indexer.summaries, data_dir=tmp,
+                steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                max_length=TRAIN_LEN, learning_rate=TRAIN_LR, seed=SEED,
+                device="cuda")
+            done = time.perf_counter()
+        finally:
+            finetune.ContrastiveTrainer = ContrastiveTrainer
+            CodeTokenizer.encode_batch = encode_batch
+        peak = torch.cuda.max_memory_allocated()
+        require(_build.launch_counts()["paired_attention"] == before,
+                "finetune_from_index launched paired_attention")
+        ckpt = Path(tmp) / "finetuned_params.npz"
+        require(report["status"] == "completed"
+                and report["steps"] == TRAIN_STEPS == len(steps)
+                and report["checkpoint"] == str(ckpt) and ckpt.is_file()
+                and math.isfinite(report["last_loss"]),
+                f"finetune_from_index: {report}")
+        loop = marks["last"] - marks["loop"]
+        ms = [s * 1e3 for s, _, _ in steps]
+        padded = sum(p for _, p, _ in steps)
+        live = sum(n for _, _, n in steps)
+        log(f"3m(b): finetune_from_index over {REAL_REPO}/'s stores, "
+            f"{report['pairs_mined']} pairs, {TRAIN_STEPS} steps x batch "
+            f"{TRAIN_BATCH} (max_length {TRAIN_LEN}, remat on): loss "
+            f"{report['first_loss']} -> {report['last_loss']}; trainer made "
+            f"in {marks['init_s']:.2f} s; the loop {loop:.2f} s: step p50 "
+            f"{statistics.median(ms[1:]):.2f} ms (first {ms[0]:.1f}, p90 "
+            f"{sorted(ms)[int(0.9 * len(ms))]:.2f}), {padded / loop:.0f} "
+            f"padded tokens/s ({live / loop:.0f} live; {padded} and {live} "
+            f"in all), the tokenizer {tok_s[0]:.2f} s = "
+            f"{tok_s[0] / loop:.3f} of the loop; checkpoint "
+            f"{ckpt.stat().st_size / 1e6:.1f} MB written in "
+            f"{done - marks['last']:.2f} s (np.savez); peak device memory "
+            f"{peak / 1e9:.2f} GB ({smi})")
+        phase_npz_writers(ckpt, smi)
+        phase_finetuned_embeds(ctx, Path(tmp))
+    phase_remat_memory(ctx, smi)
+
+
+def phase_npz_writers(ckpt: Path, smi: str) -> None:
+    """Both writers on the same arrays (one encoder layer's): the
+    reference's `np.savez_compressed` and the port's `np.savez`."""
+    import tempfile
+    with np.load(ckpt) as flat:
+        arrays = {k: flat[k] for k in flat.files if k.startswith(WRITER_LAYER)}
+    size = sum(a.nbytes for a in arrays.values())
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for writer in (np.savez, np.savez_compressed):
+            t0 = time.perf_counter()
+            writer(Path(tmp) / f"{writer.__name__}.npz", **arrays)
+            rates[writer.__name__] = size / (time.perf_counter() - t0) / 1e6
+    log(f"3m(b): npz writers on {WRITER_LAYER}'s {len(arrays)} arrays "
+        f"({size / 1e6:.1f} MB of f32): np.savez {rates['savez']:.1f} MB/s, "
+        f"np.savez_compressed {rates['savez_compressed']:.2f} MB/s; at that "
+        f"rate the whole checkpoint ({ckpt.stat().st_size / 1e6:.1f} MB) "
+        f"takes {ckpt.stat().st_size / 1e6 / rates['savez_compressed']:.1f}"
+        f" s compressed ({smi})")
+
+
+def phase_finetuned_embeds(ctx: dict, data_dir: Path) -> None:
+    """3m(c): the fine-tuned checkpoint through `finetune_dir` on the card
+    (`paired_attention`, 12 launches a forward) and on the CPU (its plain
+    version), 16 of the store's chunks: every pooled cosine >= 0.999."""
+    from lattice_tpu_torch.models.unixcoder import UniXcoderModel
+    from lattice_tpu_torch.ops import _build
+    card = UniXcoderModel(finetune_dir=data_dir, device="cuda")
+    host = UniXcoderModel(finetune_dir=data_dir, device="cpu")
+    require(card.loaded_finetuned and host.loaded_finetuned
+            and "+ft-" in card.weights_fingerprint,
+            f"the checkpoint did not load: {card.weights_fingerprint}")
+    store = ctx["real_run"].indexer.code
+    texts = [p["content"] for p in store._payloads if p][:TRAIN_BATCH]
+    ids, mask = ctx["provider"].tokenizer.encode_batch(texts, TRAIN_LEN)
+    before = _build.launch_counts()["paired_attention"]
+    a = card.encode(ids, mask)
+    launched = _build.launch_counts()["paired_attention"] - before
+    b = host.encode(ids, mask)
+    cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b,
+                                                                      axis=1)
+    log(f"3m(c): the fine-tuned checkpoint ({card.weights_fingerprint}) on "
+        f"the card and on the CPU, {len(texts)} chunks at L "
+        f"{card.bucket_length(len(ids[0]))}: pooled cosine min "
+        f"{cos.min():.7f}, max abs difference {np.abs(a - b).max():.3g}; "
+        f"paired_attention launches {launched}")
+    require(launched == card.config.num_layers,
+            f"paired_attention launched {launched} times in one forward")
+    require(cos.min() >= 0.999, f"fine-tuned embeddings: cosine {cos.min()}")
+
+
+def phase_remat_memory(ctx: dict, smi: str) -> None:
+    """3m(b): the same batches (max_length 256) through a trainer with
+    remat on and one with it off: step p50 and peak device memory."""
+    import gc
+    from lattice_tpu_torch.models.train import ContrastiveTrainer
+    batches, _ = train_batches(ctx["real_run"], MEM_STEPS, TRAIN_LEN)
+    out = {}
+    for remat in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = ContrastiveTrainer(learning_rate=TRAIN_LR, seed=SEED,
+                                     remat=remat, device="cuda")
+        ms = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            trainer.train_step(batch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[remat] = (statistics.median(ms[1:]),
+                      (torch.cuda.max_memory_allocated() - base) / 1e9)
+        if remat:
+            trace_train_steps(trainer, batches[:2], smi)
+        del trainer
+    shapes = [b["anchor_ids"].shape[1] for b in batches]
+    log(f"3m(b): remat on / off, {MEM_STEPS} steps at batch {TRAIN_BATCH} "
+        f"(lengths {shapes}): step p50 {out[True][0]:.2f} / "
+        f"{out[False][0]:.2f} ms, peak device memory above the start "
+        f"{out[True][1]:.2f} / {out[False][1]:.2f} GB ({smi})")
+
+
+def trace_train_steps(trainer, batches: list[dict], smi: str) -> None:
+    """A `utils/tracing.py` device trace of training steps: device busy
+    ms a step, the idle share of the traced window, the time by kernel
+    class."""
+    from lattice_tpu_torch.utils.tracing import (_device_events,
+                                                 _load_events,
+                                                 categorize_device_trace,
+                                                 device_trace,
+                                                 summarize_device_trace)
+    where = str(ROOT / "build" / "traces" / "train")
+    with device_trace(where):
+        t0 = time.perf_counter()
+        for batch in batches:
+            trainer.train_step(batch)
+        wall = (time.perf_counter() - t0) * 1e3
+    summ = summarize_device_trace(where, "GPU", top=1 << 20)
+    require("error" not in summ and summ["total_ms"] > 0,
+            f"training trace: {summ.get('error', 'no device time')}")
+    n, busy = len(batches), summ["total_ms"]
+    kernels = sum(1 for _ in _device_events(_load_events(where)))
+    cats = categorize_device_trace(where)["categories"]
+    log(f"3m(b): training trace, {n} steps (remat on): device busy "
+        f"{busy / n:.3f} ms a step, idle {1 - busy / wall:.4f} of the traced "
+        f"window ({wall / n:.3f} ms a step under the profiler); "
+        f"{kernels / n:.0f} device events a step; by kernel class (ms over "
+        f"{n} steps): {cats} ({smi})")
+
+
+def phase_fused_qkv(ctx: dict) -> None:
+    """3m(d): `enable_fused_qkv` at B=128, L=512 on this checkout's chunks:
+    pooled cosine against the unfused model >= 0.999, chunks/s of each
+    (unfused, fused, fused, unfused); one layer's fused q/k/v slices
+    through the kernel bit-equal to the kernel on contiguous copies, and
+    within phase 2's bar of the plain version."""
+    from lattice_tpu_torch.models import unixcoder as um
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.ops import attention as attn
+    smi, tok = ctx["smi"], ctx["provider"].tokenizer
+    ids, mask = tok.encode_batch(ctx["enc_texts"][:ENC_BATCH], ENC_LEN)
+    pad = ENC_LEN - len(ids[0])
+    ids = torch.tensor([r + [tok.PAD] * pad for r in ids], device="cuda")
+    mask = torch.tensor([r + [0] * pad for r in mask], device="cuda")
+    models = {"unfused": um.UniXcoderModel(device="cuda"),
+              "fused": um.UniXcoderModel(device="cuda")}
+    models["fused"].enable_fused_qkv()
+    require(models["fused"].weights_fingerprint.endswith("+qkvfused")
+            and models["fused"].config.fused_qkv, "enable_fused_qkv")
+    seen = []
+
+    def spy(q, k, v, m, scale, _real=um.paired_attention):
+        if not seen:
+            seen.append((q, k, v, m, scale))
+        return _real(q, k, v, m, scale)
+
+    before = _build.launch_counts()["paired_attention"]
+    um.paired_attention = spy
+    try:
+        fused = models["fused"].encode_device(ids, mask)
+    finally:
+        um.paired_attention = attn.paired_attention
+    launched = _build.launch_counts()["paired_attention"] - before
+    unfused = models["unfused"].encode_device(ids, mask)
+    cos = torch.nn.functional.cosine_similarity(fused, unfused)
+    q, k, v, m, scale = seen[0]
+    strided = attn.paired_attention(q, k, v, m, scale)
+    copies = attn.paired_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), m, scale)
+    plain = attn.paired_attention_plain(q, k, v, m, scale)
+    e = (strided - plain).abs().max().item()
+    ms = {}
+    for name in FUSED_ORDER:
+        model = models[name]
+        ms.setdefault(name, []).append(
+            cuda_ms(lambda: model.encode_device(ids, mask), 5, 2))
+    chunks = {n: [round(ENC_BATCH / t * 1e3, 1) for t in v]
+              for n, v in ms.items()}
+    log(f"3m(d): fused QKV at B={ENC_BATCH}, L={ENC_LEN}: pooled cosine "
+        f"against unfused min {cos.min().item():.7f}; q/k/v of layer 0 "
+        f"{tuple(q.shape)} at strides {q.stride()} (contiguous "
+        f"{q.is_contiguous()}), kernel on the slices bit-equal to the "
+        f"kernel on copies {torch.equal(strided, copies)}, max abs error "
+        f"against plain {e:.3g}; paired_attention launches {launched}; "
+        f"chunks/s {' / '.join(f'{n} {c}' for n, c in chunks.items())} "
+        f"(in order {FUSED_ORDER}; ms {ms}; {smi})")
+    require(not q.is_contiguous() and q.stride()[1] == 3 * q.shape[2],
+            f"the fused q is not a column slice: strides {q.stride()}")
+    require(torch.equal(strided, copies), "paired_attention on the fused "
+            "slices differs from the kernel on contiguous copies")
+    require(e <= 1e-2, f"paired_attention on the fused slices: error {e}")
+    require(launched == 12, f"fused forward: {launched} launches")
+    require(cos.min().item() >= 0.999, f"fused QKV: cosine {cos.min()}")
+    del models, seen
+    torch.cuda.empty_cache()
+
+
+def write_hf_checkpoint(d: Path, seed: int) -> None:
+    """A synthetic full-size checkpoint in HF RoBERTa layout (the
+    unixcoder-base config: 12 x 768, vocab 50,265, 514 positions) with its
+    config.json, drawn from a seed: `validate-weights`' input where no
+    real checkpoint is mounted."""
+    gen = torch.Generator().manual_seed(seed)
+    h, ffn, layers = 768, 3072, 12
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen) * 0.02
+
+    state = {"embeddings.word_embeddings.weight": draw(50265, h),
+             "embeddings.position_embeddings.weight": draw(514, h),
+             "embeddings.token_type_embeddings.weight": draw(10, h),
+             "embeddings.LayerNorm.weight": torch.ones(h),
+             "embeddings.LayerNorm.bias": torch.zeros(h)}
+    for i in range(layers):
+        for name, dense in HF_LAYER:
+            out_f = ffn if name == "intermediate.dense" else h
+            in_f = ffn if name == "output.dense" else h
+            key = f"encoder.layer.{i}.{name}"
+            state[f"{key}.weight"] = (draw(out_f, in_f) if dense
+                                      else torch.ones(out_f))
+            state[f"{key}.bias"] = torch.zeros(out_f)
+    d.mkdir(parents=True)
+    torch.save(state, d / "pytorch_model.bin")
+    (d / "config.json").write_text(json.dumps({
+        "model_type": "roberta", "vocab_size": 50265, "hidden_size": h,
+        "num_hidden_layers": layers, "num_attention_heads": 12,
+        "intermediate_size": ffn, "max_position_embeddings": 514,
+        "type_vocab_size": 10, "layer_norm_eps": 1e-5, "pad_token_id": 1}))
+
+
+def phase_train_cli(ctx: dict) -> None:
+    """3m(e): a copy of the golden fixture indexed and saved in this
+    process (as `lattice index` saves it), then `lattice train --steps 4`
+    over it and `lattice validate-weights` on a synthetic full-size
+    checkpoint, each a process of the port's CLI on the card, each exiting
+    0 with the reference's report; their launches count with this
+    path's."""
+    import asyncio
+    import shutil
+    import tempfile
+    from lattice_tpu_torch.config.settings import Settings
+    from lattice_tpu_torch.embeddings.embedder import Embedder
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.pipeline.orchestrator import PipelineOrchestrator
+    from lattice_tpu_torch.providers.factory import get_embedding_provider
+    from lattice_tpu_torch.storage import persistence
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        repo = tmp / "golden"
+        shutil.copytree(GOLDEN, repo)
+        env_file = tmp / "cli.env"
+        env_file.write_text("EMBEDDING_PROVIDER=hash\n"
+                            f"EMBEDDING_DIMENSIONS={GOLDEN_DIM}\n")
+        settings = Settings.from_env(env_file)
+        run = asyncio.run(PipelineOrchestrator(
+            repo, Embedder(get_embedding_provider(settings.ai,
+                                                  device="cuda")),
+            project_name="train_cli", settings=settings,
+            device="cuda").run())
+        persistence.save_index(
+            repo / settings.storage.data_dir, run.graph_builder.store,
+            run.indexer, project="train_cli",
+            provider=settings.ai.embedding_provider,
+            file_hashes={f.relative_path: f.content_hash for f in run.files})
+        (tmp / "home").mkdir()
+        lattice = CliProcesses(env_file, tmp / "home", "cuda")
+        out, _ = lattice("train", "train", "--path", str(repo), "--steps",
+                         "4")
+        report = json.loads(out[out.index("{"):])
+        ckpt = repo / ".lattice" / "finetuned_params.npz"
+        require(report["status"] == "completed" and report["steps"] == 4
+                and report["checkpoint"] == str(ckpt) and ckpt.is_file()
+                and "step 4/4 loss=" in out, f"lattice train: {out[-800:]}")
+        write_hf_checkpoint(tmp / "hf", SEED)
+        out, _ = lattice("validate-weights", "validate-weights",
+                         str(tmp / "hf"))
+        vrep = json.loads(out)
+        checks = vrep["checks"]
+        require(vrep["ok"] and checks["param_mapping"]["ok"]
+                and checks["embedding_probe"]["ok"]
+                and checks["state_dict"]["config"]["hidden_size"] == 768
+                and checks["torch_parity"]["ok"] is not False,
+                f"validate-weights: {json.dumps(vrep)[:1500]}")
+        for k in _build.KERNELS:
+            k.launches += lattice.launches.get(k.name, 0)
+            for e, n in lattice.by_kernel.get(k.name, {}).items():
+                k.entry_launches[e] = k.entry_launches.get(e, 0) + n
+        times = "; ".join(f"`{label}` {wall:.2f} s (imports {imp:.2f}, "
+                          f"main() {main_s:.2f})"
+                          for label, wall, imp, main_s in lattice.times)
+        log(f"3m(e): CLI processes on the card: {times}; train {report}; "
+            f"validate-weights checks "
+            f"{ {n: c['ok'] for n, c in checks.items()} } (parity: "
+            f"{checks['torch_parity']}); launches "
+            f"{lattice.by_kernel.get('paired_attention')} ({ctx['smi']})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this runs on the card only",
@@ -4555,7 +5084,10 @@ def main() -> int:
             ("CLI", phase_cli_path,
              ("scan_topk_int8", "merge_candidates")),
             ("serving CLI", phase_serving_cli,
-             ("scan_topk_int8", "merge_candidates"))):
+             ("scan_topk_int8", "merge_candidates")),
+            ("training", phase_train_path,
+             ("paired_attention", "lt_paired_attention_bf16",
+              "lt_paired_attention_f32"))):
         _build.reset_launch_counts()
         phase(ctx)
         counts = {**_build.launch_counts(), **_build.entry_launch_counts()}

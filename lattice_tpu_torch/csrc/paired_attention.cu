@@ -3,7 +3,9 @@
 // paired_attention replaces `_paired_attn_kernel` via `paired_attention`
 // (lattice_tpu/ops/attention.py:42, :71). For batch row b, head h and
 // query i, over q/k/v [B, L, H*64] in their native layout (head h in
-// columns [64h, 64h + 64)):
+// columns [64h, 64h + 64); each operand with its own row and batch
+// strides, so that the three column slices of a fused [B, L, 3W] QKV
+// projection come in without a copy):
 //   s[i, j] = f32 dot(q[b, i, h], k[b, j, h]) * sm_scale + neg[b, j]
 //   neg = 0 where mask > 0, else -1e9 (additive, as the reference)
 //   ctx[b, i, h] = (round_T(p) @ v[b, :, h]) / sum_j p,  p = exp(s - max s)
@@ -21,8 +23,9 @@
 // What the design does about each:
 // - one block per (128-query tile, head, batch row): K/V cross L2 L/128
 //   times, and the [L, L] scores never leave registers;
-// - K/V tiles of 64 keys come by TMA (3-D maps over (W, L, B), boxes of
-//   64 columns x 64 rows, 128-byte swizzle, which is the layout a 128-byte
+// - K/V tiles of 64 keys come by TMA (3-D maps over (W, L, B) with the
+//   operand's row and batch strides, boxes of 64 columns x 64 rows,
+//   128-byte swizzle, which is the layout a 128-byte
 //   swizzled wgmma descriptor reads; rows past L read as zeros) into a
 //   ring of STAGES slots with full and empty mbarriers. Thread 0 issues
 //   every load: the first STAGES tiles at the start, then each tile into
@@ -75,6 +78,12 @@ constexpr int BM = 64;                // f32 kernel: queries per block
 constexpr int BN = 64;                // keys per tile
 constexpr int MAX_L = 512;            // ops/attention.py MAX_LEN
 constexpr float MASKED = -1e9f;
+
+// Row and batch strides of q, k and v, in elements: element (b, l, c) of q
+// is q[b * bq + l * lq + c]. The context is written [B, L, W] contiguous.
+struct Strides {
+  long long lq, lk, lv, bq, bk, bv;
+};
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -413,7 +422,7 @@ constexpr int F32_THREADS = BM;       // one thread per query row
 __global__ void __launch_bounds__(F32_THREADS)
 paired_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
-                       const int* __restrict__ mask, int L, int W,
+                       const int* __restrict__ mask, int L, int W, Strides st,
                        float scale, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* kt = reinterpret_cast<float*>(smem);  // [BN][D]
@@ -422,13 +431,15 @@ paired_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* neg = sc + BN * BM;                   // [BN]
   const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
   const int row = q0 + threadIdx.x;
-  const size_t head = (size_t)b * L * W + (size_t)h * D;
+  const float* qh = q + (size_t)b * st.bq + (size_t)h * D;
+  const float* kh = k + (size_t)b * st.bk + (size_t)h * D;
+  const float* vh = v + (size_t)b * st.bv + (size_t)h * D;
   const int n_tiles = (L + BN - 1) / BN;
 
   float qr[D], o[D];
   {
     const float4* src = reinterpret_cast<const float4*>(
-        q + head + (size_t)min(row, L - 1) * W);
+        qh + (size_t)min(row, L - 1) * st.lq);
 #pragma unroll
     for (int d4 = 0; d4 < D / 4; ++d4) {
       const float4 x = src[d4];
@@ -448,8 +459,8 @@ paired_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = i / (D / 4), c = (i % (D / 4)) * 4, key = t * BN + r;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (key < L) {
-        kv = *reinterpret_cast<const float4*>(k + head + (size_t)key * W + c);
-        vv = *reinterpret_cast<const float4*>(v + head + (size_t)key * W + c);
+        kv = *reinterpret_cast<const float4*>(kh + (size_t)key * st.lk + c);
+        vv = *reinterpret_cast<const float4*>(vh + (size_t)key * st.lv + c);
       }
       *reinterpret_cast<float4*>(kt + r * D + c) = kv;
       *reinterpret_cast<float4*>(vt + r * D + c) = vv;
@@ -496,7 +507,8 @@ paired_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (row < L) {
-    float4* dst = reinterpret_cast<float4*>(out + head + (size_t)row * W);
+    float4* dst = reinterpret_cast<float4*>(
+        out + (size_t)b * L * W + (size_t)h * D + (size_t)row * W);
 #pragma unroll
     for (int d4 = 0; d4 < D / 4; ++d4)
       dst[d4] = make_float4(o[4 * d4] / l, o[4 * d4 + 1] / l,
@@ -512,13 +524,16 @@ bool bad_shape(int B, int L, int H) {
 }
 
 // A 3-D map over one of q/k/v [B, L, W] bf16 (innermost first: W, L, B)
-// in boxes of 64 columns x 64 rows of one batch row, 128-byte swizzled;
-// rows past L read as zeros, which a 2-D map over B * L rows would not give.
-bool head_map(CUtensorMap* map, const void* x, int B, int L, int W) {
+// with row stride ld and batch stride bs (elements; 16-byte multiples, as
+// TMA requires), in boxes of 64 columns x 64 rows of one batch row,
+// 128-byte swizzled; rows past L read as zeros, which a 2-D map over B * L
+// rows would not give.
+bool head_map(CUtensorMap* map, const void* x, int B, int L, int W,
+              long long ld, long long bs) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)L * W * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)bs * 2};
   const cuuint32_t box[3] = {D, BN, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x),
@@ -533,14 +548,19 @@ extern "C" {
 
 // Every entry returns cudaGetLastError() after its launch (0 = success).
 
+// ldq / ldk / ldv and bsq / bsk / bsv: the row and batch strides of q, k
+// and v in elements (W and L * W for contiguous operands).
 int lt_paired_attention_bf16(const void* q, const void* k, const void* v,
                              const void* mask, int B, int L, int H,
+                             long long ldq, long long ldk, long long ldv,
+                             long long bsq, long long bsk, long long bsv,
                              float scale, void* out, void* stream) {
   if (bad_shape(B, L, H)) return (int)cudaErrorInvalidValue;
   const int W = H * D;
   CUtensorMap tq, tk, tv;
-  if (!head_map(&tq, q, B, L, W) || !head_map(&tk, k, B, L, W) ||
-      !head_map(&tv, v, B, L, W))
+  if (!head_map(&tq, q, B, L, W, ldq, bsq) ||
+      !head_map(&tk, k, B, L, W, ldk, bsk) ||
+      !head_map(&tv, v, B, L, W, ldv, bsv))
     return (int)cudaErrorInvalidValue;
   auto kern = paired_attn_bf16_kernel;
   cudaError_t err = cudaFuncSetAttribute(
@@ -555,6 +575,8 @@ int lt_paired_attention_bf16(const void* q, const void* k, const void* v,
 
 int lt_paired_attention_f32(const void* q, const void* k, const void* v,
                             const void* mask, int B, int L, int H,
+                            long long ldq, long long ldk, long long ldv,
+                            long long bsq, long long bsk, long long bsv,
                             float scale, void* out, void* stream) {
   if (bad_shape(B, L, H)) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(2 * BN * D + BN * BM + BN) * sizeof(float);
@@ -566,7 +588,7 @@ int lt_paired_attention_f32(const void* q, const void* k, const void* v,
   kern<<<grid, F32_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(mask), L, H * D,
-      scale, static_cast<float*>(out));
+      Strides{ldq, ldk, ldv, bsq, bsk, bsv}, scale, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,11 @@ The differences from the reference:
   JSON layout of the reference's `model_dump_json(indent=1)`.
 - `serve` prints its address line with a flush, so a process reading its
   stdout through a pipe sees the bound port (`--port 0` picks a free one).
-- `train` and `validate-weights` keep their parsers, so the surface is the
-  same, but are not ported: each raises `NotImplementedError` naming its
-  ROADMAP item, and `main` returns 1.
+- `train` and `validate-weights` run on `--device` too: `train` fine-tunes
+  there (the checkpoint is written with `np.savez`, uncompressed,
+  `models/finetune.py`), `validate-weights` checks the checkpoint's
+  encoder there. `main` returns 1 on `NotImplementedError`, which only
+  what `parallel/` brings still raises (the sharded plans).
 
     python -m lattice_tpu_torch.main --device cpu index tests/fixtures/golden_project
     python -m lattice_tpu_torch.main --device cpu search "who calls validate_email" --path ...
@@ -91,12 +93,6 @@ def _load_engine(repo_path: Path, settings: Settings, device: str):
         _data_dir(repo_path, settings), embedder, device=device)
     llm = get_llm_provider(settings.ai)
     return QueryEngine(graph, indexer, llm, settings.query), manifest
-
-
-def _not_ported(command: str, item: str) -> int:
-    raise NotImplementedError(
-        f"`lattice {command}` is not ported to lattice_tpu_torch yet "
-        f"(ROADMAP queue 1, item {item})")
 
 
 # ---- commands -----------------------------------------------------------
@@ -350,8 +346,27 @@ def run_metadata(args: argparse.Namespace, settings: Settings) -> int:
 
 
 def run_train(args: argparse.Namespace, settings: Settings) -> int:
-    """Fine-tune UniXcoder on pairs mined from the index: not ported."""
-    return _not_ported("train", "11")
+    """Fine-tune UniXcoder on (NL, code) pairs mined from the saved index
+    (reference `main.py:319-337`), on `--device`. The checkpoint lands in
+    the index's data dir, where the next command's provider loads it."""
+    from lattice_tpu_torch.models.finetune import finetune_from_index
+
+    repo_path = Path(args.path).resolve()
+    embedder = _make_embedder(settings, args.device)
+    _graph, indexer, _manifest = persistence.load_index(
+        _data_dir(repo_path, settings), embedder, device=args.device)
+
+    def on_progress(step, total, loss):
+        if step % 10 == 0 or step == total:
+            print(f"step {step}/{total} loss={loss:.4f}", flush=True)
+
+    report = finetune_from_index(
+        indexer.code, indexer.summaries,
+        data_dir=_data_dir(repo_path, settings),
+        steps=args.steps, batch_size=args.batch_size,
+        learning_rate=args.lr, progress=on_progress, device=args.device)
+    print(json.dumps(report, indent=1))
+    return 0 if report["status"] in ("completed", "skipped") else 1
 
 
 def run_watch(args: argparse.Namespace, settings: Settings) -> int:
@@ -416,8 +431,15 @@ def run_mcp(args: argparse.Namespace, settings: Settings) -> int:
 
 def run_validate_weights(args: argparse.Namespace,
                          settings: Settings) -> int:
-    """Real-checkpoint validation: not ported."""
-    return _not_ported("validate-weights", "9")
+    """One-command real-checkpoint validation (reference `main.py:391-398`)
+    on `--device`: mount the weights, run `lattice validate-weights
+    <dir>`."""
+    from lattice_tpu_torch.models.validate_weights import validate_weights
+
+    report = validate_weights(args.weights_dir, atol=args.atol,
+                              device=args.device)
+    print(json.dumps(report, indent=2))
+    return 0 if report["ok"] else 1
 
 
 # ---- entry --------------------------------------------------------------

@@ -17,11 +17,17 @@ FFN, vocab 51416). Numerics follow the flax module:
   64, the heads pair up and L >= 8; otherwise, or with
   `paired_attention=False`, the einsum path: f32 scores / sqrt(d), the
   -1e9 bias, an f32 softmax, probabilities in the compute dtype, f32
-  context.
+  context. The kernel has no backward, so training runs the einsum path
+  (`models/train.py`);
+- `fused_qkv`: one `Dense(H, 3H)` named `qkv` whose output's three column
+  slices (q, k, v in that order, as `jnp.split(qkv, 3)`) feed the
+  attention as they are, strided, without a copy;
+- `remat`: under grad mode each layer runs through
+  `torch.utils.checkpoint`, so the backward recomputes its activations.
 
 Left behind: the TPU layout pinning, the mesh sharding (multi-GPU comes
-later), the stock Pallas flash path and `fused_qkv` (`fused_attention` and
-`fused_qkv` set True raise). Random init draws from an explicit
+later) and the stock Pallas flash path (`fused_attention` set True
+raises). Random init draws from an explicit
 `torch.Generator(seed)` with flax's initialisers; it cannot reproduce
 JAX's draws, so its fingerprint says `unixcoder-torch-random-seed{seed}`.
 """
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lattice_tpu_torch.core.errors import ConfigurationError, EmbeddingError
 from lattice_tpu_torch.ops.attention import MASKED, paired_attention
@@ -68,9 +75,11 @@ class UniXcoderConfig:
     fused_attention: bool | None = None
     # dtype the einsum path rounds its scores to before the softmax
     scores_dtype: str = "float32"
-    # rematerialization for training; inference ignores it
+    # recompute each layer's activations in the backward (training only;
+    # without grad mode it changes nothing)
     remat: bool = False
-    # one [H, 3H] Q/K/V projection; not ported yet (True raises)
+    # one [H, 3H] Q/K/V projection (`fuse_qkv_params` derives its weights;
+    # checkpoints stay in the three-matmul layout)
     fused_qkv: bool = False
     # ops/attention.paired_attention: None or True = the paired path where
     # it applies (the kernel on a CUDA tensor, its plain version on a CPU
@@ -112,6 +121,10 @@ def _einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def split(x):
         return x.reshape(bsz, ln, cfg.num_heads, head_dim).transpose(1, 2)
 
+    # the products run in full f32 in the forward. Their backward runs
+    # outside these blocks, at the process's f32 matmul precision: full f32
+    # unless a caller turned TF32 on (PyTorch's default is off, and nothing
+    # in the port turns it on)
     with full_f32():
         scores = split(q).float() @ split(k).float().transpose(-1, -2)
     # scaled in the scores dtype, as the JAX package does
@@ -129,17 +142,24 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.config = config
         h, cdt = config.hidden_size, config.compute_dtype
-        self.query = Dense(h, h, cdt)
-        self.key = Dense(h, h, cdt)
-        self.value = Dense(h, h, cdt)
+        if config.fused_qkv:
+            self.qkv = Dense(h, 3 * h, cdt)
+        else:
+            self.query = Dense(h, h, cdt)
+            self.key = Dense(h, h, cdt)
+            self.value = Dense(h, h, cdt)
         self.output = Dense(h, h, cdt)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
+        if cfg.fused_qkv:
+            # three column slices of one [B, L, 3H] product, views
+            q, k, v = self.qkv(hidden).split(cfg.hidden_size, dim=-1)
+        else:
+            q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
         if _paired_enabled(cfg, hidden.shape[1]):
             # the projections in their native [B, L, H*64] layout: no
-            # split or transpose feeds the kernel
+            # split, transpose or copy feeds the kernel
             ctx = paired_attention(q, k, v, mask,
                                    1.0 / math.sqrt(cfg.hidden_size
                                                    // cfg.num_heads))
@@ -191,8 +211,12 @@ class UniXcoderEncoder(nn.Module):
         emb = self.word_embeddings(input_ids) + self.position_embeddings(
             positions)
         hidden = self.embeddings_norm(emb.float()).to(cfg.compute_dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            hidden = layer(hidden, mask)
+            if remat:
+                hidden = checkpoint(layer, hidden, mask, use_reentrant=False)
+            else:
+                hidden = layer(hidden, mask)
         mask_f = mask.to(torch.float32)[:, :, None]
         pooled = (hidden.float() * mask_f).sum(dim=1) / torch.clamp(
             mask_f.sum(dim=1), min=1.0)
@@ -238,10 +262,10 @@ class UniXcoderModel:
                  finetune_dir: str | Path | None = None,
                  device: str | torch.device = "cuda"):
         self.config = config or UniXcoderConfig()
-        if self.config.fused_attention or self.config.fused_qkv:
+        if self.config.fused_attention:
             raise ConfigurationError(
-                "fused_attention / fused_qkv are not ported to "
-                "lattice_tpu_torch (ROADMAP queue 1, item 9)")
+                "fused_attention (the JAX package's stock Pallas flash "
+                "path) is not ported to lattice_tpu_torch")
         self.device = _device(device)
         self.encoder = UniXcoderEncoder(self.config)
         init_random_(self.encoder, seed)
@@ -283,6 +307,23 @@ class UniXcoderModel:
             if n <= b:
                 return b
         return self.LENGTH_BUCKETS[-1]
+
+    def enable_fused_qkv(self) -> None:
+        """Serve the attention projections through one [H, 3H] matmul:
+        the weights fused from the three-matmul ones (`fuse_qkv_params`),
+        the encoder rebuilt around them on the same device and in the same
+        dtypes. Call it after any weight load: checkpoints stay in the
+        three-matmul layout."""
+        if self.config.fused_qkv:
+            return
+        self.config = dataclasses.replace(self.config, fused_qkv=True)
+        state = fuse_qkv_params(self.encoder.state_dict(),
+                                self.config.num_layers)
+        with torch.device("meta"):
+            encoder = UniXcoderEncoder(self.config)
+        encoder.load_state_dict(state, assign=True)
+        self.encoder = encoder.eval()
+        self.weights_fingerprint += "+qkvfused"
 
     def enable_bf16_inference(self) -> None:
         """Cast the matrix params (2-D: projections and embedding tables)
@@ -398,6 +439,51 @@ def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
             t = t.T.contiguous()
         state[".".join(path + [_LEAF[leaf]])] = t
     return state
+
+
+def params_to_jax(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The inverse of `params_from_jax`: this module's state dict -> f32
+    arrays under the JAX encoder's slash-joined names, as
+    `lattice_tpu/models/finetune.py` writes them. Dense kernels go back to
+    flax's [in, out]; a 1-D weight is a LayerNorm scale, the tables'
+    weights are embeddings."""
+    flat = {}
+    for name, value in state.items():
+        *path, leaf = name.split(".")
+        parts = []
+        for i, p in enumerate(path):
+            if p == "layers":
+                continue
+            parts.append(f"layer_{p}" if i and path[i - 1] == "layers"
+                         else p)
+        t = value.detach().float().cpu()
+        if leaf == "bias":
+            key = "bias"
+        elif t.dim() == 1:
+            key = "scale"
+        elif path[-1].endswith("embeddings"):
+            key = "embedding"
+        else:
+            key, t = "kernel", t.T
+        flat["/".join(parts + [key])] = t.contiguous().numpy()
+    return flat
+
+
+def fuse_qkv_params(state: dict[str, torch.Tensor], num_layers: int
+                    ) -> dict[str, torch.Tensor]:
+    """A three-matmul state dict -> the fused-QKV layout: each layer's
+    query, key and value weights ([out, in]) and biases concatenated along
+    the output, in that order, as `lattice_tpu`'s `fuse_qkv_params`
+    concatenates flax's [in, out] kernels (the order of `jnp.split(qkv,
+    3)`)."""
+    out = dict(state)
+    for i in range(num_layers):
+        pre = f"layers.{i}.attention."
+        for leaf in ("weight", "bias"):
+            out[f"{pre}qkv.{leaf}"] = torch.cat(
+                [out.pop(f"{pre}{name}.{leaf}")
+                 for name in ("query", "key", "value")])
+    return out
 
 
 def _load_flat_npz(path: Path, encoder: UniXcoderEncoder

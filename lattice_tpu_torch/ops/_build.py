@@ -44,6 +44,7 @@ LIB_NAME = "liblattice_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # argument types of every C entry point in csrc/
 _ENTRIES: dict[str, tuple] = {
     "lt_scan_topk_bf16": (_P, _P, _P) + (_I,) * 8 + (_P, _P, _P),
@@ -57,8 +58,11 @@ _ENTRIES: dict[str, tuple] = {
     "lt_merge_positions": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "lt_ivf_probe_bf16": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
     "lt_ivf_probe_f32": (_P,) * 4 + (_I,) * 9 + (_P, _P, _P),
-    "lt_paired_attention_bf16": (_P,) * 4 + (_I,) * 3 + (_F, _P, _P),
-    "lt_paired_attention_f32": (_P,) * 4 + (_I,) * 3 + (_F, _P, _P),
+    # q, k, v, mask, B, L, H, the row and batch strides of q, k and v, ...
+    "lt_paired_attention_bf16": ((_P,) * 4 + (_I,) * 3 + (_LL,) * 6
+                                 + (_F, _P, _P)),
+    "lt_paired_attention_f32": ((_P,) * 4 + (_I,) * 3 + (_LL,) * 6
+                                + (_F, _P, _P)),
     "lt_score_probe_bf16": (_P, _P) + (_I,) * 9 + (_P, _P),
     "lt_score_probe_bf16_scalar": (_P, _P) + (_I,) * 9 + (_P, _P),
     "lt_score_probe_int8": (_P, _P) + (_I,) * 9 + (_P, _P),

@@ -24,6 +24,19 @@ score, a masked score sits ~1e9 below it, so its exp is 0 in f32 and the
 tile adds zeros and leaves the max as it is. A row with no live key runs
 every tile: its answer is the mean of V over all keys.
 
+The kernel reads each of q/k/v through its own row and batch strides, so
+the three column slices of a fused [B, L, 3W] QKV projection
+(`models/unixcoder.py`, `fused_qkv`) come in without a copy: each row of
+3 x 768 bf16 is 4,608 bytes and a slice starts 1,536 bytes on, both
+multiples of 16 as TMA requires. Columns must be contiguous.
+
+Neither the TPU kernel nor this one has a backward: `jax.grad` through the
+reference fails, and the CUDA launch writes into a fresh tensor with no
+`grad_fn`, which would leave the Q/K/V projections without a gradient and
+say nothing. So `paired_attention` raises `KernelError` whenever grad mode
+is on and any of q/k/v requires grad, on the CPU as on the card; the
+trainer takes the einsum path.
+
 `paired_attention_plain` is the same function in torch, with the kernel's
 rounding points: f32 scores, `s * sm_scale + neg` with neg 0 / -1e9 from
 `mask > 0`, a full-row max and exp, p rounded to the input dtype before
@@ -77,13 +90,34 @@ def paired_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (c / denom).transpose(1, 2).reshape(bsz, ln, width)
 
 
+def _strides(x: torch.Tensor) -> tuple[int, int]:
+    """(row stride, batch stride) in elements of one of q/k/v [B, L, W]
+    whose columns are contiguous; a dimension of size 1 takes the stride
+    a contiguous tensor would have there."""
+    bsz, ln, width = x.shape
+    if width > 1 and x.stride(2) != 1:
+        raise KernelError(f"paired_attention: columns of stride "
+                          f"{x.stride(2)}, need 1")
+    ld = x.stride(1) if ln > 1 else width
+    bs = x.stride(0) if bsz > 1 else ln * ld
+    return ld, bs
+
+
 def paired_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor, sm_scale: float) -> torch.Tensor:
     """Self-attention over head-contiguous projections.
 
-    q/k/v: [B, L, H*64] of one dtype, bf16 or f32, H even, 1 <= L <= 512;
-    mask: [B, L] (> 0 = real token). Returns [B, L, H*64] f32 context in
-    the same layout."""
+    q/k/v: [B, L, H*64] of one dtype, bf16 or f32, H even, 1 <= L <= 512,
+    columns contiguous, rows and batch rows at any stride that keeps them
+    apart and 16-byte aligned (column slices of one [B, L, 3 * H*64]
+    tensor among them); mask: [B, L] (> 0 = real token). Returns
+    [B, L, H*64] f32 context in the same layout, contiguous. Raises
+    `KernelError` under grad mode when any of q/k/v requires grad: there
+    is no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise KernelError("paired_attention has no backward (neither has "
+                          "the TPU kernel): run it under torch.no_grad(), "
+                          "or take the einsum path to train")
     if _on_cpu(q, k, v, mask):
         return paired_attention_plain(q, k, v, mask, sm_scale)
     entry = _ENTRIES.get(q.dtype)
@@ -99,10 +133,15 @@ def paired_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           f"with mask {tuple(mask.shape)}: need W a multiple "
                           f"of {PAIR} (head pairs of {HEAD_DIM}), 1 <= L <= "
                           f"{MAX_LEN}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
-            and _aligned(q, k, v)):
-        raise KernelError("paired_attention: q/k/v must be contiguous and "
-                          "16-byte aligned")
+    strides = [_strides(x) for x in (q, k, v)]
+    step = 16 // q.element_size()
+    if not (_aligned(q, k, v)
+            and all(ld >= width and bs >= ln * ld and ld % step == 0
+                    and bs % step == 0 for ld, bs in strides)):
+        raise KernelError(f"paired_attention: q/k/v need 16-byte aligned "
+                          f"starts and rows that are 16-byte multiples "
+                          f"apart and do not overlap; (row, batch) strides "
+                          f"{strides} for W = {width}, L = {ln}")
     out = torch.empty((bsz, ln, width), dtype=torch.float32, device=q.device)
     if bsz == 0:
         return out
@@ -110,6 +149,7 @@ def paired_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         PAIRED_ATTENTION.launch(
             entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i.data_ptr(),
-            bsz, ln, width // HEAD_DIM, float(sm_scale), out.data_ptr(),
+            bsz, ln, width // HEAD_DIM, *(ld for ld, _ in strides),
+            *(bs for _, bs in strides), float(sm_scale), out.data_ptr(),
             _stream(q.device))
     return out

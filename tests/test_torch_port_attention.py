@@ -10,6 +10,8 @@ in f32) and with the oracle only where a key is live. Tolerances: f32
 on the same bf16-rounded inputs.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -239,3 +241,108 @@ def test_kernel_wrapper_refuses(case, monkeypatch):
     mask = torch.ones((b, ln + (case == "mask_shape")), dtype=torch.int32)
     with pytest.raises(KernelError):
         attn.paired_attention(q, k, q.clone(), mask, SCALE)
+
+
+def test_column_slices_match_contiguous_plain():
+    """The fused path's q/k/v are column slices of one [B, L, 3W] tensor:
+    the plain version gives on them what it gives on contiguous copies."""
+    q, k, v, mask = _inputs(seed=19)
+    qkv = torch.from_numpy(np.concatenate([q, k, v], axis=-1))
+    sq, sk, sv = qkv.split(W, dim=-1)
+    assert not sq.is_contiguous()
+    got = attn.paired_attention(sq, sk, sv, torch.from_numpy(mask), SCALE)
+    want = _port(q, k, v, mask, torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """paired_attention's launches recorded, not made: the CPU dispatch is
+    switched off, and no CUDA is touched."""
+    calls = []
+    monkeypatch.setattr(attn, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(attn, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(attn.PAIRED_ATTENTION, "launch",
+                        lambda entry, *args: calls.append((entry, args)))
+    return calls
+
+
+def _aligned_zeros(shape, dtype):
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 64, dtype=dtype)
+    start = (16 - buf.data_ptr() % 16) % 16 // buf.element_size()
+    return buf[start:start + n].view(shape)
+
+
+@pytest.mark.parametrize("dtype,entry", [
+    (torch.bfloat16, "lt_paired_attention_bf16"),
+    (torch.float32, "lt_paired_attention_f32")])
+@pytest.mark.parametrize("b,ln", [(2, 64), (1, 512), (3, 1)])
+def test_kernel_takes_fused_slices_without_a_copy(recorded, dtype, entry, b,
+                                                  ln):
+    """The three column slices of a fused [B, L, 3W] projection go to the
+    kernel as they lie: their own pointers (W elements apart), row stride
+    3W and batch stride 3LW; contiguous operands pass W and LW, the
+    kernel's layout before strides were passed."""
+    width = 12 * 64
+    qkv = _aligned_zeros((b, ln, 3 * width), dtype)
+    q, k, v = qkv.split(width, dim=-1)
+    mask = torch.ones((b, ln), dtype=torch.int32)
+    attn.paired_attention(q, k, v, mask, SCALE)
+    attn.paired_attention(*(x.contiguous() for x in (q, k, v)), mask, SCALE)
+    (e1, a1), (e2, a2) = recorded
+    assert e1 == e2 == entry
+    es = qkv.element_size()
+    assert a1[:3] == (qkv.data_ptr(), qkv.data_ptr() + width * es,
+                      qkv.data_ptr() + 2 * width * es)
+    # a single row's stride is never read: it is taken as W
+    ld = 3 * width if ln > 1 else width
+    assert a1[4:13] == (b, ln, 12) + (ld,) * 3 + (3 * ln * width,) * 3
+    assert a2[4:13] == (b, ln, 12) + (width,) * 3 + (ln * width,) * 3
+    assert (3 * width * es) % 16 == 0 and (width * es) % 16 == 0
+
+
+@pytest.mark.parametrize("case", ["column_stride", "row_stride", "overlap",
+                                  "misaligned"])
+def test_kernel_wrapper_refuses_strides(recorded, case):
+    """Strides the kernel cannot take are refused before a launch: columns
+    not contiguous, rows not a 16-byte multiple apart, rows overlapping,
+    a start off 16 bytes."""
+    b, ln, width = 2, 64, 256
+    base = _aligned_zeros((b, ln, 2 * width + 8), torch.bfloat16)
+    q = {"column_stride": base[..., :2 * width:2],
+         "row_stride": _aligned_zeros((b, ln, width + 4),
+                                      torch.bfloat16)[..., :width],
+         "overlap": base.view(-1)[:b * ln * width].as_strided(
+             (b, ln, width), (ln * 64, 64, 1)),
+         "misaligned": base[..., 4:4 + width]}[case]
+    k = torch.zeros((b, ln, width), dtype=torch.bfloat16)
+    with pytest.raises(KernelError):
+        attn.paired_attention(q, k, k, torch.ones((b, ln)), SCALE)
+    assert recorded == []
+
+
+@pytest.mark.parametrize("on", ["cpu", "kernel"])
+def test_refuses_a_gradient(on, monkeypatch):
+    """No backward exists (neither for the TPU kernel): under grad mode,
+    q/k/v that require grad raise `KernelError`, on the CPU's plain
+    version and before any launch; without grad mode, or with no operand
+    requiring grad, the call runs."""
+    if on == "kernel":
+        monkeypatch.setattr(attn, "_on_cpu", lambda *t: False)
+    q, k, v, mask = (torch.from_numpy(x) for x in _inputs(seed=23))
+    for leaf in ("q", "k", "v"):
+        args = {"q": q, "k": k, "v": v}
+        args[leaf] = args[leaf].clone().requires_grad_(True)
+        with pytest.raises(KernelError, match="no backward"):
+            attn.paired_attention(args["q"], args["k"], args["v"], mask,
+                                  SCALE)
+    if on == "cpu":
+        w = q.clone().requires_grad_(True)
+        with torch.no_grad():
+            out = attn.paired_attention(w, k, v, mask, SCALE)
+        assert out.grad_fn is None
+        np.testing.assert_array_equal(
+            out.numpy(), attn.paired_attention(q, k, v, mask, SCALE).numpy())

@@ -11,7 +11,8 @@ output, and the same parsed `settings` JSON for one env file. Then what
 the port adds: without `--device` the device is "cuda", so without CUDA
 `index` prints an error that names CUDA, returns 1 and writes no
 `.lattice/`; `LATTICE_PLATFORM=cpu` asks for the CPU by name; `train`
-and `validate-weights` return 1 naming their ROADMAP item. `serve` runs
+over the persisted index (a TINY trainer) and `validate-weights` over a
+small HF checkpoint print the reference's reports. `serve` runs
 as a process on port 0 (`TestServeLifecycle`: a request, `--warmup`,
 then SIGTERM and exit 0), and without `--device` `serve` and `mcp` exit
 1 naming CUDA. `TestPersistentCompileCache` (XLA only) is not mirrored.
@@ -301,14 +302,82 @@ def test_lattice_platform_cpu_selects_the_cpu(repo, tmp_path, capsys,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train"], "item 11"),
-    (["validate-weights", "/nonexistent"], "item 9"),
+    (["train"], "no index found"),
+    (["validate-weights", "/nonexistent"], "not a directory"),
 ])
 def test_commands_not_ported_exit_nonzero(repo, capsys, argv, item):
+    """`train` and `validate-weights` are ported: with nothing to work on
+    (no index under the path, no checkpoint dir) they exit 1 naming why,
+    and never as "not ported"."""
     _, env = repo
     assert run(argv, env) == 1
-    err = capsys.readouterr().err
-    assert "not ported" in err and f"ROADMAP queue 1, {item}" in err
+    out = capsys.readouterr()
+    assert "not ported" not in out.err + out.out
+    assert item in (out.err if argv[0] == "train" else out.out)
+
+
+TINY_TRAIN = dict(vocab_size=512, hidden_size=32, num_layers=2, num_heads=4,
+                  intermediate_size=64, max_position_embeddings=600,
+                  dtype="float32")
+
+
+@pytest.mark.parametrize("steps,batch", [(12, 4), (2, 64)])
+def test_train_over_a_persisted_index(repo, capsys, monkeypatch, steps,
+                                      batch):
+    """`--device cpu train` over the persisted index (the trainer at
+    `tests/test_finetune.py`'s TINY width): progress every 10 steps and at
+    the end, then the reference's report; the checkpoint lands in the data
+    dir, where the next command's encoder loads it. Fewer pairs than a
+    batch: the "skipped" report, exit 0."""
+    from lattice_tpu_torch.models import finetune
+    from lattice_tpu_torch.models import unixcoder as um
+    root, env = repo
+    index(root, env, capsys)
+    monkeypatch.setattr(finetune, "UniXcoderConfig",
+                        lambda: um.UniXcoderConfig(**TINY_TRAIN))
+    assert run(["train", "--path", str(root), "--steps", str(steps),
+                "--batch-size", str(batch), "--lr", "1e-3"], env) == 0
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):])
+    ckpt = root / ".lattice" / "finetuned_params.npz"
+    if batch > 26:
+        assert report["status"] == "skipped" and not ckpt.exists()
+        return
+    assert [line.split(" loss=")[0] for line in out.splitlines()
+            if line.startswith("step")] == ["step 10/12", "step 12/12"]
+    assert set(report) == {"status", "pairs_mined", "steps", "batch_size",
+                           "first_loss", "last_loss", "elapsed_s",
+                           "checkpoint"}
+    assert report["status"] == "completed" and report["steps"] == steps
+    assert report["checkpoint"] == str(ckpt) and ckpt.is_file()
+    model = um.UniXcoderModel(um.UniXcoderConfig(**TINY_TRAIN),
+                              finetune_dir=root / ".lattice", device="cpu")
+    assert model.loaded_finetuned
+
+
+def test_validate_weights_over_a_checkpoint(tmp_path, capsys):
+    """`--device cpu validate-weights <dir>` on a small HF checkpoint: exit
+    0 and the reference's report (every check ok, parity with
+    `transformers` where it imports, the tokenizer skipped without a
+    vocab)."""
+    transformers = pytest.importorskip("transformers")
+    tcfg = transformers.RobertaConfig(
+        vocab_size=512, hidden_size=128, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=256,
+        max_position_embeddings=66, hidden_act="gelu",
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    torch.manual_seed(0)
+    ref = transformers.RobertaModel(tcfg, add_pooling_layer=False).eval()
+    torch.save(ref.state_dict(), tmp_path / "pytorch_model.bin")
+    (tmp_path / "config.json").write_text(json.dumps(tcfg.to_dict()))
+    assert cli.main(["--device", "cpu", "validate-weights",
+                     str(tmp_path)]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["ok"] and set(report["checks"]) == {
+        "dir", "state_dict", "param_mapping", "torch_parity", "tokenizer",
+        "embedding_probe"}
+    assert report["checks"]["torch_parity"]["ok"]
+    assert report["checks"]["tokenizer"]["ok"] is None
 
 
 @pytest.mark.parametrize("argv", [["serve", "--port", "0"], ["mcp"]],

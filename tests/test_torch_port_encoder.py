@@ -18,9 +18,11 @@ import torch
 from lattice_tpu.index.chunk_store import ChunkStore as JaxStore
 from lattice_tpu.models.unixcoder import UniXcoderConfig as JaxConfig
 from lattice_tpu.models.unixcoder import UniXcoderModel as JaxModel
+from lattice_tpu.models.unixcoder import fuse_qkv_params as jax_fuse_qkv
 from lattice_tpu.providers import unixcoder_provider as jax_up
 from lattice_tpu.query.golden_eval import load_cases
-from lattice_tpu_torch.core.errors import ConfigurationError, EmbeddingError
+from lattice_tpu_torch.core.errors import (ConfigurationError, EmbeddingError,
+                                           KernelError)
 from lattice_tpu_torch.embeddings.embedder import Embedder
 from lattice_tpu_torch.embeddings.indexer import VectorIndexer, VectorSearcher
 from lattice_tpu_torch.models import unixcoder as um
@@ -263,11 +265,98 @@ def test_random_init_fingerprint_and_statistics():
     assert torch.equal(sa["embeddings_norm.weight"], torch.ones(256))
 
 
-@pytest.mark.parametrize("field", ["fused_qkv", "fused_attention"])
+@pytest.mark.parametrize("field", ["fused_attention"])
 def test_unported_options_raise(field):
+    """The stock Pallas flash path is not ported (`fused_qkv` is: below)."""
     with pytest.raises(ConfigurationError):
         um.UniXcoderModel(um.UniXcoderConfig(**SMALL, **{field: True}),
                           device="cpu")
+
+
+def test_fuse_qkv_params_matches_jax():
+    """`fuse_qkv_params` on the port's state dict equals the reference's on
+    the JAX tree, carried across: one [3H, H] weight and [3H] bias a layer,
+    query, key and value in that order."""
+    params = JaxModel(JaxConfig(**SMALL), seed=1).params
+    want = um.params_from_jax(flat_params(jax_fuse_qkv(params, 2)))
+    got = um.fuse_qkv_params(um.params_from_jax(flat_params(params)), 2)
+    assert got.keys() == want.keys()
+    assert "layers.1.attention.qkv.weight" in got
+    assert "layers.1.attention.query.weight" not in got
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    assert got["layers.0.attention.qkv.weight"].shape == (384, 128)
+
+
+def test_fused_qkv_matches_unfused_and_jax(models):
+    """`enable_fused_qkv` gives the unfused embeddings (bit-equal on the
+    CPU, where each column of the product is the same sum) and the JAX
+    package's fused ones; the fused q/k/v reach the attention as column
+    slices of one tensor. The fingerprint gains `+qkvfused`."""
+    dtype, einsum, paired, _ = models
+    ids, mask = batch(seed=10)
+    jm = JaxModel(dataclasses.replace(paired.config), seed=SEED)
+    port = port_model(jm)
+    unfused = port.encode(ids, mask)
+    seen = []
+
+    def spy(q, k, v, m, scale, _real=um.paired_attention):
+        seen.append((q.is_contiguous(), q.data_ptr() + q.shape[-1]
+                     * q.element_size() == k.data_ptr()))
+        return _real(q, k, v, m, scale)
+
+    port.enable_fused_qkv()
+    port.enable_fused_qkv()                    # once only
+    assert port.config.fused_qkv
+    assert port.weights_fingerprint.endswith("random-seed7+qkvfused")
+    assert not hasattr(port.encoder.layers[0].attention, "query")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(um, "paired_attention", spy)
+        fused = port.encode(ids, mask)
+    assert seen == [(False, True)] * SMALL["num_layers"]
+    np.testing.assert_array_equal(fused, unfused)
+    jm.enable_fused_qkv()
+    assert jm.weights_fingerprint.endswith("+qkvfused")
+    want = jm.encode(ids, mask)
+    if dtype == "float32":
+        np.testing.assert_allclose(fused, want, atol=2e-4)
+    else:
+        np.testing.assert_allclose(fused, want, atol=2e-2)
+        assert cosine(fused, want).min() >= 0.999
+
+
+def test_fused_qkv_config_and_bf16_serve():
+    """A model made with `fused_qkv=True` runs (random init, `qkv` layer);
+    `enable_fused_qkv` keeps the dtypes `enable_bf16_inference` set."""
+    made = um.UniXcoderModel(um.UniXcoderConfig(**SMALL, fused_qkv=True),
+                             device="cpu")
+    assert made.encoder.layers[0].attention.qkv.weight.shape == (384, 128)
+    ids, mask = batch(seed=14)
+    assert np.isfinite(made.encode(ids, mask)).all()
+    port = um.UniXcoderModel(um.UniXcoderConfig(**SMALL), seed=SEED,
+                             device="cpu")
+    port.enable_bf16_inference()
+    served = port.encode(ids, mask)
+    port.enable_fused_qkv()
+    attn_mod = port.encoder.layers[0].attention
+    assert attn_mod.qkv.weight.dtype == torch.bfloat16
+    assert attn_mod.qkv.bias.dtype == torch.float32
+    assert port.encoder.word_embeddings.weight.dtype == torch.bfloat16
+    np.testing.assert_array_equal(port.encode(ids, mask), served)
+
+
+def test_paired_path_refuses_grad_mode():
+    """The encoder on its paired path under grad mode raises instead of
+    giving Q/K/V no gradient; its einsum path trains."""
+    port = um.UniXcoderModel(um.UniXcoderConfig(**SMALL, dtype="float32"),
+                             device="cpu")
+    ids, mask = (torch.from_numpy(x) for x in batch(seed=15))
+    with pytest.raises(KernelError, match="no backward"):
+        port.encoder(ids, mask)
+    einsum = um.UniXcoderEncoder(um.UniXcoderConfig(
+        **SMALL, dtype="float32", paired_attention=False))
+    einsum(ids, mask)[1].sum().backward()
+    assert einsum.layers[0].attention.query.weight.grad.abs().sum() > 0
 
 
 def test_cuda_without_cuda_raises(monkeypatch):

@@ -6,7 +6,9 @@ import (`sys.modules[name] = None` makes `import name` raise), imports
 `lattice_tpu_torch`, indexes and searches a small CPU store through the
 hash embedder (every ported plan, and the int4 view in capacity mode) and
 through a tiny UniXcoder encoder (tokenizer, paired
-attention's plain version, the torch module, the provider), runs the
+attention's plain version, the torch module, the provider), takes a
+training step and validates a checkpoint of that encoder (the parity
+check skipped for want of `transformers`), runs the
 score probe's plain version, the span tracer and the dissection tool's
 bounds (`ops/probe.py`, `utils/`, `tools/`), checks that no kernel was
 launched on the CPU and that asking for "cuda" without CUDA raises, then
@@ -105,6 +107,45 @@ uidx.code.add(vecs, [{"file_path": f"src/m{i}.py", "name": n}
                      for i, n in enumerate(names)])
 hits = VectorSearcher(uidx).search_code(texts[2], limit=3)
 assert hits[0].name == names[2], hits
+# training: a trainer's step at a tiny width (the einsum path), and
+# validate_weights on an HF-named checkpoint of the tiny encoder, whose
+# parity check reports the reference's skip without transformers
+import tempfile
+from pathlib import Path
+from lattice_tpu_torch.models.train import ContrastiveTrainer, make_dummy_batch
+from lattice_tpu_torch.models.validate_weights import validate_weights
+tiny_cfg = tiny.config
+trainer = ContrastiveTrainer(tiny_cfg, device="cpu")
+assert trainer.train_step(make_dummy_batch(2, 16, 512)) > 0
+hf = {"embeddings.word_embeddings.weight": tiny.encoder.word_embeddings.weight,
+      "embeddings.position_embeddings.weight":
+          tiny.encoder.position_embeddings.weight,
+      "embeddings.token_type_embeddings.weight": torch.zeros(10, 128),
+      "embeddings.LayerNorm.weight": tiny.encoder.embeddings_norm.weight,
+      "embeddings.LayerNorm.bias": tiny.encoder.embeddings_norm.bias}
+for ours, theirs in (("attention.query", "attention.self.query"),
+                     ("attention.key", "attention.self.key"),
+                     ("attention.value", "attention.self.value"),
+                     ("attention.output", "attention.output.dense"),
+                     ("attention_norm", "attention.output.LayerNorm"),
+                     ("intermediate", "intermediate.dense"),
+                     ("output", "output.dense"),
+                     ("output_norm", "output.LayerNorm")):
+    for leaf in ("weight", "bias"):
+        hf[f"encoder.layer.0.{theirs}.{leaf}"] = \
+            tiny.encoder.state_dict()[f"layers.0.{ours}.{leaf}"]
+ckpt = Path(tempfile.mkdtemp())
+torch.save({k: v.detach().clone() for k, v in hf.items()},
+           ckpt / "pytorch_model.bin")
+import json
+(ckpt / "config.json").write_text(json.dumps({
+    "vocab_size": 512, "hidden_size": 128, "num_hidden_layers": 1,
+    "num_attention_heads": 2, "intermediate_size": 256,
+    "max_position_embeddings": 130}))
+report = validate_weights(ckpt, device="cpu")
+assert report["ok"], report
+assert report["checks"]["torch_parity"]["ok"] is None, report
+assert report["checks"]["state_dict"]["config"]["hidden_size"] == 128
 from lattice_tpu_torch.ops.probe import score_probe
 from lattice_tpu_torch.tools import dissect
 from lattice_tpu_torch.utils.tracing import get_tracer
@@ -277,8 +318,17 @@ def test_port_runs_without_jax_pydantic_tenacity():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in (REPO / "lattice_tpu_torch").rglob("*.py")))
 def test_no_forbidden_import_in_source(path):
+    """No module of the port imports these. One exception, the checkpoint
+    validation's parity check, imports `transformers` inside the function,
+    where it is there, and reports the reference's skip where it is not
+    (`SCRIPT` above runs it with the import blocked)."""
     text = (REPO / path).read_text()
     for name in ("jax", "flax", "optax", "pydantic", "tenacity",
                  "transformers", "lattice_tpu."):
+        if (path, name) == ("lattice_tpu_torch/models/validate_weights.py",
+                            "transformers"):
+            assert "\nimport transformers" not in text
+            assert text.count(f"import {name}") == 1
+            continue
         assert f"import {name}" not in text, (path, name)
         assert f"from {name}" not in text, (path, name)
