@@ -1,7 +1,7 @@
 """Drive the port's main paths (vector search, the encoder, indexing a
 repository, answering questions about it, the CLI over a persisted index,
-serving it over HTTP and MCP, fine-tuning the encoder) once on one NVIDIA
-card.
+serving it over HTTP and MCP, fine-tuning the encoder, the sharded paths
+over logical shards) once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -138,7 +138,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    upload; cosine; fuse and select); `deep_search_batch` ms a query at
    Q=16, 128 and 130; host and device `k_hop` p50 and `k_hop_batch` at
    Q=64; kernel B at m = 1,048,576 beside `torch.topk` and `torch.sort`.
-   The store is freed after it.
+3n. The sharded paths (cell K), after 3i with its store and graph still
+   resident, over four logical shards on the card (`make_mesh(4)`; one
+   shard a card where there are more; the mesh is printed): (a)
+   `store.to_sharded(mesh)` (262,144 rows a shard) at B=256 and B=1, k=10:
+   kernel A + B a shard and kernel B's merge equal one A + B over the
+   whole store (scores within 1e-5; an id that differs is a live row whose
+   exact score ties within 1e-5), recall@10
+   >= 0.99 against the exact f32 scan, and kernel B's merge of the
+   shards' lists bit-equal to its plain version; (b)
+   `to_sharded_quantized` at bits 8 and 4 (kernel C at k1=40, kernel D's
+   batched instance at k1=80, a rescore a shard): recall@10 >= 0.99 and
+   0.98 against an exact f32 scan of the view's own dequantized rows (the
+   capacity mode's rescore), and, with `keep_full_precision=True`, against
+   the exact f32 scan of the store; then the store's "sharded" plan (the
+   stores' one mesh, `default_mesh`, LATTICE_SHARDED=1) at
+   LATTICE_SHARDED_BITS 16, 8 and 4: recall@10 >= 0.99, 0.99 and 0.98, a
+   file filter's search within the file's rows, and an `add` and a
+   `remove` that the live view takes in place and the next search sees;
+   (c) `sharded_hybrid` at Q=1 and 16 on 3i's evidence equal to the
+   single-device rank (scores within 1e-5; an id that differs is a live
+   row whose fused score ties within 1e-5), and
+   `deep_search` through the engine's sharded branch ranking as its
+   unsharded branch (3h's rule) on 4 questions; (d)
+   `GraphStore.to_sharded(CALLS)` over the 10,000,000 edges: `k_hop` at
+   1-3 hops, forward and reverse, from 8 of 3i's seed sets, equal to the
+   host walk; (e) a 2 x 2 multislice view bit-equal to the flat merge;
+   (f) `UniXcoderModel.use_mesh` at `UniXcoderConfig()` (seed 0), B=128,
+   L=512: every pooled cosine >= 0.999 against the unsplit forward.
+   Timings (information only): each view and the store's sharded plan at
+   B=256 and B=1 beside the store's single-device plan, the merge's share
+   of a bf16 view call, view build seconds and GB, the sharded walk and
+   the split encoder beside their unsharded counterparts. The store and
+   the graph are freed after it.
 3b. The IVF path, after the first store is freed: a second 1,048,576 x 768
    store at spread 0.06 from the same centers (`bench.py`'s clustered
    corpus), with payloads. The first B=1 text query builds the IVF
@@ -352,11 +384,12 @@ version on the lists each path gives it (A and C at k1=16, B in {1,
 at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
 `torch.topk` on them by device time (`device_ms`: a sleep kernel keeps
 the queue full, so the host's issue is not counted) and back to back.
-Launch counts are zeroed just before each of 3a, 3d, 3f, 3i, 3b, 3k, 3e,
-3c, 3g, 3h, 3j, 3l and 3m and read just after it; each path's kernels, and every registered
+Launch counts are zeroed just before each of 3a, 3d, 3f, 3i, 3n, 3b, 3k,
+3e, 3c, 3g, 3h, 3j, 3l and 3m and read just after it; each path's kernels, and every registered
 kernel, must have launched, and the C entries each path must have run with them (kernel
 A's and C's wgmma routes on corpus A, D's in 3d and 3e, the bf16, int8
-and int4 probes' in 3f, kernel B's positional entry in 3k's "pq").
+and int4 probes' in 3f, kernel B's positional entry in 3k's "pq"; A's,
+C's and D's wgmma entries and B's positional entry in 3n).
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on those paths (and by C entry; "routes": every C entry that
@@ -372,11 +405,13 @@ last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3676,6 +3711,26 @@ def phase_deep_path(ctx: dict) -> None:
     log(f"phase 3i took {time.perf_counter() - t_phase:.2f} s")
 
 
+def deep_rank_inputs(engine, texts: list[str], memo: dict
+                     ) -> list[torch.Tensor]:
+    """Device tensors of the batched deep rank for these texts (their kept
+    evidence where `memo` has it): queries, packed reach, relevance
+    tables, match rows, weights."""
+    from lattice_tpu_torch.ops.ranking import FuseWeights, pack_weights
+    from lattice_tpu_torch.query.engine import _weights_tuple
+    plans = [engine.planner.plan_heuristic(t) for t in texts]
+    evs = [memo.get(t) or engine._deep_evidence(p)
+           for t, p in zip(texts, plans)]
+    packed, match = engine._pack_deep_evidence(evs)
+    qv = np.asarray(engine.vector_searcher.embedder.embed_batch(texts),
+                    np.float32)
+    w = np.stack([pack_weights(FuseWeights(*_weights_tuple(
+        engine.ranker.config, p))) for p in plans])
+    rel = np.stack([e["rel_table"] for e in evs])
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (qv, packed, rel, match, w)]
+
+
 def phase_deep_kernels(ctx: dict, err: dict, smi: str) -> None:
     """3i, after its launch counts are read: kernel B against its plain
     version (`stable_topk`) on the same fused rows (Q in FUSED_Q, k in
@@ -3686,29 +3741,16 @@ def phase_deep_kernels(ctx: dict, err: dict, smi: str) -> None:
     from lattice_tpu_torch.ops import ranking
     from lattice_tpu_torch.ops import scan_topk as scan
     from lattice_tpu_torch.ops import topk as topk_ops
-    from lattice_tpu_torch.ops.ranking import FuseWeights, pack_weights
-    from lattice_tpu_torch.query.engine import _weights_tuple
-    engine, texts = ctx.pop("deep_engine"), ctx.pop("deep_texts")
-    big, memo = ctx.pop("deep_big"), ctx.pop("deep_memo")
+    # the engine, its questions, their evidence and walks stay for 3n
+    engine, texts = ctx["deep_engine"], ctx["deep_texts"]
+    big, memo = ctx.pop("deep_big"), ctx["deep_memo"]
     store, graph = engine.indexer.code, engine.graph_store
     emb, valid = store.device_arrays
     n = emb.shape[0]
     cols = store.device_rank_columns(graph)
 
     def inputs(batch_texts: list[str]):
-        """Device tensors of the batched rank for these texts: queries,
-        packed reach, relevance tables, match rows, weights."""
-        plans = [engine.planner.plan_heuristic(t) for t in batch_texts]
-        evs = [memo.get(t) or engine._deep_evidence(p)
-               for t, p in zip(batch_texts, plans)]
-        packed, match = engine._pack_deep_evidence(evs)
-        qv = np.asarray(engine.vector_searcher.embedder.embed_batch(
-            batch_texts), np.float32)
-        w = np.stack([pack_weights(FuseWeights(*_weights_tuple(
-            engine.ranker.config, p))) for p in plans])
-        rel = np.stack([e["rel_table"] for e in evs])
-        return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
-                for a in (qv, packed, rel, match, w)]
+        return deep_rank_inputs(engine, batch_texts, memo)
 
     def fused(args) -> torch.Tensor:
         qv, packed, rel, match, w = args
@@ -3733,7 +3775,7 @@ def phase_deep_kernels(ctx: dict, err: dict, smi: str) -> None:
             check_rows(slab, k, "fused rows")
     log(f"kernel B on fused rows of {n} (Q in {FUSED_Q}, k in {FUSED_K}): "
         f"ids equal and scores bit-equal to stable_topk")
-    seeds = ctx.pop("deep_seeds")
+    seeds = ctx["deep_seeds"]
     psrc, pdst = graph.device_edges(EdgeType.CALLS)
     seed_arr = np.full((len(seeds), 3), -1, np.int32)
     for i, s in enumerate(seeds):
@@ -3819,6 +3861,443 @@ def phase_deep_kernels(ctx: dict, err: dict, smi: str) -> None:
             f"{bnd[0]:.4f} ms ({bnd[1]}); device time, {smi}")
     log(f"3i host times: "
         f"{json.dumps({k: round(v, 3) for k, v in times.items()})}")
+
+
+# ---- 3n: the sharded paths (cell K) ------------------------------------------
+
+SHARDS = 4                 # logical shards on one card
+SHARD_BITS = (16, 8, 4)    # the sharded views' tiers
+SHARD_RECALL = {16: RECALL_MIN, 8: RECALL_MIN, 4: INT4_RECALL_MIN}
+SHARD_HOPS = (1, 2, 3)
+SHARD_WALKS = 8            # seed sets of 3i walked forward and reverse
+RANK_Q = (1, 16)
+SHARD_DEEP = 4             # 3i's questions asked through the engine's branch
+
+
+def shard_mesh():
+    """The mesh of 3n: four logical shards on one card, one shard a card
+    where there are more."""
+    from lattice_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    return make_mesh(SHARDS if n == 1 else n)
+
+
+@contextlib.contextmanager
+def stores_sharded(mesh):
+    """Within the block, LATTICE_SHARDED=1 on the stores' one mesh
+    (`default_mesh`): the store's sharded plan, the graph's sharded walk
+    and the engine's sharded deep branch. The plan's variables come back
+    after it."""
+    from lattice_tpu_torch.parallel.mesh import default_mesh
+    names = ("LATTICE_SHARDED", "LATTICE_SHARDED_BITS")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ["LATTICE_SHARDED"] = "1"
+    try:
+        with default_mesh(mesh):
+            yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def same_ranks(got: tuple, want: tuple, exact, live: torch.Tensor,
+               tie: float, where: str) -> int:
+    """(scores, ids) lists that agree at every rank, by `check_bf16`'s
+    rule: scores within `tie`, and every slot whose id differs holds a live
+    row whose exact score (`exact(query index, rows)`) is the score
+    reported there within `tie` and ties the reference's score at that
+    slot within it. Returns how many slots hold another id."""
+    gs, gi = got
+    ws, wi = (x.to(gs.device) for x in want)
+    require(gs.shape == ws.shape and gi.shape == wi.shape,
+            f"{where}: shapes {tuple(gs.shape)} / {tuple(ws.shape)}")
+    gap = (gs - ws).abs().max().item() if gs.numel() else 0.0
+    require(gap <= tie, f"{where}: scores differ by {gap:.3g} (> {tie})")
+    off = gi != wi
+    if bool(off.any()):
+        rows = gi[off].long()
+        ex = exact(off.nonzero()[:, 0], rows)
+        gap = torch.maximum((ex - gs[off]).abs(), (gs[off] - ws[off]).abs())
+        require(bool(live[rows].all()) and gap.max().item() <= tie,
+                f"{where}: {int(off.sum())} ids differ from the reference's, "
+                f"not by a tie (largest gap {gap.max().item():.3g})")
+    return int(off.sum())
+
+
+def dequant_topk(q: torch.Tensor, view, k: int) -> torch.Tensor:
+    """Exact f32 top-k ids over a quantized view's own dequantized rows
+    (TF32 off), shard by shard in row blocks: the plain reference of the
+    view's capacity mode, whose rescore scores its candidates so."""
+    from lattice_tpu_torch.ops import scan_topk as scan
+    from lattice_tpu_torch.ops import topk as topk_ops
+    qn = normalize(q.to(torch.float32))
+    best = None
+    for s, (v, sc, ok) in enumerate(zip(view.value_shards, view.scale_shards,
+                                        view.valid_shards)):
+        qd = qn.to(v.device)
+
+        def block(lo, hi, v=v, sc=sc, ok=ok, qd=qd):
+            rows = v[lo:hi] if view.bits == 8 else scan.unpack_int4(v[lo:hi])
+            with topk_ops.full_f32():
+                x = qd @ (rows.to(torch.float32) * sc[lo:hi, None]).T
+            return torch.where(ok[None, lo:hi], x,
+                               torch.full_like(x, topk_ops.NEG_INF))
+
+        top, ids = topk_ops.blocked_topk(block, v.shape[0], k)
+        top, ids = top.to(q.device), view._global(s, ids).to(q.device)
+        best = ((top, ids) if best is None
+                else topk_ops.merge_topk(*best, top, ids, k))
+    return best[1]
+
+
+def phase_sharded_path(ctx: dict) -> None:
+    """3n (cell K): the sharded paths on corpus A's store and cell G's graph,
+    both still resident after 3i, over four logical shards on one card (one
+    shard a card on more): (a) `to_sharded` searched at B=256 and B=1; (b)
+    `to_sharded_quantized` at bits 8 and 4, and the views that keep bf16
+    rows beside the planes (`keep_full_precision=True`), then the store's
+    "sharded" plan (LATTICE_SHARDED=1 on the stores' one mesh,
+    `default_mesh`) at LATTICE_SHARDED_BITS 16, 8 and 4, a filtered
+    search, and an `add` and a `remove` that the views take in place; (c) `sharded_hybrid` at Q=1
+    and 16 on 3i's evidence and `deep_search` through the engine's sharded
+    branch; (d) `GraphStore.to_sharded(CALLS)` walked 1-3 hops both ways;
+    (e) a 2 x 2 multislice view; (f) the encoder's batch split over the
+    shards (`use_mesh`) at B=128, L=512. The results are held to the
+    single-device paths after the launch counts are read
+    (`phase_sharded_checks`)."""
+    from lattice_tpu_torch.core.types import EdgeType
+    from lattice_tpu_torch.models.unixcoder import (UniXcoderConfig,
+                                                    UniXcoderModel)
+    from lattice_tpu_torch.ops.topk import NEG_INF
+    from lattice_tpu_torch.parallel.mesh import make_multislice_mesh
+    from lattice_tpu_torch.parallel.sharded_index import (
+        ShardedQuantizedIndex)
+    t_phase = time.perf_counter()
+    store, engine = ctx["store"], ctx["deep_engine"]
+    graph, q = engine.graph_store, ctx["queries"]
+    mesh = shard_mesh()
+    n_shards = len(mesh.row_devices)
+    log(f"3n: {mesh}: {n_shards} shards over "
+        f"{len(set(mesh.row_devices))} of {torch.cuda.device_count()} "
+        f"visible card(s); {ctx['smi']}")
+    res: dict = {"mesh": mesh, "build": {}}
+    for bits in SHARD_BITS:                                       # (a), (b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        view = (store.to_sharded(mesh) if bits == 16
+                else store.to_sharded_quantized(mesh, bits=bits))
+        torch.cuda.synchronize()
+        res["build"][bits] = (time.perf_counter() - t0, view.memory_bytes())
+        res[("view", bits)] = view
+        for b in (256, 1):
+            res[("view", bits, b)] = view.search_device(q[:b], K)
+    for bits in SHARD_BITS[1:]:
+        fp = ShardedQuantizedIndex(store._emb, store._valid, mesh=mesh,
+                                   bits=bits, keep_full_precision=True)
+        for b in (256, 1):
+            res[("fp", bits, b)] = fp.search_device(q[:b], K)
+        del fp
+    shards = res[("view", 16)].embeddings
+    require(all(e.data_ptr() % 16 == 0 and e.is_contiguous()
+                for e in shards), "a bf16 shard is not 16-byte aligned")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    with stores_sharded(mesh):
+        for bits in SHARD_BITS:
+            os.environ["LATTICE_SHARDED_BITS"] = str(bits)
+            plan = store._plan_search(256, K, None, "auto")
+            require(plan == "sharded", f"LATTICE_SHARDED=1 on {mesh} "
+                    f"planned {plan!r}")
+            for b in (256, 1):
+                res[("store", bits, b)] = store.search_device(q[:b], K)
+            target = store.payload(
+                int(res[("store", bits, 256)][1][0, 0]))["file_path"]
+            fs, fi = store.search_device(q[:8], K,
+                                         filters={"file_path": target})
+            live = fi[fs > NEG_INF / 2].tolist()
+            require(live and set(live) <= store._inverted["file_path"][target],
+                    f"bits {bits}: a filtered sharded search left the mask")
+            view = store._sharded if bits == 16 else store._shardedq
+            new = normalize(torch.randn(2, DIM, generator=gen,
+                                        device="cuda"))
+            rows = store.add(new, payloads(0, 2))
+            _, ni = store.search_device(new, 1)
+            store.remove(rows)
+            _, gi = store.search_device(new, 1)
+            again = store._sharded if bits == 16 else store._shardedq
+            require(again is view and not store._sharded_dirty
+                    and (bits == 16 or not store._shardedq_dirty),
+                    f"bits {bits}: add / remove rebuilt the sharded view")
+            require(ni[:, 0].tolist() == rows and not set(
+                gi[:, 0].tolist()) & set(rows),
+                f"bits {bits}: the view missed an add or a remove: found "
+                f"{ni[:, 0].tolist()} for {rows}, then {gi[:, 0].tolist()}")
+        log(f"3n(b): the store's sharded plan at bits {SHARD_BITS}: "
+            f"filtered searches within the mask, add / remove taken in "
+            f"place by the views")
+        os.environ["LATTICE_SHARDED_BITS"] = "16"                 # (c)
+        args = deep_rank_inputs(engine, ctx["deep_texts"], ctx["deep_memo"])
+        hview = store.sharded_hybrid(graph, mesh)
+        require(hview.bits == 16, f"sharded_hybrid at bits {hview.bits}")
+        for n_q in RANK_Q:
+            res[("rank", n_q)] = hview.rank_device(
+                *[a[:n_q] for a in args], K)
+        require(engine._sharded_deep_enabled(), "the engine's sharded "
+                "deep branch is off")
+        res["deep"] = [engine.deep_search(t, limit=K)
+                       for t in ctx["deep_texts"][:SHARD_DEEP]]
+    res["args"] = args
+    torch.cuda.synchronize()                                      # (d)
+    t0 = time.perf_counter()
+    gview = graph.to_sharded(EdgeType.CALLS, mesh)
+    torch.cuda.synchronize()
+    res["graph_build_s"] = time.perf_counter() - t0
+    res["walks"] = {(h, r, j): gview.k_hop(s, h, reverse=r)
+                    for h in SHARD_HOPS for r in (False, True)
+                    for j, s in enumerate(ctx["deep_seeds"][:SHARD_WALKS])}
+    ms = make_multislice_mesh(2, n_shards if n_shards % 2 == 0 else SHARDS,
+                              device=list(dict.fromkeys(mesh.row_devices)))
+    res["multislice"] = (str(ms), store.to_sharded(ms).search_device(
+        q, K))                                                    # (e)
+    model = UniXcoderModel(UniXcoderConfig(), seed=SEED, device="cuda")
+    egen = torch.Generator(device="cuda").manual_seed(SEED + 9)   # (f)
+    ids = torch.randint(5, model.config.vocab_size, (ENC_BATCH, ENC_LEN),
+                        generator=egen, device="cuda")
+    lengths = torch.randint(1, ENC_LEN + 1, (ENC_BATCH,), generator=egen,
+                            device="cuda")
+    mask = (torch.arange(ENC_LEN, device="cuda")[None, :]
+            < lengths[:, None]).to(torch.int64)
+    ids = torch.where(mask > 0, ids, model.config.pad_token_id)
+    model.use_mesh(mesh)
+    res["encoder"] = (model, ids, mask, model.encode_device(ids, mask))
+    torch.cuda.synchronize()
+    ctx["sharded"] = res
+    log(f"phase 3n took {time.perf_counter() - t_phase:.2f} s")
+
+
+def phase_sharded_checks(ctx: dict, err: dict, smi: str) -> None:
+    """3n after its launch counts are read: (a) the merged shards against
+    one A + B over the whole store (ids equal except ties within TIE_TOL,
+    scores within it) and recall@10 against the exact f32 scan; kernel B's
+    merge of the shards' lists bit-equal to its plain version; (b) the
+    store's sharded plan at each tier held to the recall bars of the flat
+    and "int4" plans; (c) the sharded deep rank equal to the single-device
+    rank on the same inputs (ids except ties within 1e-5, scores within
+    1e-5) and `deep_search`'s sharded branch ranking as its unsharded
+    branch; (d) every walk equal to the host walk; (e) the multislice view
+    bit-equal to the flat merge; (f) every pooled row's cosine >= 0.999
+    against the unsplit forward. Then the timings (information only)."""
+    from lattice_tpu_torch.core.types import EdgeType
+    from lattice_tpu_torch.ops import ranking
+    from lattice_tpu_torch.ops import scan_topk as scan
+    from lattice_tpu_torch.parallel.mesh import replicated
+    res = ctx.pop("sharded")
+    store, engine = ctx["store"], ctx["deep_engine"]
+    graph, q, mesh = engine.graph_store, ctx["queries"], res["mesh"]
+    emb, valid = store.device_arrays
+    truth = exact_topk(q, emb, valid, K)
+    view = res[("view", 16)]
+    qb = normalize(q).to(torch.bfloat16).float()
+
+    def exact_dot(qi, rows):
+        return (qb[qi] * emb[rows].float()).sum(dim=1)
+
+    for b in (256, 1):                                            # (a)
+        got = res[("view", 16, b)]
+        off = same_ranks(got, scan.fused_topk(normalize(q[:b]), emb, valid,
+                                              K), exact_dot, valid, TIE_TOL,
+                         f"3n(a) sharded A + B against one A + B, B={b}")
+        r = recall(got[1], truth[:b])
+        require(r >= RECALL_MIN, f"3n(a) bf16 view B={b}: recall@{K} "
+                f"{r:.4f} < {RECALL_MIN}")
+        log(f"3n(a) to_sharded over {mesh}, B={b}: equal to one A + B over "
+            f"the store ({off} tied slots swapped), recall@{K} {r:.4f}")
+    lists = [scan.fused_topk(x, e, v, K) for x, e, v in zip(
+        replicated(mesh, normalize(q)), view.embeddings, view.valid)]
+    cs = torch.cat([s.to(mesh.lead) for s, _ in lists], dim=1)
+    ci = torch.cat([view._global(j, i).to(mesh.lead)
+                    for j, (_, i) in enumerate(lists)], dim=1)
+    check_merge(cs, ci, K, "3n shard lists", err)
+    for bits in SHARD_BITS[1:]:
+        own = dequant_topk(q, res[("view", bits)], K)
+        for b in (256, 1):
+            s, i = res[("view", bits, b)]
+            require(bool(torch.isfinite(s).all()) and bool(
+                (s[:, :-1] >= s[:, 1:]).all()) and int(i.max()) < store.capacity,
+                f"3n(b) int{bits} view B={b}: bad output")
+            r_own = recall(i, own[:b])
+            require(r_own >= SHARD_RECALL[bits], f"3n(b) to_sharded_quantized"
+                    f"(bits={bits}) B={b}: recall@{K} {r_own:.4f} against an "
+                    f"exact scan of its own rows < {SHARD_RECALL[bits]}")
+            r_fp = recall(res[("fp", bits, b)][1], truth[:b])
+            require(r_fp >= SHARD_RECALL[bits], f"3n(b) keep_full_precision "
+                    f"int{bits} view B={b}: recall@{K} {r_fp:.4f} < "
+                    f"{SHARD_RECALL[bits]}")
+            log(f"3n(b) int{bits} views, B={b}: capacity mode (rescored "
+                f"against its own dequantized rows) recall@{K} {r_own:.4f} "
+                f"against an exact f32 scan of those rows (bar "
+                f"{SHARD_RECALL[bits]}), {recall(i, truth[:b]):.4f} against "
+                f"the exact f32 scan of the store, where an exact scan of "
+                f"its rows reaches {recall(own[:b], truth[:b]):.4f}; "
+                f"keep_full_precision recall@{K} {r_fp:.4f} against the "
+                f"store's scan (bar {SHARD_RECALL[bits]})")
+    for bits in SHARD_BITS:                                       # (b)
+        r = recall(res[("store", bits, 256)][1], truth)
+        require(r >= SHARD_RECALL[bits], f"3n(b) store's sharded plan at "
+                f"bits {bits}: recall@{K} {r:.4f} < {SHARD_RECALL[bits]}")
+        log(f"3n(b) store's sharded plan, LATTICE_SHARDED_BITS={bits}: "
+            f"recall@{K} {r:.4f} (bar {SHARD_RECALL[bits]})")
+    cols = store.device_rank_columns(graph)                       # (c)
+    for n_q in RANK_Q:
+        a = [x[:n_q] for x in res["args"]]
+        want = ranking.hybrid_rank_device_packed_batch(
+            a[0], emb, valid, a[1], a[2], a[3], cols.degree, cols.quality,
+            a[4], K)
+        fused = ranking.fuse_packed(ranking.row_scores(a[0], emb, valid),
+                                    a[1], a[2], a[3], cols.degree,
+                                    cols.quality, a[4])
+        off = same_ranks(res[("rank", n_q)], want,
+                         lambda qi, rows, f=fused: f[qi, rows], valid, 1e-5,
+                         f"3n(c) sharded deep rank Q={n_q}")
+        del fused
+        log(f"3n(c) sharded_hybrid Q={n_q}: equal to the single-device "
+            f"rank ({off} tied slots swapped)")
+    for t, got in zip(ctx["deep_texts"], res["deep"]):
+        same_deep(got.results, engine.deep_search(t, limit=K).results,
+                  f"3n(c) deep_search({t!r}) sharded against unsharded")
+    log(f"3n(c) deep_search through the engine's sharded branch ranks as "
+        f"its unsharded branch on {len(res['deep'])} questions")
+    sizes = []                                                    # (d)
+    for (h, r, j), got in res["walks"].items():
+        want = graph.k_hop(ctx["deep_seeds"][j], EdgeType.CALLS, h,
+                           reverse=r)
+        require(got == want, f"3n(d) sharded k_hop hops={h} reverse={r} "
+                f"seeds {ctx['deep_seeds'][j]}: not the host walk")
+        sizes.append(len(got))
+    log(f"3n(d) GraphStore.to_sharded(CALLS) over "
+        f"{graph.n_edges(EdgeType.CALLS)} edges: {len(res['walks'])} walks "
+        f"(hops {SHARD_HOPS}, both ways) equal the host walk, reaching "
+        f"{min(sizes)}-{max(sizes)} nodes")
+    ms_name, (ms_s, ms_i) = res["multislice"]                     # (e)
+    fs, fi = res[("view", 16, 256)]
+    require(torch.equal(ms_i, fi) and same_bits(ms_s, fs),
+            f"3n(e) {ms_name} differs from the flat merge")
+    log(f"3n(e) {ms_name}: ids and scores bit-equal to the flat merge")
+    model, ids, mask, pooled = res["encoder"]                     # (f)
+    with torch.inference_mode():
+        plain = model.encoder(ids, mask)[1]
+    cos = torch.nn.functional.cosine_similarity(pooled.float(),
+                                                plain.float(), dim=-1)
+    require(cos.min().item() >= 0.999, f"3n(f) pooled cosine "
+            f"{cos.min().item():.6f} < 0.999")
+    log(f"3n(f) UniXcoderModel.use_mesh over {mesh}, B={ENC_BATCH}, "
+        f"L={ENC_LEN}: every pooled cosine >= {cos.min().item():.6f} "
+        f"against the unsplit forward")
+    phase_sharded_timings(ctx, res, lists, smi)
+
+
+def trace_calls(name: str, fn, smi: str, n: int = 4) -> None:
+    """A device trace of `n` calls of `fn`: busy ms a call, the idle share
+    of the traced window, the kernels that took the most device time."""
+    from lattice_tpu_torch.utils.tracing import (device_trace,
+                                                 summarize_device_trace)
+    where = str(ROOT / "build" / "traces" / re.sub(r"\W+", "_", name))
+    fn()
+    torch.cuda.synchronize()
+    with device_trace(where):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    summ = summarize_device_trace(where, "GPU", top=4)
+    require("error" not in summ and summ["total_ms"] > 0,
+            f"{name} trace: {summ.get('error', 'no device time')}")
+    busy = summ["total_ms"]
+    top = ", ".join(f"{op[:48]} {ms / n:.4f}" for op, ms, _ in summ["ops"])
+    log(f"3n trace, {name}: device busy {busy / n:.4f} ms a call, idle "
+        f"{1 - busy / wall:.4f} of the traced window ({wall / n:.4f} ms a "
+        f"call under the profiler); top kernels (ms a call): {top} ({smi})")
+
+
+def phase_sharded_timings(ctx: dict, res: dict, lists: list,
+                          smi: str) -> None:
+    """3n timings (information only; four shards on one card measure the
+    cost of sharding, not scale-out): each view and the store's sharded
+    plan at B=256 (device time of back-to-back calls, QPS) and B=1 (host
+    p50) beside the store's single-device plan in the same process; the
+    merge's share of a bf16 view call; the views' build seconds and GB;
+    the sharded walk and the split encoder beside their unsharded
+    counterparts."""
+    from lattice_tpu_torch.core.types import EdgeType
+    from lattice_tpu_torch.ops import ranking
+    from lattice_tpu_torch.parallel.sharded_index import merge_shards
+    store, q, mesh = ctx["store"], ctx["queries"], res["mesh"]
+    graph = ctx["deep_engine"].graph_store
+    for bits, (sec, nbytes) in res["build"].items():
+        log(f"3n timing, view build bits {bits}: {sec:.3f} s, "
+            f"{nbytes / 1e9:.3f} GB ({smi})")
+    rows = []
+
+    def timed(name, fn):
+        ms = cuda_ms(lambda: fn(q), 10)
+        p50 = p50_ms(lambda j: fn(q[j:j + 1]), 30)
+        rows.append((name, ms, p50))
+        log(f"3n timing, {name}: B=256 {ms:.4f} ms = {256 / ms * 1e3:.0f} "
+            f"QPS; B=1 p50 {p50:.4f} ms ({smi})")
+
+    timed("store, single-device auto plan "
+          f"({store._plan_search(256, K, None, 'auto')})",
+          lambda x: store.search_device(x, K))
+    for bits in SHARD_BITS:
+        view = res[("view", bits)]
+        name = f"to_sharded{'' if bits == 16 else '_quantized'} bits {bits}"
+        timed(name, lambda x, v=view: v.search_device(x, K))
+        trace_calls(f"{name} B=256", lambda v=view: v.search_device(q, K),
+                    smi)
+    with stores_sharded(mesh):
+        for bits in SHARD_BITS:
+            os.environ["LATTICE_SHARDED_BITS"] = str(bits)
+            timed(f"store, sharded plan bits {bits}",
+                  lambda x: store.search_device(x, K))
+        trace_calls("store, sharded plan bits 4, B=256",
+                    lambda: store.search_device(q, K), smi)
+    view = res[("view", 16)]
+    scores = [s for s, _ in lists]
+    ids = [view._global(j, i) for j, (_, i) in enumerate(lists)]
+    merge = cuda_ms(lambda: merge_shards(mesh, scores, ids, K), 20)
+    call = cuda_ms(lambda: view.search_device(q, K), 10)
+    log(f"3n timing, the merge of {len(scores)} shards' [256, {K}] lists "
+        f"(gather + kernel B): {merge:.4f} ms of a {call:.4f} ms bf16 view "
+        f"call ({merge / call:.1%}; {smi})")
+    cols = store.device_rank_columns(graph)
+    emb, valid = store.device_arrays
+    hview = store.sharded_hybrid(graph, mesh)
+    for n_q in RANK_Q:
+        a = [x[:n_q] for x in res["args"]]
+        sh = p50_ms(lambda j: hview.rank_device(*a, K), 16)
+        one = p50_ms(lambda j: ranking.hybrid_rank_device_packed_batch(
+            a[0], emb, valid, a[1], a[2], a[3], cols.degree, cols.quality,
+            a[4], K), 16)
+        log(f"3n timing, deep rank Q={n_q}: sharded_hybrid p50 {sh:.3f} ms, "
+            f"single-device {one:.3f} ms (host clock; {smi})")
+    seeds = ctx["deep_seeds"]
+    gview = graph.to_sharded(EdgeType.CALLS, mesh)
+    walk_sh = p50_ms(lambda j: gview.k_hop(seeds[j % len(seeds)], 3), 16)
+    walk_host = p50_ms(lambda j: graph.k_hop(seeds[j % len(seeds)],
+                                             EdgeType.CALLS, 3), 16)
+    log(f"3n timing, k_hop 3 hops: sharded p50 {walk_sh:.3f} ms, host walk "
+        f"{walk_host:.3f} ms, view build {res['graph_build_s']:.3f} s "
+        f"({smi})")
+    model, ids_, mask, _ = res["encoder"]
+    split = cuda_ms(lambda: model._forward(ids_, mask), 5)
+    with torch.inference_mode():
+        whole = cuda_ms(lambda: model.encoder(ids_, mask), 5)
+    log(f"3n timing, encoder B={ENC_BATCH} L={ENC_LEN}: split over "
+        f"{len(mesh.row_devices)} shards {split:.3f} ms, unsplit "
+        f"{whole:.3f} ms ({smi})")
 
 
 def phase_capacity_path(ctx: dict) -> None:
@@ -5067,6 +5546,11 @@ def main() -> int:
               "lt_score_probe_int8", "lt_score_probe_int4")),
             ("deep path", phase_deep_path,
              ("merge_candidates", "lt_merge_positions")),
+            ("sharded", phase_sharded_path,
+             ("scan_topk", "scan_topk_int8", "scan_topk_int4",
+              "merge_candidates", "paired_attention", "lt_scan_topk_bf16",
+              "lt_scan_topk_int8", "lt_scan_topk_int4",
+              "lt_merge_positions")),
             ("ivf", phase_ivf_path,
              ("ivf_probe", "merge_candidates", "scan_topk_int8")),
             ("serving", phase_serving_path,
@@ -5115,8 +5599,12 @@ def main() -> int:
                 rep["library"]["bf16"])
         elif path == "deep path":
             phase_deep_kernels(ctx, err, smi)
-            # free the first store before the second is built
-            del ctx["store"], ctx["indexer"], ctx["queries"]
+        elif path == "sharded":
+            phase_sharded_checks(ctx, err, smi)
+            # free the first store and the graph before the second store
+            for key in ("store", "indexer", "queries", "deep_engine",
+                        "deep_texts", "deep_memo", "deep_seeds"):
+                del ctx[key]
             gc.collect()
             torch.cuda.empty_cache()
             log(f"first store freed: {torch.cuda.memory_allocated() / 1e9:.2f}"

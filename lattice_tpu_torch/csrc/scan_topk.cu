@@ -421,16 +421,25 @@ scan_topk_int4_kernel(const signed char* __restrict__ q,
 // Staging entries per query at list length k1: SEL_CAP, or the most that
 // keeps as many blocks on an SM as the lists alone allow (at 64 queries a
 // block, 32 entries keep two blocks an SM up to k1 of about 100; at
-// k1 = 128 only a few entries do). Known per k1 after its first launch.
+// k1 = 128 only a few entries do). Known per (device, k1) after its first
+// launch on that device: the shared-memory opt-in and the occupancy it
+// measures are the current device's (devices past CAP_DEVICES measure at
+// every launch).
+constexpr int CAP_DEVICES = 64;
+
 template <int BQ_, int KMAX>
 cudaError_t staging_cap(int k1, int* cap) {
-  static int known[KMAX + 1];
-  if (known[k1] > 0) {
-    *cap = known[k1];
+  static int known[CAP_DEVICES][KMAX + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int* slot = dev < CAP_DEVICES ? &known[dev][k1] : nullptr;
+  if (slot != nullptr && *slot > 0) {
+    *cap = *slot;
     return cudaSuccess;
   }
   auto kern = scan_topk_int4_kernel<BQ_, KMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)scan_int4_smem_bytes<BQ_>(k1, SEL_CAP));
   if (err != cudaSuccess) return err;
@@ -444,7 +453,8 @@ cudaError_t staging_cap(int k1, int* cap) {
     if (blocks >= lists_only) break;
   }
   if (err != cudaSuccess) return err;
-  *cap = known[k1] = c;
+  *cap = c;
+  if (slot != nullptr) *slot = c;
   return cudaSuccess;
 }
 

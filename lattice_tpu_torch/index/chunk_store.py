@@ -27,9 +27,16 @@ is the widened bf16 scan with an exact rescore (`scan_topk.refined_topk`,
 kernel A + B). `LATTICE_PQ=1` (the 8x-capacity mode) or a forced `"pq"`
 serves the product-quantized view (`ops/pq.PQIndex`: a decode-and-score
 of the uint8 codes, kernel B's two entries, then the exact rescore),
-gated on its build-time self-measured recall like IVF. The sharded plan
-is not ported yet; it raises `NotImplementedError` naming its ROADMAP
-item.
+gated on its build-time self-measured recall like IVF. With
+`LATTICE_SHARDED=1` and a mesh of more than one shard, the sharded plan
+(`"sharded"`, `parallel/sharded_index.py`) serves from views whose rows
+split over the mesh: the bf16 view (kernel A + B a shard, kernel B's
+merge), or past the card memory's tiers the int8 or int4 view (kernel C
+or D + B a shard, a rescore in each shard, the merge, then the exact
+rescore against the store's rows). The store's mesh is every visible
+device of its kind, or the one `parallel.mesh.default_mesh` sets for the
+process (such as several logical shards on one card), which the graph
+store and the engine's sharded deep branch read too.
 
 `device_rank_columns(graph)` keeps the deep path's per-row columns (graph
 node id, content quality, CALLS degree) on the store's device with a host
@@ -59,6 +66,10 @@ from lattice_tpu_torch.core.types import EdgeType
 from lattice_tpu_torch.ops import scan_topk as scan_ops
 from lattice_tpu_torch.ops import topk as topk_ops
 from lattice_tpu_torch.ops.graph_kernels import csr_expand
+from lattice_tpu_torch.parallel import mesh as mesh_ops
+from lattice_tpu_torch.parallel.sharded_index import (ShardedIndex,
+                                                      ShardedQuantizedIndex)
+from lattice_tpu_torch.parallel.sharded_rank import ShardedHybridRank
 
 # every method string _plan_search_impl accepts; surfaces (HTTP, MCP)
 # validate requests against this before minting per-config serving state
@@ -69,12 +80,6 @@ SEARCH_METHODS = ("auto", "flat", "pallas", "refined", "ivf", "pq",
 # plus graph_node_id, the vector->graph join key used by the context builder).
 INDEXED_FIELDS = ("file_path", "entity_type", "language", "content_hash",
                   "project_name", "graph_node_id")
-
-# Plans of the JAX store whose kernels have not been ported yet, with the
-# ROADMAP item that brings each.
-_NOT_PORTED = {
-    "sharded": "ROADMAP queue 1, item 11 (multi-GPU)",
-}
 
 # the plans served by the widened bf16 scan (kernel A + B + exact rescore)
 _BF16_SCANS = {"pallas": scan_ops.binned_topk,
@@ -98,11 +103,6 @@ class RankColumns:
         array comes back repeated per row."""
         return csr_expand(self.node_row_indptr, self.node_row_indices,
                           node_ids, *value_arrays)
-
-
-def _not_ported(what: str, plan: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to lattice_tpu_torch yet ({_NOT_PORTED[plan]})")
 
 
 def _index_payload(inverted: dict, row: int, payload: dict) -> None:
@@ -228,6 +228,10 @@ IVF_MEMORY_FRACTION = 0.85
 # Above this k the auto plan serves the exact flat scan (as in the JAX
 # store); the scan kernels keep at most `scan_ops.MAX_K1` candidates.
 KERNEL_MAX_K = 64
+# The largest k at which the auto plan of a CUDA store takes "sharded": the
+# int8 view's first stage then widens to 4 x 32 = `scan_ops.MAX_K1` a shard
+# (the bf16 and int4 views keep shorter lists)
+SHARDED_MAX_K = 32
 
 
 def _torch_dtype(dtype: str | torch.dtype) -> torch.dtype:
@@ -284,6 +288,11 @@ class ChunkStore:
         self._pq_mutations = 0
         self._rank_cols = None     # the deep path's resident columns
         self._rank_cols_dirty = True
+        self._sharded = None       # row-sharded views (parallel/)
+        self._sharded_dirty = True
+        self._shardedq = None      # ... int8 or int4
+        self._shardedq_dirty = True
+        self._sharded_rank = None  # (columns, bits, mesh, view) of the rank
         self._lex_tokens = None    # name-token inverted index, lazy
         # (None = build on next lexical_candidates). Once built, add/
         # remove maintain it incrementally like _inverted; only row-id
@@ -448,9 +457,14 @@ class ChunkStore:
         rows from its validity) and, like IVF, is marked dirty past 20%
         churn; a failure there marks it dirty too, except a kernel error,
         a CUDA out-of-memory or a path not ported (`DEVICE_ERRORS`), which
-        raise. The rank columns are marked for a rebuild either way."""
+        raise. The sharded views write the delta rows on their shards (or
+        invalidate them); a row past a view's capacity (the store grew)
+        marks it dirty, and a failure does as PQ's. The rank columns are
+        marked for a rebuild and the sharded rank view dropped either
+        way."""
         n = len(rows)
         self._rank_cols_dirty = True
+        self._sharded_rank = None
         if (self._ivf is not None and not self._ivf_dirty
                 and self._ivf.hollow):
             # the refusal verdict stands until 20% churn re-measures it
@@ -488,6 +502,22 @@ class ChunkStore:
             except Exception:
                 logger.exception("incremental PQ update failed; rebuilding")
                 self._pq_dirty = True
+        for attr in ("_sharded", "_shardedq"):
+            view, dirty = getattr(self, attr), attr + "_dirty"
+            if view is None or getattr(self, dirty):
+                setattr(self, dirty, True)
+                continue
+            try:
+                if normed is None:
+                    view.invalidate_rows(rows)
+                elif not view.update_rows(normed, rows):
+                    setattr(self, dirty, True)
+            except DEVICE_ERRORS:
+                raise
+            except Exception:
+                logger.exception("incremental sharded update failed; "
+                                 "rebuilding")
+                setattr(self, dirty, True)
         if normed is None:
             return
         if (self._quant is not None and not self._quant_dirty
@@ -604,8 +634,8 @@ class ChunkStore:
 
     def _reset_views(self) -> None:
         """Drop the derived serving views (IVF, the int8 and int4
-        shadows, PQ, the rank columns); the next use rebuilds them
-        lazily."""
+        shadows, PQ, the sharded views, the rank columns); the next use
+        rebuilds them lazily."""
         with self._serve_lock:  # a build mid-flight finishes first
             self._ivf = None
             self._ivf_dirty = True
@@ -619,6 +649,11 @@ class ChunkStore:
             self._pq_mutations = 0
             self._rank_cols = None
             self._rank_cols_dirty = True
+            self._drop_sharded_views()
+
+    def _drop_sharded_views(self) -> None:
+        self._sharded = self._shardedq = self._sharded_rank = None
+        self._sharded_dirty = self._shardedq_dirty = True
 
     def clear(self) -> None:
         self._valid.zero_()
@@ -955,16 +990,120 @@ class ChunkStore:
         s1, c1 = pq.search_device(queries, k1, mask=mask)
         return scan_ops._exact_rescore(queries, self._emb, s1, c1, k_eff)
 
-    # ---- plans not ported yet -----------------------------------------
+    # ---- the sharded views (parallel/) ---------------------------------
 
-    def to_sharded(self, *args, **kwargs):
-        raise _not_ported("to_sharded", "sharded")
+    def _mesh_kind(self) -> str:
+        return "cuda" if self._device_is_cuda() else self.device.type
 
-    def to_sharded_quantized(self, *args, **kwargs):
-        raise _not_ported("to_sharded_quantized", "sharded")
+    def _mesh_shards(self) -> int:
+        """Row shards of the store's mesh, counted without building it."""
+        return mesh_ops.visible_shards(self._mesh_kind())
 
-    def sharded_hybrid(self, *args, **kwargs):
-        raise _not_ported("sharded_hybrid", "sharded")
+    def _sharded_mesh(self, mesh=None) -> mesh_ops.DeviceMesh:
+        return mesh if mesh is not None else mesh_ops.visible_mesh(
+            self._mesh_kind())
+
+    def to_sharded(self, mesh=None) -> ShardedIndex:
+        """The rows split over the mesh with a top-k merge
+        (`parallel/sharded_index.py`), copied from the device rows (no host
+        round trip) and sized to the store's capacity, so that mutations
+        stay O(delta) writes until the store itself grows."""
+        return ShardedIndex(self._emb, self._valid,
+                            mesh=self._sharded_mesh(mesh), dtype=self.dtype)
+
+    def to_sharded_quantized(self, mesh=None, bits: int = 8
+                             ) -> ShardedQuantizedIndex:
+        """The quantized sharded view: `bits=8` halves the device memory of
+        `to_sharded`, `bits=4` quarters it. Quantizes the stored rows a
+        shard at a time on its device."""
+        return ShardedQuantizedIndex(self._emb, self._valid,
+                                     mesh=self._sharded_mesh(mesh), bits=bits)
+
+    def sharded_hybrid(self, graph, mesh=None) -> ShardedHybridRank:
+        """The sharded deep rank: the rows and the rank columns (CALLS
+        degree, content quality) split together over the mesh
+        (`parallel/sharded_rank.py`), at the tier `_sharded_quant_bits`
+        picks. Cached on the rank columns, the tier and the mesh:
+        `device_rank_columns` hands back new columns after any mutation or
+        graph finalize, so the view is rebuilt exactly when they are."""
+        with self._serve_lock:
+            cols = self.device_rank_columns(graph)
+            mesh = self._sharded_mesh(mesh)
+            bits = self._sharded_quant_bits(mesh)
+            cached = self._sharded_rank
+            if (cached is not None and cached[0] is cols
+                    and cached[1] == bits and cached[2] == mesh):
+                return cached[3]
+            view = ShardedHybridRank(self._emb, self._valid, cols.degree,
+                                     cols.quality, mesh=mesh,
+                                     dtype=self.dtype, bits=bits)
+            self._sharded_rank = (cols, bits, mesh, view)
+            return view
+
+    def _sharded_quant_bits(self, mesh=None) -> int:
+        """The tier of the sharded views by memory: 16 (the rows' dtype)
+        while the bf16 rows a device holds take at most half its memory, 8
+        past that, 4 past all of it, over the device the mesh loads most
+        (logical shards that share a card add up). `LATTICE_SHARDED_BITS`
+        = 16 / 8 / 4, or `LATTICE_SHARDED_INT8` = 1 / 0, force it."""
+        forced = os.environ.get("LATTICE_SHARDED_BITS")
+        if forced in ("16", "8", "4"):
+            return int(forced)
+        legacy = os.environ.get("LATTICE_SHARDED_INT8")
+        if legacy in ("0", "1"):
+            return 8 if legacy == "1" else 16
+        mesh = self._sharded_mesh(mesh)
+        per_shard = self._cap * self.dim * 2 / len(mesh.row_devices)
+        load = max(n * per_shard / mesh_ops.device_memory_bytes(d)
+                   for d, n in mesh_ops.shards_per_device(mesh).items())
+        if load > 1:
+            return 4
+        if load > 0.5:
+            return 8
+        return 16
+
+    def _sharded_view(self) -> ShardedIndex | ShardedQuantizedIndex:
+        """The live sharded view at the memory tier on the store's mesh,
+        (re)built only when dirty or on another mesh, captured under the
+        lock."""
+        with self._serve_lock:
+            mesh = self._sharded_mesh()
+            bits = self._sharded_quant_bits(mesh)
+            if bits < 16:
+                if (self._shardedq is None or self._shardedq_dirty
+                        or self._shardedq.bits != bits
+                        or self._shardedq.mesh != mesh):
+                    self._shardedq = self.to_sharded_quantized(mesh, bits)
+                    self._shardedq_dirty = False
+                return self._shardedq
+            if (self._sharded is None or self._sharded_dirty
+                    or self._sharded.mesh != mesh):
+                self._sharded = self.to_sharded(mesh)
+                self._sharded_dirty = False
+            return self._sharded
+
+    def _sharded_search_rescored(self, raw: torch.Tensor, k_eff: int,
+                                 mask: torch.Tensor | None
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The sharded plan on the store's device; raw queries in. The bf16
+        view answers at its storage precision, as the flat scan does. The
+        quantized views keep no full-precision rows (their capacity), but
+        the store's rows are resident, so their merged candidates, widened
+        to max(4k, 32) (int8) or max(8k, 32) (int4), rescore exactly
+        against them: the two-stage design of the single-device tiers."""
+        view = self._sharded_view()
+        lead = view.mesh.lead
+        q = raw.to(torch.float32).to(lead)
+        if isinstance(view, ShardedIndex):
+            s, i = view.search_device(q, k_eff, mask)
+            return s.to(self.device), i.to(self.device)
+        wide = min(max((4 if view.bits == 8 else 8) * k_eff, 32), self._cap)
+        s1, c1 = view.search_device(q, wide, mask)
+        # a NEG_INF slot may carry a pad row past the store's capacity
+        c1 = c1.to(self.device).clamp(max=self._cap - 1)
+        return scan_ops._exact_rescore(
+            topk_ops.l2_normalize_t(raw.to(self.device)), self._emb,
+            s1.to(self.device), c1, k_eff)
 
     # ---- queries -------------------------------------------------------
 
@@ -1058,15 +1197,18 @@ class ChunkStore:
     def _plan_search_impl(self, batch: int, k_eff: int,
                           filters: dict[str, Any] | None,
                           method: str) -> str:
-        """The dispatch decision table. Returns one of "pq" | "int4" |
-        "ivf" | "quantized" | "pallas" | "flat" (method strings kept as the
-        JAX store names them; serving keys on them).
+        """The dispatch decision table. Returns one of "sharded" | "pq" |
+        "int4" | "ivf" | "quantized" | "pallas" | "flat" (method strings
+        kept as the JAX store names them; serving keys on them).
 
         auto order, re-derived for the card:
-        1. LATTICE_SHARDED=1 on more than one CUDA device (the reference's
-           `len(jax.devices()) > 1`) — that plan is not ported; raise
-           rather than serve another plan. On one card or the CPU the flag
-           falls through, as in the reference
+        1. sharded   — LATTICE_SHARDED=1 with a mesh of more than one shard
+           (the reference's `len(jax.devices()) > 1`): the default mesh on
+           several cards, or the one `default_mesh` set; on a CUDA store only
+           at k <= SHARDED_MAX_K (the kernels' lists; a longer k falls
+           through). With one shard (one card, or the CPU) the flag falls
+           through, as in the reference, and a forced "sharded" serves the
+           exact flat scan, as there
         2. pq        — LATTICE_PQ=1 (the 8x-capacity mode), on either
            device, as in the JAX store: the first such call builds the PQ
            view (codebooks, codes, rescored recall self-measure) under the
@@ -1106,8 +1248,9 @@ class ChunkStore:
         if method != "auto":
             raise VectorStoreError(f"unknown search method {method!r}")
         if (os.environ.get("LATTICE_SHARDED") == "1"
-                and torch.cuda.device_count() > 1):
-            raise _not_ported("LATTICE_SHARDED=1", "sharded")
+                and self._mesh_shards() > 1
+                and (not self._device_is_cuda() or k_eff <= SHARDED_MAX_K)):
+            return "sharded"
         if os.environ.get("LATTICE_PQ") == "1" and (
                 not self._device_is_cuda()
                 or max(k_eff, 32) <= scan_ops.MAX_K1_LONG):
@@ -1145,15 +1288,16 @@ class ChunkStore:
 
     def _resolve_plan(self, batch: int, k_eff: int,
                       filters: dict[str, Any] | None, method: str) -> str:
-        """The planned method; an unported one raises. A forced kernel plan
-        is served as asked: on a CUDA store past the kernels' candidate
-        lists (k1 > `scan_ops.MAX_K1`, or 8k > `scan_ops.MAX_K1_LONG` for
-        "int4", or max(k, 32) > `scan_ops.MAX_K1_LONG` for "pq") the
-        kernel's wrapper raises KernelError."""
-        plan = self._plan_search(batch, k_eff, filters, method)
-        if plan in _NOT_PORTED:
-            raise _not_ported(f"method={plan!r}", plan)
-        return plan
+        """The planned method. A forced kernel plan is served as asked: on
+        a CUDA store past the kernels' candidate lists (k1 >
+        `scan_ops.MAX_K1`, or 8k > `scan_ops.MAX_K1_LONG` for "int4", or
+        max(k, 32) > `scan_ops.MAX_K1_LONG` for "pq", or a shard's first
+        stage past its kernel's list for "sharded") the kernel's wrapper
+        raises KernelError."""
+        return self._plan_search(batch, k_eff, filters, method)
+
+    def _serves_sharded(self, plan: str) -> bool:
+        return plan == "sharded" and self._mesh_shards() > 1
 
     def search(self, query_vectors: np.ndarray, k: int,
                filters: dict[str, Any] | None = None,
@@ -1163,9 +1307,9 @@ class ChunkStore:
 
         The kernel is picked by the `_plan_search` decision table; `method`
         forces a path ("flat"/"pallas"/"refined"/"quantized"/"int4"/"ivf"/
-        "pq").
-        Payload filters AND into the validity mask (every flat plan) or
-        fold into the bucket id table (ivf).
+        "pq"/"sharded").
+        Payload filters AND into the validity mask (every flat plan), fold
+        into the bucket id table (ivf), or split with the rows (sharded).
         """
         if self._size == 0:
             q = np.atleast_2d(query_vectors)
@@ -1173,6 +1317,12 @@ class ChunkStore:
         q = topk_ops.l2_normalize(np.atleast_2d(query_vectors))
         k_eff = min(k, self._cap)
         plan = self._resolve_plan(len(q), k_eff, filters, method)
+        if self._serves_sharded(plan):
+            s, i = self._sharded_search_rescored(
+                torch.from_numpy(np.ascontiguousarray(q)).to(self.device),
+                k_eff, self.filter_mask(filters))
+            return self._assemble_hits(len(q), s.cpu().numpy(),
+                                       i.cpu().numpy())
         if plan == "ivf":
             return self.search_ivf(q, k_eff, nprobe=IVF_AUTO_NPROBE,
                                    filters=filters)
@@ -1207,6 +1357,8 @@ class ChunkStore:
         k_eff = min(k, self._cap)
         plan = self._resolve_plan(int(raw.shape[0]), k_eff, filters, method)
         mask = self.filter_mask(filters)
+        if self._serves_sharded(plan):
+            return self._sharded_search_rescored(raw, k_eff, mask)
         if plan == "ivf":
             return self._serving_ivf().search_device(
                 topk_ops.l2_normalize_t(raw), k_eff, nprobe=IVF_AUTO_NPROBE,

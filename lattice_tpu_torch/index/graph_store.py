@@ -16,8 +16,12 @@ default, or on the one the caller names. The store builds and walks its
 graph on the host without touching that device; the first device method
 resolves it, and `"cuda"` without CUDA raises there rather than landing
 on the CPU. Device tensors are cached per `finalize` generation.
-`to_sharded` and `LATTICE_SHARDED=1` with more than one CUDA device raise
-`NotImplementedError` (ROADMAP queue 1, item 11: the sharded graph).
+`to_sharded` splits an edge type's list over a mesh
+(`parallel/sharded_graph.py`): every visible device of the store's kind,
+or the mesh `parallel.mesh.default_mesh` sets for the process (such as
+several logical shards on one card; the chunk store reads the same).
+With `LATTICE_SHARDED=1` and a mesh of more than one shard, `k_hop` walks
+through it.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ from lattice_tpu_torch.core.errors import GraphError
 from lattice_tpu_torch.core.types import EdgeType, EntityType
 from lattice_tpu_torch.ops import graph_kernels as gk
 from lattice_tpu_torch.ops.graph_kernels import csr_expand
+from lattice_tpu_torch.parallel.mesh import (DeviceMesh, visible_mesh,
+                                             visible_shards)
+from lattice_tpu_torch.parallel.sharded_graph import ShardedGraph
 
 
 def _device(device: str | torch.device) -> torch.device:
@@ -88,6 +95,7 @@ class GraphStore:
         self._finalized = False
         self.generation = 0   # bumped each finalize; callers key caches on it
         self.project: str | None = None
+        self._sharded_graphs: dict[EdgeType, ShardedGraph] = {}
 
     # ---- construction --------------------------------------------------
 
@@ -252,8 +260,10 @@ class GraphStore:
             es.rev_indptr = np.zeros(n + 1, dtype=np.int64)
             np.add.at(es.rev_indptr, es.rev_src + 1, 1)
             np.cumsum(es.rev_indptr, out=es.rev_indptr)
-        # device tensors (edges, liveness, degree) rebuild on next use
+        # device tensors (edges, liveness, degree) and the sharded views
+        # rebuild on next use
         self._device_edges = {}
+        self._sharded_graphs = {}
         self._alive_np = None
         self.generation += 1
         self._finalized = True
@@ -409,23 +419,34 @@ class GraphStore:
         return [self._host_bfs(ss, edge_type, hops, reverse=reverse,
                                limit=limit) for ss in seed_sets]
 
-    def _want_sharded(self) -> bool:
-        """Multi-GPU traversal tier: LATTICE_SHARDED=1 with >1 CUDA device
-        (the same opt-in as `ChunkStore.search`'s sharded plan), which is
-        not ported: it raises rather than walking on one device."""
-        if (os.environ.get("LATTICE_SHARDED") == "1"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "LATTICE_SHARDED=1 is not ported to lattice_tpu_torch yet "
-                "(ROADMAP queue 1, item 11: the sharded graph)")
-        return False
+    def _mesh_shards(self) -> int:
+        """Row shards of the store's mesh (`visible_mesh`: every visible
+        device of its kind, or the mesh `default_mesh` set, which the chunk
+        store's sharded plan reads too), counted without building it."""
+        return visible_shards(torch.device(self.device).type)
 
-    def to_sharded(self, edge_type: EdgeType, mesh=None):
-        """Edge-partitioned multi-device view (reference:
-        `parallel/sharded_graph.py`); not ported."""
-        raise NotImplementedError(
-            "GraphStore.to_sharded is not ported to lattice_tpu_torch yet "
-            "(ROADMAP queue 1, item 11: the sharded graph)")
+    def _want_sharded(self) -> bool:
+        """The sharded traversal tier: LATTICE_SHARDED=1 with a mesh of more
+        than one shard (the opt-in of `ChunkStore.search`'s sharded
+        plan)."""
+        return (os.environ.get("LATTICE_SHARDED") == "1"
+                and self._mesh_shards() > 1)
+
+    def to_sharded(self, edge_type: EdgeType, mesh: DeviceMesh | None = None
+                   ) -> ShardedGraph:
+        """The edge list of `edge_type` split over the mesh (`mesh`, else
+        the store's), the frontier exchanged each hop
+        (`parallel/sharded_graph.py`). Cached per edge type until
+        `finalize` or another mesh."""
+        self._ensure_final()
+        mesh = mesh or visible_mesh(torch.device(self.device).type)
+        view = self._sharded_graphs.get(edge_type)
+        if (view is None or view.n_nodes != self.n_nodes()
+                or view.mesh != mesh):
+            src, dst = self.edges(edge_type)
+            view = ShardedGraph(src, dst, self.n_nodes(), mesh=mesh)
+            self._sharded_graphs[edge_type] = view
+        return view
 
     def _graph_device(self, device=None) -> torch.device:
         return _device(self.device if device is None else device)

@@ -22,7 +22,7 @@ The differences from the reference:
   there (the checkpoint is written with `np.savez`, uncompressed,
   `models/finetune.py`), `validate-weights` checks the checkpoint's
   encoder there. `main` returns 1 on `NotImplementedError`, which only
-  what `parallel/` brings still raises (the sharded plans).
+  a tensor-parallel model axis raises now.
 
     python -m lattice_tpu_torch.main --device cpu index tests/fixtures/golden_project
     python -m lattice_tpu_torch.main --device cpu search "who calls validate_email" --path ...

@@ -7,9 +7,9 @@ a fixed scale of 20.
 
 The differences from the reference:
 - the step runs eagerly on one explicit device (default "cuda", which
-  raises without CUDA); `mesh` raises `NotImplementedError`: data and
-  tensor parallelism come with the `parallel/` slice (ROADMAP queue 1,
-  item 11);
+  raises without CUDA); `mesh` raises `NotImplementedError`: the
+  trainer's data and tensor parallelism over a `parallel/` mesh come in
+  the next slice (ROADMAP queue 1, item 11);
 - the optimizer is `torch.optim.AdamW(lr, betas=(0.9, 0.999), eps=1e-8,
   weight_decay=0.01)`, optax's `adamw`: decoupled decay on every
   parameter, the same bias correction, eps outside the square root;
@@ -36,6 +36,7 @@ from lattice_tpu_torch.models.unixcoder import (UniXcoderConfig,
                                                UniXcoderEncoder, _device,
                                                init_random_)
 from lattice_tpu_torch.ops.topk import full_f32
+from lattice_tpu_torch.parallel.mesh import TENSOR_PARALLEL_ITEM
 
 BATCH_KEYS = ("anchor_ids", "anchor_mask", "positive_ids", "positive_mask")
 
@@ -77,9 +78,9 @@ class ContrastiveTrainer:
                  remat: bool = True, device: str | torch.device = "cuda"):
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh is not ported to lattice_tpu_torch yet: data and "
-                "tensor parallelism come with parallel/ (ROADMAP queue 1, "
-                "item 11)")
+                "the trainer's mesh is not ported to lattice_tpu_torch yet: "
+                "its data and tensor parallelism over a parallel/ mesh "
+                f"come next ({TENSOR_PARALLEL_ITEM})")
         # per-layer rematerialization by default: the backward recomputes
         # each layer instead of holding every layer's activations. The
         # parameters are the same either way

@@ -25,9 +25,16 @@ FFN, vocab 51416). Numerics follow the flax module:
 - `remat`: under grad mode each layer runs through
   `torch.utils.checkpoint`, so the backward recomputes its activations.
 
-Left behind: the TPU layout pinning, the mesh sharding (multi-GPU comes
-later) and the stock Pallas flash path (`fused_attention` set True
-raises). Random init draws from an explicit
+`use_mesh` splits each batch over a mesh's data axis (the JAX package's
+pjit batch data parallelism): the weights are copied to each shard's
+device (shards that share a card share one copy), the batch is padded to a
+multiple of the shards and split, each shard runs the forward (its
+`paired_attention` launches among them), and the pooled rows are gathered
+on the model's device. A model axis larger than 1 (tensor parallelism)
+raises `NotImplementedError`.
+
+Left behind: the TPU layout pinning and the stock Pallas flash path
+(`fused_attention` set True raises). Random init draws from an explicit
 `torch.Generator(seed)` with flax's initialisers; it cannot reproduce
 JAX's draws, so its fingerprint says `unixcoder-torch-random-seed{seed}`.
 """
@@ -51,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from lattice_tpu_torch.core.errors import ConfigurationError, EmbeddingError
 from lattice_tpu_torch.ops.attention import MASKED, paired_attention
 from lattice_tpu_torch.ops.topk import full_f32
+from lattice_tpu_torch.parallel.mesh import DeviceMesh, require_no_model_axis
 
 logger = logging.getLogger(__name__)
 
@@ -301,6 +309,34 @@ class UniXcoderModel:
                     self.weights_fingerprint += f"+ft-{digest}"
                     logger.info("loaded fine-tuned checkpoint %s", npz)
         self.encoder.to(self.device).eval()
+        self.mesh: DeviceMesh | None = None
+        self._replicas: dict[torch.device, UniXcoderEncoder] = {}
+
+    def use_mesh(self, mesh: DeviceMesh) -> None:
+        """Split every batch over the mesh's data axis (batch data
+        parallelism); the pooled rows come back on the model's device."""
+        require_no_model_axis(mesh, "UniXcoderModel.use_mesh")
+        self.mesh = mesh
+        self._replicas = {}
+
+    @property
+    def data_shards(self) -> int:
+        return self.mesh.shape["data"] if self.mesh is not None else 1
+
+    def _replica(self, device: torch.device) -> "UniXcoderEncoder":
+        """The encoder on `device`: itself where its weights live, else a
+        copy of its current weights made at first use."""
+        if device == next(self.encoder.parameters()).device:
+            return self.encoder
+        enc = self._replicas.get(device)
+        if enc is None:
+            state = {k: v.to(device)
+                     for k, v in self.encoder.state_dict().items()}
+            with torch.device("meta"):
+                enc = UniXcoderEncoder(self.config)
+            enc.load_state_dict(state, assign=True)
+            enc = self._replicas[device] = enc.eval()
+        return enc
 
     def bucket_length(self, n: int) -> int:
         for b in self.LENGTH_BUCKETS:
@@ -323,6 +359,7 @@ class UniXcoderModel:
             encoder = UniXcoderEncoder(self.config)
         encoder.load_state_dict(state, assign=True)
         self.encoder = encoder.eval()
+        self._replicas = {}
         self.weights_fingerprint += "+qkvfused"
 
     def enable_bf16_inference(self) -> None:
@@ -335,12 +372,28 @@ class UniXcoderModel:
             for p in self.encoder.parameters():
                 if p.dim() >= 2:
                     p.data = p.data.to(torch.bfloat16)
+        self._replicas = {}
         self.weights_fingerprint += "+bf16serve"
 
     def _forward(self, input_ids: torch.Tensor,
                  attention_mask: torch.Tensor) -> torch.Tensor:
+        """Pooled rows on the model's device; with a mesh, the batch padded
+        (pad tokens, an all-zero mask) to a multiple of the data shards,
+        one slice a shard, every shard launched before any is read."""
         with torch.inference_mode():
-            return self.encoder(input_ids, attention_mask)[1]
+            if self.mesh is None or input_ids.shape[0] == 0:
+                return self.encoder(input_ids, attention_mask)[1]
+            devices = self.mesh.row_devices
+            b = input_ids.shape[0]
+            pad = (-b) % len(devices)
+            ids = F.pad(input_ids, (0, 0, 0, pad),
+                        value=self.config.pad_token_id)
+            mask = F.pad(attention_mask, (0, 0, 0, pad))
+            per = ids.shape[0] // len(devices)
+            pooled = [self._replica(d)(ids[i * per:(i + 1) * per].to(d),
+                                       mask[i * per:(i + 1) * per].to(d))[1]
+                      for i, d in enumerate(devices)]
+            return torch.cat([p.to(self.device) for p in pooled])[:b]
 
     def encode_device(self, input_ids, attention_mask) -> torch.Tensor:
         """Pooled [B, H] f32 embeddings left on the model's device. Inputs

@@ -3,9 +3,11 @@
 Port of `lattice_tpu/providers/unixcoder_provider.py`: mode-token framing
 `<encoder-only>` with CLS/SEP, max_length 512 with padding, mask-weighted
 mean-pool sentence embeddings, a cached model, and batched embedding. The
-model lives on one explicit device; "cuda" without CUDA raises. The JAX
-provider's mesh sharding and layout pinning are TPU work and are not
-ported (multi-GPU embedding is ROADMAP queue 1, item 11).
+model lives on one explicit device; "cuda" without CUDA raises. With more
+than one device of its kind the encoder splits its batches over all of
+them (`_maybe_shard`, `UniXcoderModel.use_mesh`), as the JAX provider does
+over every attached chip; `LATTICE_EMBED_DP=0` opts out. The JAX
+provider's layout pinning is TPU work and is not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from lattice_tpu_torch.models.unixcoder import UniXcoderConfig, UniXcoderModel
+from lattice_tpu_torch.parallel.mesh import visible_mesh
 from lattice_tpu_torch.providers.base import (BaseEmbeddingProvider,
                                               ProviderConfig)
 from lattice_tpu_torch.text.tokenizer import CodeTokenizer
@@ -54,11 +57,27 @@ class UniXcoderEmbedder:
             vocab_size=self.model.config.vocab_size, vocab_dir=weights_dir)
         self.max_length = max_length
         self.batch_size = batch_size
+        self._maybe_shard()
         if not self.model.loaded_pretrained:
             logger.info(
                 "UniXcoder running with random-init weights (no checkpoint "
                 "at %r); use the hash provider for offline retrieval quality",
                 weights_dir)
+
+    def _maybe_shard(self) -> None:
+        """Batch data parallelism over every device of the model's kind
+        (or the mesh `parallel.mesh.default_mesh` set at construction):
+        with more than one, the forward splits its batch over a mesh of
+        them, a shard's batch stays `batch_size`, so the batch taken from
+        the caller grows with the mesh. One device (one card, the CPU)
+        changes nothing. LATTICE_EMBED_DP=0 opts out."""
+        if (os.environ.get("LATTICE_EMBED_DP") == "0"
+                or self.model.mesh is not None):
+            return
+        mesh = visible_mesh(self.model.device)
+        if len(mesh.row_devices) > 1:
+            self.model.use_mesh(mesh)
+            self.batch_size *= self.model.data_shards
 
     @property
     def dimensions(self) -> int:

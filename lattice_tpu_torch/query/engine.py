@@ -25,9 +25,11 @@ device branch: a budgeted host CSR walk, expanded to rows through the
 store's resident rank columns, packed (`pack_reach`) and fused with the
 f32 query's cosine of every row on the store's device
 (`hybrid_rank_device_packed`); `deep_search_batch` runs Q queries through
-`hybrid_rank_device_packed_batch`, `DEEP_BATCH_CHUNK` at a time. The
-sharded branch raises through `GraphStore._want_sharded` (ROADMAP queue 1,
-item 11).
+`hybrid_rank_device_packed_batch`, `DEEP_BATCH_CHUNK` at a time. With
+`LATTICE_SHARDED=1` and a mesh of more than one shard (the stores' one
+mesh, `parallel.mesh.visible_mesh`) both rank through the store's sharded
+view (`ChunkStore.sharded_hybrid`, `parallel/sharded_rank.py`) instead, on
+the same evidence.
 """
 
 from __future__ import annotations
@@ -414,11 +416,12 @@ class QueryEngine:
     DEEP_HOPS = 5
 
     def _sharded_deep_enabled(self) -> bool:
-        """Deep rank over several cards: same opt-in convention as the
-        store's and graph's sharded tiers (LATTICE_SHARDED=1 with more
-        than one CUDA device, `GraphStore._want_sharded`, which raises:
-        ROADMAP queue 1, item 11)."""
-        return self.graph_store._want_sharded()
+        """Deep rank over a mesh: the opt-in of the store's and graph's
+        sharded tiers (LATTICE_SHARDED=1 with a mesh of more than one
+        shard), read on the mesh the store's sharded rank runs on, which
+        the graph's walk reads too (`parallel.mesh.visible_mesh`)."""
+        return (os.environ.get("LATTICE_SHARDED") == "1"
+                and self.indexer.code._mesh_shards() > 1)
 
     def _pack_deep_evidence(self, evs: list[dict]):
         """Stack per-query evidence into padded [Q, R] / [Q, M] arrays (-1
@@ -446,8 +449,8 @@ class QueryEngine:
         scattered to rows, fuse and selection on the store's device (the
         reference's semantics `query/engine.py:102-220` with the ranker
         formulas of `ranking/scorer.py:9-126`). Host work per query is
-        O(seeds + reached + k), never O(corpus)."""
-        self._sharded_deep_enabled()
+        O(seeds + reached + k), never O(corpus). The sharded branch ranks
+        the same evidence where the rows live (`sharded_hybrid`)."""
         t0 = time.perf_counter()
         store = self.indexer.code
         ev = self._deep_evidence(plan)
@@ -458,15 +461,22 @@ class QueryEngine:
             dtype=np.float32)
         w_np = pack_weights(FuseWeights(
             *_weights_tuple(self.ranker.config, plan)))
-        emb, valid = store.device_arrays
+        if self._sharded_deep_enabled():
+            view = store.sharded_hybrid(self.graph_store)
+            scores, rows = view.rank(qvec[None], packed_b, ev["rel_table"],
+                                     match_b, w_np, limit)
+            scores, rows = scores[0], rows[0]
+        else:
+            emb, valid = store.device_arrays
 
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(emb.device)
+            def put(a: np.ndarray) -> torch.Tensor:
+                return torch.from_numpy(a).to(emb.device)
 
-        scores, rows = hybrid_rank_device_packed(
-            put(qvec), emb, valid, put(packed_b[0]), put(ev["rel_table"]),
-            put(match_b[0]), cols.degree, cols.quality, put(w_np), limit)
-        scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
+            scores, rows = hybrid_rank_device_packed(
+                put(qvec), emb, valid, put(packed_b[0]),
+                put(ev["rel_table"]), put(match_b[0]), cols.degree,
+                cols.quality, put(w_np), limit)
+            scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
         elapsed_ms = (time.perf_counter() - t0) * 1000
         results = self._deep_results(scores, rows, ev["reach_set"])
         return QueryResult(
@@ -483,7 +493,8 @@ class QueryEngine:
         walks, entity matches, per-intent weights and relevance tables)
         stacks to [Q, ...] arrays and goes to the store's device once a
         chunk of `DEEP_BATCH_CHUNK` queries, which the batched rank scores
-        as one [Q, N] slab (`hybrid_rank_device_packed_batch`)."""
+        as one [Q, N] slab (`hybrid_rank_device_packed_batch`), or through
+        the store's sharded view on the sharded branch."""
         if not query_texts:
             return []
         limit = limit or self.settings.search_limit
@@ -491,7 +502,6 @@ class QueryEngine:
         if (len(store) == 0 or len(query_texts) == 1
                 or store.capacity < self.DEEP_DEVICE_THRESHOLD):
             return [self.deep_search(t, limit) for t in query_texts]
-        self._sharded_deep_enabled()
         t0 = time.perf_counter()
         plans = [self.planner.plan_heuristic(t) for t in query_texts]
         evs = self._deep_evidence_batch(plans)
@@ -504,6 +514,8 @@ class QueryEngine:
             pack_weights(FuseWeights(
                 *_weights_tuple(self.ranker.config, p))) for p in plans])
         rel_b = np.stack([e["rel_table"] for e in evs])
+        sharded = (store.sharded_hybrid(self.graph_store)
+                   if self._sharded_deep_enabled() else None)
         emb, valid = store.device_arrays
         cols = evs[0]["cols"]
 
@@ -515,11 +527,17 @@ class QueryEngine:
         for lo in range(0, len(evs), self.DEEP_BATCH_CHUNK):
             sl = slice(lo, lo + self.DEEP_BATCH_CHUNK)
             packed_b, match_b = self._pack_deep_evidence(evs[sl])
-            sc, rw = hybrid_rank_device_packed_batch(
-                put(qvecs[sl]), emb, valid, put(packed_b), put(rel_b[sl]),
-                put(match_b), cols.degree, cols.quality, put(w_b[sl]), limit)
-            scores_parts.append(sc.cpu().numpy())
-            rows_parts.append(rw.cpu().numpy())
+            if sharded is not None:
+                sc, rw = sharded.rank(qvecs[sl], packed_b, rel_b[sl],
+                                      match_b, w_b[sl], limit)
+            else:
+                sc, rw = hybrid_rank_device_packed_batch(
+                    put(qvecs[sl]), emb, valid, put(packed_b),
+                    put(rel_b[sl]), put(match_b), cols.degree, cols.quality,
+                    put(w_b[sl]), limit)
+                sc, rw = sc.cpu().numpy(), rw.cpu().numpy()
+            scores_parts.append(sc)
+            rows_parts.append(rw)
         scores_b = np.concatenate(scores_parts)
         rows_b = np.concatenate(rows_parts)
         per_q_ms = (time.perf_counter() - t0) * 1000 / len(plans)

@@ -362,12 +362,13 @@ class TestPlanTable:
     @pytest.mark.parametrize("flag", ["LATTICE_INT4", "LATTICE_PQ",
                                       "LATTICE_SHARDED"])
     def test_unported_modes_raise(self, cuda_store, monkeypatch, flag):
-        """LATTICE_SHARDED with more than one CUDA device still raises (one
-        device: test_sharded_flag_on_one_device_falls_through), naming
-        its ROADMAP item; LATTICE_INT4 is ported and plans "int4"
-        (tests/test_torch_port_int4.py), and LATTICE_PQ builds the PQ
-        view, whose rescored recall on these rows clears the bar, and
-        plans "pq" (tests/test_torch_port_pq.py)."""
+        """Every capacity and scale mode is ported and plans its method:
+        LATTICE_SHARDED with more than one CUDA device (the default mesh)
+        plans "sharded" up to SHARDED_MAX_K and falls through past it (one
+        device: test_sharded_flag_on_one_device_falls_through);
+        LATTICE_INT4 plans "int4" (tests/test_torch_port_int4.py), and
+        LATTICE_PQ builds the PQ view, whose rescored recall on these rows
+        clears the bar, and plans "pq" (tests/test_torch_port_pq.py)."""
         monkeypatch.setenv(flag, "1")
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
         if flag == "LATTICE_INT4":
@@ -377,8 +378,12 @@ class TestPlanTable:
             assert cuda_store._plan_search(256, 10, None, "auto") == "pq"
             assert cuda_store._pq.measured_recall >= port_cs.IVF_MIN_RECALL
             return
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cuda_store._plan_search(256, 10, None, "auto")
+        assert cuda_store._mesh_shards() == 2
+        k_max = port_cs.SHARDED_MAX_K
+        assert cuda_store._plan_search(256, 10, None, "auto") == "sharded"
+        assert cuda_store._plan_search(1, k_max, None, "auto") == "sharded"
+        assert cuda_store._plan_search(1, k_max + 1, None,
+                                       "auto") == "quantized"
 
     @pytest.mark.parametrize("k, want", [
         (10, "pq"), (65, "pq"), (scan_ops.MAX_K1_LONG, "pq"),
@@ -401,24 +406,38 @@ class TestPlanTable:
     def test_sharded_flag_on_one_device_falls_through(self, cuda_store,
                                                       monkeypatch, batch, k):
         """As the JAX store plans "sharded" only with more than one device,
-        the flag on one card plans exactly what the table plans without it,
-        and a forced "sharded" still raises (the plan is not ported)."""
+        the flag on one card (the default mesh) plans exactly what the
+        table plans without it, and a forced "sharded" serves the exact
+        flat scan, as the JAX store does on one device."""
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
         want = cuda_store._plan_search(batch, k, None, "auto")
         monkeypatch.setenv("LATTICE_SHARDED", "1")
         assert cuda_store._plan_search(batch, k, None, "auto") == want
-        with pytest.raises(NotImplementedError):
-            cuda_store._resolve_plan(batch, k, None, "sharded")
+        assert cuda_store._resolve_plan(batch, k, None, "sharded") == "sharded"
+        assert not cuda_store._serves_sharded("sharded")
+        q = torch.from_numpy(_vecs(2, 32, seed=batch + k))
+        fs, fi = cuda_store.search_device(q, k, method="flat")
+        ss, si = cuda_store.search_device(q, k, method="sharded")
+        assert torch.equal(si, fi) and torch.equal(ss, fs)
+        assert cuda_store._sharded is None and cuda_store._shardedq is None
 
     def test_sharded_flag_plans_as_the_jax_store(self, pair, monkeypatch):
         """One input through both stores with the flag set: the JAX store
         plans "sharded" on the tests' 8 host devices, and falls through
-        when `jax.devices` gives one; the port, with one device (or none:
-        the CPU), plans the same method."""
+        when `jax.devices` gives one; the port plans the same method with
+        one device (or none: the CPU store's default mesh is one shard),
+        and "sharded" with a mesh of four logical shards on the CPU, where
+        it answers as the JAX store does on its eight."""
         import jax
+        from lattice_tpu_torch.parallel.mesh import default_mesh, make_mesh
         js, ps, vecs = pair
         monkeypatch.setenv("LATTICE_SHARDED", "1")
         assert js._plan_search(4, 5, None, "auto") == "sharded"
+        want = js.search(vecs[:4], k=5)
+        with default_mesh(make_mesh(4, device="cpu")):
+            assert ps._plan_search(4, 5, None, "auto") == "sharded"
+            _assert_same_hits(want, ps.search(vecs[:4], k=5))
+        assert ps._sharded is not None
         one = jax.devices()[:1]
         monkeypatch.setattr(jax, "devices", lambda *a, **kw: one)
         j_plan = js._plan_search(4, 5, None, "auto")
@@ -431,17 +450,21 @@ class TestPlanTable:
 
     @pytest.mark.parametrize("method", ["refined", "pq", "int4", "sharded"])
     def test_unported_forced_methods_raise(self, pair, method):
-        """"sharded" still raises; "refined", "int4" and "pq" are ported
-        and serve the exact flat answer here (rescored widened lists)."""
+        """Every forced method is ported and serves the exact flat answer
+        here: "refined", "int4" and "pq" (rescored widened lists), and
+        "sharded", on the CPU store's one shard (the flat scan, as the JAX
+        store on one device) and on four logical shards."""
+        from lattice_tpu_torch.parallel.mesh import default_mesh, make_mesh
         _, ps, vecs = pair
         assert method in SEARCH_METHODS
-        if method in ("refined", "int4", "pq"):
-            got = ps.search(vecs[:1], k=3, method=method)
-            want = ps.search(vecs[:1], k=3, method="flat")
+        want = ps.search(vecs[:1], k=3, method="flat")
+        got = ps.search(vecs[:1], k=3, method=method)
+        assert [r for r, _, _ in got[0]] == [r for r, _, _ in want[0]]
+        if method == "sharded":
+            with default_mesh(make_mesh(4, device="cpu")):
+                got = ps.search(vecs[:1], k=3, method=method)
+            assert ps._sharded is not None
             assert [r for r, _, _ in got[0]] == [r for r, _, _ in want[0]]
-            return
-        with pytest.raises(NotImplementedError):
-            ps.search(vecs[:1], k=3, method=method)
 
     def test_forced_kernel_plan_past_list_bound_serves_flat(self):
         """Only the auto plan serves "flat" past k=64. A forced kernel plan
@@ -481,13 +504,25 @@ class TestPlanTable:
                     == scan_ops.first_stage_width(k, n))
 
     def test_unported_surfaces_raise(self, pair):
-        """The sharded views raise; `build_pq` is ported and builds the
-        view over the live rows."""
-        _, ps, _ = pair
-        for call in (ps.to_sharded, ps.to_sharded_quantized,
-                     ps.sharded_hybrid):
-            with pytest.raises(NotImplementedError, match="item 11"):
-                call()
+        """Every surface is ported: the sharded views build over the CPU
+        store's rows on a mesh (the hybrid view with the rank columns of a
+        graph), and `build_pq` builds the view over the live rows."""
+        from lattice_tpu_torch.index.graph_store import GraphStore
+        from lattice_tpu_torch.parallel.mesh import make_mesh
+        _, ps, vecs = pair
+        mesh = make_mesh(4, device="cpu")
+        view = ps.to_sharded(mesh)
+        assert view.capacity >= ps.capacity and view.mesh == mesh
+        q = vecs[:2]
+        s, i = view.search(q, 5)
+        want = ps.search(q, k=5, method="flat")
+        assert [list(r) for r in i] == [[r for r, _, _ in h] for h in want]
+        qview = ps.to_sharded_quantized(mesh, bits=4)
+        assert qview.bits == 4 and qview.values.shape == (qview.capacity, 16)
+        graph = GraphStore(device="cpu")
+        hybrid = ps.sharded_hybrid(graph, mesh)
+        assert hybrid.bits == 16 and hybrid.mesh == mesh
+        assert ps.sharded_hybrid(graph, mesh) is hybrid
         pq = ps.build_pq()
         assert pq is ps._pq and not ps._pq_dirty
         assert pq.codes.shape == (ps.capacity, pq.m)

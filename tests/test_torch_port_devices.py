@@ -1,11 +1,12 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU: built with no `device` on a machine without CUDA, each one raises
 rather than landing quietly on the CPU; the graph store's device methods
-do the same on a store made with no `device`. What the port has not
-ported raises rather than taking another path: the sharded graph and
-deep rank. The metadata stage is ported: the orchestrator no longer
-refuses default settings (`test_metadata_stage_raises_not_ported` keeps
-its name and now checks that)."""
+do the same on a store made with no `device`. The sharded graph and deep
+rank are ported: their tests keep the names they had while the port
+refused them, and now check that they serve, on meshes of logical shards
+on the CPU. So is the metadata stage: the orchestrator no longer refuses
+default settings (`test_metadata_stage_raises_not_ported` keeps its name
+and now checks that)."""
 
 import asyncio
 
@@ -109,20 +110,35 @@ def test_graph_device_methods_default_to_cuda(monkeypatch, name):
     lambda g: g.to_sharded(EdgeType.CALLS),
 ], ids=["to_sharded"])
 def test_graph_device_methods_raise_not_ported(monkeypatch, call):
+    """`to_sharded` serves: on a CPU store its default mesh is one shard,
+    a view cached per edge type until `finalize`, walking as the host
+    does."""
     store = _graph("cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        call(store)
+    view = call(store)
+    assert len(view.mesh.row_devices) == 1 and call(store) is view
+    assert view.k_hop([0], 2) == {1: 1}
     assert store.k_hop([0], EdgeType.CALLS, 2) == {1: 1}
     assert store.k_hop([0], EdgeType.CALLS, 2, device=True) == {1: 1}
+    store.finalize()
+    assert call(store) is not view
 
 
 def test_graph_sharded_flag_raises_only_with_several_cards(monkeypatch):
+    """LATTICE_SHARDED=1 walks through the sharded view only with a mesh
+    of more than one shard: two cards (the default mesh; counted, not
+    built) or the mesh `default_mesh` sets, here two logical shards on the
+    CPU, where the walk equals the host walk."""
+    from lattice_tpu_torch.parallel.mesh import default_mesh, make_mesh
     store = _graph()
     monkeypatch.setenv("LATTICE_SHARDED", "1")
     assert store.k_hop([0], EdgeType.CALLS, 2) == {1: 1}
+    assert not store._want_sharded()
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        store.k_hop([0], EdgeType.CALLS, 2)
+    assert store._want_sharded()
+    with default_mesh(make_mesh(2, device="cpu")):
+        assert store.k_hop([0], EdgeType.CALLS, 2) == {1: 1}
+        assert store.k_hop([1], EdgeType.CALLS, 2, reverse=True) == {0: 1}
+    assert len(store._sharded_graphs[EdgeType.CALLS].src) == 2
 
 
 def test_metadata_stage_raises_not_ported():
@@ -191,14 +207,39 @@ def test_device_deep_branch_serves_on_the_stores_device(monkeypatch, engine):
 
 
 def test_sharded_deep_branch_raises_not_ported(monkeypatch, engine):
-    monkeypatch.setattr(type(engine), "DEEP_DEVICE_THRESHOLD", 1)
+    """The sharded deep branch serves: with the stores' one mesh set to
+    three logical shards on the CPU, `deep_search` and
+    `deep_search_batch` rank through the store's sharded view as the
+    unsharded device branch ranks, and the graph phase walks the sharded
+    graph; outside the block the branch is off."""
+    from lattice_tpu_torch.parallel.mesh import default_mesh, make_mesh
+    monkeypatch.setattr(engine, "DEEP_DEVICE_THRESHOLD", 1)
+    texts = ["who calls drain?", "what does Jobs extend?"]
+    want = [engine.deep_search(t) for t in texts]
+    want_sync = engine.search_sync(texts[0])
+    store, graph = engine.indexer.code, engine.graph_store
+    mesh = make_mesh(3, device="cpu")
     monkeypatch.setenv("LATTICE_SHARDED", "1")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        engine.deep_search("who calls drain?")
-    # the graph phase does not answer with an empty side either
-    with pytest.raises(NotImplementedError, match="item 11"):
-        engine.search_sync("who calls drain?")
+    assert not engine._sharded_deep_enabled()
+    with default_mesh(mesh):
+        assert engine._sharded_deep_enabled()
+        got = [engine.deep_search(t) for t in texts]
+        assert store._sharded_rank is not None
+        assert store._sharded_rank[3].mesh == mesh
+        batch = engine.deep_search_batch(texts)
+        sync = engine.search_sync(texts[0])
+        walked = set(graph._sharded_graphs)
+    assert not engine._sharded_deep_enabled()
+    for w, g, b in zip(want, got, batch):
+        assert [(r.qualified_name, r.source) for r in g.results] == [
+            (r.qualified_name, r.source) for r in w.results]
+        assert [r.qualified_name for r in b.results] == [
+            r.qualified_name for r in w.results]
+        for x, y in zip(g.results, w.results):
+            assert abs(x.score - y.score) <= 1e-5
+    assert EdgeType.CALLS in walked
+    assert [r.qualified_name for r in sync.results] == [
+        r.qualified_name for r in want_sync.results]
 
 
 def test_device_failures_are_not_degraded_answers(monkeypatch, engine):

@@ -4,7 +4,8 @@ transformers.
 The machine with the card has none of them. A subprocess blocks their
 import (`sys.modules[name] = None` makes `import name` raise), imports
 `lattice_tpu_torch`, indexes and searches a small CPU store through the
-hash embedder (every ported plan, and the int4 view in capacity mode) and
+hash embedder (every ported plan, the int4 view in capacity mode, and the
+sharded plan and graph of `parallel/` on four logical shards) and
 through a tiny UniXcoder encoder (tokenizer, paired
 attention's plain version, the torch module, the provider), takes a
 training step and validates a checkpoint of that encoder (the parity
@@ -77,6 +78,23 @@ s4, i4 = view.search_device(torch.from_numpy(emb.embed_batch(texts)),
                             indexer.code.device_arrays[1], 2,
                             dequant_rescore=True)
 assert i4[:, 0].tolist() == list(range(5)), i4
+# parallel/: the store's sharded plan at every tier, the sharded graph and
+# deep rank, on four logical shards on the CPU
+import os
+import numpy as np
+from lattice_tpu_torch.parallel.mesh import default_mesh, make_mesh
+from lattice_tpu_torch.parallel.sharded_graph import ShardedGraph
+with default_mesh(make_mesh(4, device="cpu")) as mesh:
+    for bits in ("16", "8", "4"):
+        os.environ["LATTICE_SHARDED_BITS"] = bits
+        _, ish = indexer.code.search_device(
+            torch.from_numpy(emb.embed_batch(texts)), 2, method="sharded")
+        assert ish[:, 0].tolist() == list(range(5)), (bits, ish)
+    del os.environ["LATTICE_SHARDED_BITS"]
+    assert (indexer.code._sharded is not None
+            and indexer.code._shardedq.bits == 4)
+    assert ShardedGraph(np.array([0, 1]), np.array([1, 2]), 3,
+                        mesh=mesh).k_hop([0], 2) == {1: 1, 2: 2}
 from lattice_tpu_torch.core.errors import EmbeddingError
 from lattice_tpu_torch.models.unixcoder import UniXcoderConfig, UniXcoderModel
 from lattice_tpu_torch.ops.attention import paired_attention

@@ -745,9 +745,9 @@ class TestPlanTable:
             elif flag == "LATTICE_PQ":  # ported: built once, then served
                 assert s._plan_search(4, 10, None, "auto") == "pq"
                 assert s._pq.measured_recall >= port_cs.IVF_MIN_RECALL
-            else:
-                with pytest.raises(NotImplementedError):
-                    s._plan_search(256, 10, None, "auto")
+            else:  # ported: the default mesh spans the two cards
+                assert s._plan_search(256, 10, None, "auto") == "sharded"
+                assert s._plan_search(4, 10, None, "auto") == "sharded"
             cuda.delenv(flag)
         assert called["n"] == 0
 
