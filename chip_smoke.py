@@ -368,6 +368,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    port's CLI, each exiting 0 with the reference's report (the parity
    check skipped where `transformers` does not import); their launches
    (the f32 entry's among them) count with this path's.
+3o. The trainer's mesh and the tensor-parallel encoder (cell L), after
+   3m, at `UniXcoderConfig()` (random weights, seed 0) on four logical
+   shards of the card: (a) `ContrastiveTrainer` on a dp-4 mesh and on a
+   dp-2 x tp-2 mesh, 3 steps each on 3m's batches from the single-device
+   trainer's starting weights, against that trainer's steps: losses
+   within 1e-2 relative, parameters within 3 x steps x lr, the first
+   gradient within GRAD_RTOL of the single device's (relative L2 over
+   every weight) while two planted faults, one data row's gradient
+   dropped and per-shard losses, land beyond it; no `paired_attention`
+   launch; step p50 and peak memory of each; (b) with every bias and
+   LayerNorm parameter drawn at random (`graft_entry.random_vectors_`),
+   `use_mesh(make_mesh(4, model_parallel=2))` at B=128, L=512 against the
+   unsharded forward: every pooled cosine >= 0.999, 48 `paired_attention`
+   launches a forward (2 rows x 2 positions x 12 layers, 6 heads a
+   position); its time beside the unsharded forward and the dp-only split;
+   (c) the flash option (`LATTICE_FLASH_ATTN=1`:
+   `scaled_dot_product_attention`) against the einsum path over the live
+   rows at B=128, L=512, cosine >= 0.999, and a training step with it
+   beside the einsum step on the same weights (loss within 1e-2
+   relative); (d) `paired_attention` launches a forward under
+   `LATTICE_PAIRED_ATTN=0` / `=1` / `LATTICE_FLASH_ATTN=1`: 0 / 12 / 0;
+   (e) `graft_entry.dryrun_multichip(4)`: the dry run's every step on the
+   card, its dp x tp forward at full width.
 4c. Encoder timings (information only): chunks/s at B=128, L=512 on
    device-resident ids (CUDA events) with the achieved TFLOP/s, the host
    tokenizer per batch, B=1 query encode and `search_code` p50 (host
@@ -385,11 +408,12 @@ at k=10; the capacity lists at k1 in {16, 80}, B=1024) and timed beside
 `torch.topk` on them by device time (`device_ms`: a sleep kernel keeps
 the queue full, so the host's issue is not counted) and back to back.
 Launch counts are zeroed just before each of 3a, 3d, 3f, 3i, 3n, 3b, 3k,
-3e, 3c, 3g, 3h, 3j, 3l and 3m and read just after it; each path's kernels, and every registered
-kernel, must have launched, and the C entries each path must have run with them (kernel
-A's and C's wgmma routes on corpus A, D's in 3d and 3e, the bf16, int8
-and int4 probes' in 3f, kernel B's positional entry in 3k's "pq"; A's,
-C's and D's wgmma entries and B's positional entry in 3n).
+3e, 3c, 3g, 3h, 3j, 3l, 3m and 3o and read just after it; each path's
+kernels, and every registered kernel, must have launched, and the C
+entries each path must have run with them (kernel A's and C's wgmma
+routes on corpus A, D's in 3d and 3e, the bf16, int8 and int4 probes' in
+3f, kernel B's positional entry in 3k's "pq"; A's, C's and D's wgmma
+entries and B's positional entry in 3n; the bf16 attention entry in 3o).
 
 The line before the last is the kernel table as JSON: per kernel its
 launches on those paths (and by C entry; "routes": every C entry that
@@ -5105,10 +5129,10 @@ def phase_train_parity(ctx: dict) -> None:
     # tests/test_torch_port_train.py), so the CPU's steps skip it
     host = ContrastiveTrainer(learning_rate=TRAIN_LR, seed=SEED, remat=False,
                               device="cpu")
-    require(all(torch.equal(a.detach().cpu(), b.detach()) for a, b in zip(
-        card.module.parameters(), host.module.parameters())),
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(
+        card.state_dict().values(), host.state_dict().values())),
         "the card's and the CPU's trainers start from other weights")
-    start = [p.detach().clone() for p in host.module.parameters()]
+    start = [p.clone() for p in host.state_dict().values()]
     losses, host_s = [], 0.0
     for batch in batches:
         lc = card.train_step(batch)
@@ -5117,11 +5141,11 @@ def phase_train_parity(ctx: dict) -> None:
         host_s += time.perf_counter() - t0
         losses.append((lc, lh))
     worst = max(abs(c - h) / abs(h) for c, h in losses)
-    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten()
-                       for a, b in zip(card.module.parameters(),
-                                       host.module.parameters())])
-    moved = torch.cat([(a.detach() - b).abs().flatten()
-                       for a, b in zip(host.module.parameters(), start)])
+    diffs = torch.cat([(a.cpu() - b).abs().flatten()
+                       for a, b in zip(card.state_dict().values(),
+                                       host.state_dict().values())])
+    moved = torch.cat([(a - b).abs().flatten()
+                       for a, b in zip(host.state_dict().values(), start)])
     launched = _build.launch_counts()["paired_attention"] - before
     log(f"3m(a): {CHECK_STEPS} steps at UniXcoderConfig(), batch "
         f"{TRAIN_BATCH}, max_length {CHECK_LEN} ({n_pairs} pairs mined from "
@@ -5501,6 +5525,284 @@ def phase_train_cli(ctx: dict) -> None:
             f"{lattice.by_kernel.get('paired_attention')} ({ctx['smi']})")
 
 
+MESH_SHARDS = 4            # 3o: logical shards on the one card
+MESH_MP = 2                # 3o: the model axis of the dp x tp mesh
+# 3o(a): the largest distance (relative L2 over every weight) of a mesh
+# trainer's first gradient from the single device's: 3 x the largest sound
+# reading. The bf16 products round at other shapes on a mesh, and a tp
+# split rounds each partial product: 3o(a) read 3.3e-3 (dp-4) and 1.4e-2
+# (dp-2 x tp-2), the planted faults 0.47-0.61 (PERF.md section 6)
+GRAD_RTOL = 5e-2
+# 3o(d): (LATTICE_PAIRED_ATTN, LATTICE_FLASH_ATTN) -> paired_attention
+# launches in one forward of the 12-layer encoder
+LEVER_LAUNCHES = {("0", None): 0, ("1", None): 12, (None, "1"): 0}
+
+
+@contextlib.contextmanager
+def attention_env(paired: str | None, flash: str | None):
+    """LATTICE_PAIRED_ATTN / LATTICE_FLASH_ATTN set (None: unset) within the
+    block, the caller's values back after it."""
+    names = ("LATTICE_PAIRED_ATTN", "LATTICE_FLASH_ATTN")
+    saved = {n: os.environ.get(n) for n in names}
+    try:
+        for n, v in zip(names, (paired, flash)):
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+        yield
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+
+
+def encoder_batch(ctx: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """This checkout's first ENC_BATCH chunks at ENC_LEN on the card."""
+    tok = ctx["provider"].tokenizer
+    ids, mask = tok.encode_batch(ctx["enc_texts"][:ENC_BATCH], ENC_LEN)
+    pad = ENC_LEN - len(ids[0])
+    return (torch.tensor([r + [tok.PAD] * pad for r in ids], device="cuda"),
+            torch.tensor([r + [0] * pad for r in mask], device="cuda"))
+
+
+def phase_train_mesh_path(ctx: dict) -> None:
+    """3o: the trainer's mesh, the tensor-parallel encoder, the flash
+    option, the attention levers and the dry run, at full width on
+    MESH_SHARDS logical shards of the card (cell L)."""
+    t0 = time.perf_counter()
+    phase_mesh_training(ctx)
+    phase_tp_encoder(ctx)
+    from lattice_tpu_torch import graft_entry
+    t1 = time.perf_counter()
+    graft_entry.dryrun_multichip(MESH_SHARDS)
+    log(f"3o(e): graft_entry.dryrun_multichip({MESH_SHARDS}) on the card "
+        f"(the dp x tp forward at UniXcoderConfig()): every step held, "
+        f"{time.perf_counter() - t1:.2f} s")
+    log(f"phase 3o took {time.perf_counter() - t0:.2f} s")
+
+
+def mesh_steps(trainer, batches: list[dict]) -> tuple[list[float], float,
+                                                      float]:
+    """(losses, step p50 ms past the first, peak device GB above the
+    start) of `trainer` on `batches`."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch))   # float(): synchronized
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return losses, statistics.median(ms[1:]), peak
+
+
+def grads_of(trainer, loss: torch.Tensor) -> dict[str, torch.Tensor]:
+    """d `loss` / d every weight of `trainer`, whole (`trainer.grads()`);
+    the trainer's `.grad`s are left cleared."""
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss.backward(retain_graph=True)
+    grads = trainer.grads()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    return grads
+
+
+def grad_distance(got: dict, want: dict) -> float:
+    """|got - want| / |want|, L2 over every weight's gradient at once."""
+    num = sum(float((got[k].float() - want[k].float()).square().sum())
+              for k in want)
+    return (num / sum(float(w.float().square().sum())
+                      for w in want.values())) ** 0.5
+
+
+def planted_faults(one, batch: dict) -> tuple[dict, dict[str, float]]:
+    """The single-device trainer's gradient on `batch` at its weights, and
+    `grad_distance` from it of two planted faults computed on the same
+    encode: the loss with the first data row's pooled rows detached (that
+    row's gradient dropped) and the mean of the data rows' own losses
+    (per-shard negatives). Rows of the dp-4 mesh: the smaller fault."""
+    from lattice_tpu_torch.models.train import info_nce
+    want = grads_of(one, one.loss(batch))
+    anchor, positive = one.encode_pairs(batch)
+    per = anchor.shape[0] // MESH_SHARDS
+    shards = range(0, anchor.shape[0], per)
+    losses = {
+        "one row's gradient dropped": info_nce(
+            torch.cat([anchor[:per].detach(), anchor[per:]]),
+            torch.cat([positive[:per].detach(), positive[per:]])),
+        "per-shard losses": sum(info_nce(anchor[r:r + per],
+                                         positive[r:r + per])
+                                for r in shards) / len(shards)}
+    return want, {fault: grad_distance(grads_of(one, loss), want)
+                  for fault, loss in losses.items()}
+
+
+def phase_mesh_training(ctx: dict) -> None:
+    """3o(a): three steps of `ContrastiveTrainer` on a dp-4 mesh and on a
+    dp-2 x tp-2 mesh from the single-device trainer's starting weights, on
+    3m's batches, against that trainer's steps: losses within
+    CHECK_LOSS_RTOL, parameters within CHECK_PARAM_TOL, the first batch's
+    gradient within GRAD_RTOL while the planted faults' land beyond it; no
+    `paired_attention` launch. 3o(c), second half: a training step with
+    `LATTICE_FLASH_ATTN=1` (SDPA) beside the einsum step, on the same
+    weights and batches of length >= 128."""
+    from lattice_tpu_torch.models.train import ContrastiveTrainer
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.parallel.mesh import make_mesh
+    smi = ctx["smi"]
+    batches, _ = train_batches(ctx["real_run"], CHECK_STEPS, CHECK_LEN)
+    before = _build.launch_counts()["paired_attention"]
+    one = ContrastiveTrainer(learning_rate=TRAIN_LR, seed=SEED,
+                             device="cuda")
+    start = {k: v.clone() for k, v in one.state_dict().items()}
+    first = one.shard_batch(batches[0])
+    want_grads, faults = planted_faults(one, first)
+    want, one_ms, one_gb = mesh_steps(one, batches)
+    want_params = one.state_dict()
+    rows = {}
+    for name, mp in (("dp-4", 1), (f"dp-{MESH_SHARDS // MESH_MP} x tp-"
+                                   f"{MESH_MP}", MESH_MP)):
+        mesh = make_mesh(MESH_SHARDS, model_parallel=mp)
+        trainer = ContrastiveTrainer(mesh=mesh, learning_rate=TRAIN_LR,
+                                     seed=SEED)
+        trainer.load_state_dict(start)
+        grad = grad_distance(grads_of(trainer, trainer.loss(first)),
+                             want_grads)
+        got, ms, gb = mesh_steps(trainer, batches)
+        worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        state = trainer.state_dict()
+        diff = max((state[k] - want_params[k]).abs().max().item()
+                   for k in state)
+        rows[name] = (mesh, got, worst, diff, grad, ms, gb)
+        del trainer, state
+        torch.cuda.empty_cache()
+    launched = _build.launch_counts()["paired_attention"] - before
+    log(f"3o(a): first-batch gradient distance from the single device's "
+        f"(bar GRAD_RTOL {GRAD_RTOL:.3g}): "
+        f"{ {n: f'{r[4]:.4g}' for n, r in rows.items()} }; planted faults "
+        f"on the single device { {f: f'{v:.4g}' for f, v in faults.items()} }"
+        f" ({smi})")
+    for fault, dist in faults.items():
+        require(dist > GRAD_RTOL, f"3o(a): the gradient bar misses the "
+                f"planted fault '{fault}' ({dist:.3g})")
+    for name, (mesh, got, worst, diff, grad, ms, gb) in rows.items():
+        log(f"3o(a): {name} ({mesh}) {CHECK_STEPS} steps at "
+            f"UniXcoderConfig(), batch {TRAIN_BATCH}, max_length "
+            f"{CHECK_LEN}: losses {[round(x, 6) for x in got]} against the "
+            f"single device's {[round(x, 6) for x in want]}, worst relative "
+            f"{worst:.3g} (bar {CHECK_LOSS_RTOL}); parameters apart by max "
+            f"{diff:.3g} (bar {CHECK_PARAM_TOL:.3g}); step p50 {ms:.2f} ms "
+            f"against the single device's {one_ms:.2f} ms; peak device "
+            f"memory above the start {gb:.2f} GB (single device {one_gb:.2f}"
+            f" GB) ({smi})")
+        require(worst <= CHECK_LOSS_RTOL, f"3o(a) {name}: losses differ by "
+                f"{worst}")
+        require(diff <= CHECK_PARAM_TOL, f"3o(a) {name}: parameters differ "
+                f"by {diff}")
+        require(grad <= GRAD_RTOL, f"3o(a) {name}: first gradient "
+                f"{grad:.3g} from the single device's")
+    require(launched == 0, "3o(a): the trainers launched paired_attention")
+    long_batches = [b for b in train_batches(ctx["real_run"], 6,
+                                             TRAIN_LEN)[0]
+                    if b["anchor_ids"].shape[1] >= 128][:3]
+    require(len(long_batches) >= 2, "3o(c): fewer than 2 batches of L >= 128")
+    batch = one.shard_batch(long_batches[0])
+    with torch.no_grad():
+        einsum_loss = one.loss(batch).item()
+        with attention_env(None, "1"):
+            flash_loss = one.loss(batch).item()
+    step = {}
+    for label, flash in (("einsum", None), ("flash", "1"),
+                         ("flash ", "1"), ("einsum ", None)):
+        with attention_env(None, flash):
+            step.setdefault(label.strip(), []).append(
+                mesh_steps(one, long_batches)[1])
+    rel = abs(flash_loss - einsum_loss) / abs(einsum_loss)
+    log(f"3o(c): a training step with LATTICE_FLASH_ATTN=1 "
+        f"(scaled_dot_product_attention) at batch {TRAIN_BATCH}, lengths "
+        f"{[b['anchor_ids'].shape[1] for b in long_batches]}: loss on the "
+        f"same weights {flash_loss:.6f} against the einsum path's "
+        f"{einsum_loss:.6f} (relative {rel:.3g}, bar {CHECK_LOSS_RTOL}); "
+        f"step p50 flash {step['flash']} ms, einsum {step['einsum']} ms "
+        f"(in turns einsum, flash, flash, einsum; {smi})")
+    require(rel <= CHECK_LOSS_RTOL, f"3o(c): flash loss differs by {rel}")
+    del one
+    torch.cuda.empty_cache()
+
+
+def phase_tp_encoder(ctx: dict) -> None:
+    """3o(b): with `random_vectors_`' biases and LayerNorms,
+    `use_mesh(make_mesh(4, model_parallel=2))` at B=128, L=512 against the
+    unsharded forward: pooled cosine >= 0.999 a row, the
+    kernel launched 2 rows x 2 positions x 12 layers times a forward;
+    times beside the unsharded forward and the dp-only split. 3o(c): the
+    flash path (SDPA) against the einsum path on the live rows, cosine >=
+    0.999. 3o(d): the attention levers' launches a forward."""
+    from lattice_tpu_torch.models.unixcoder import UniXcoderModel
+    from lattice_tpu_torch.ops import _build
+    from lattice_tpu_torch.parallel.mesh import make_mesh
+    smi = ctx["smi"]
+    from lattice_tpu_torch.graft_entry import random_vectors_
+    ids, mask = encoder_batch(ctx)
+    model = UniXcoderModel(seed=SEED, device="cuda")
+    random_vectors_(model.encoder)
+    launches = {}
+    for (paired, flash), want in LEVER_LAUNCHES.items():       # (d)
+        with attention_env(paired, flash):
+            before = _build.launch_counts()["paired_attention"]
+            model.encode_device(ids[:16], mask[:16])
+            launches[(paired, flash)] = (
+                _build.launch_counts()["paired_attention"] - before)
+    log(f"3o(d): paired_attention launches a forward under "
+        f"(LATTICE_PAIRED_ATTN, LATTICE_FLASH_ATTN) = "
+        f"{ {f'{p}/{f}': n for (p, f), n in launches.items()} } "
+        f"(want { {f'{p}/{f}': n for (p, f), n in LEVER_LAUNCHES.items()} })")
+    require(launches == LEVER_LAUNCHES, f"3o(d): launches {launches}")
+    live = mask.sum(1) > 0
+    whole = model.encode_device(ids, mask)
+    with attention_env("0", None):                               # (c)
+        einsum = model.encode_device(ids, mask)
+        einsum_ms = cuda_ms(lambda: model.encode_device(ids, mask), 3, 1)
+    with attention_env(None, "1"):
+        flash = model.encode_device(ids, mask)
+        flash_ms = cuda_ms(lambda: model.encode_device(ids, mask), 3, 1)
+    whole_ms = cuda_ms(lambda: model.encode_device(ids, mask), 3, 1)
+    cos_f = torch.nn.functional.cosine_similarity(flash[live], einsum[live])
+    log(f"3o(c): fused_attention (LATTICE_FLASH_ATTN=1, SDPA) at "
+        f"B={ENC_BATCH}, L={ENC_LEN}: pooled cosine against the einsum path "
+        f"over {int(live.sum())} live rows min {cos_f.min().item():.7f}; "
+        f"forward {flash_ms:.2f} ms, einsum {einsum_ms:.2f} ms, "
+        f"paired_attention {whole_ms:.2f} ms ({smi})")
+    require(cos_f.min().item() >= 0.999, f"3o(c): cosine {cos_f.min()}")
+    model.use_mesh(make_mesh(MESH_SHARDS))
+    dp_ms = cuda_ms(lambda: model.encode_device(ids, mask), 3, 1)
+    tp_mesh = make_mesh(MESH_SHARDS, model_parallel=MESH_MP)
+    model.use_mesh(tp_mesh)                                      # (b)
+    before = _build.launch_counts()["paired_attention"]
+    sharded = model.encode_device(ids, mask)
+    launched = _build.launch_counts()["paired_attention"] - before
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tp_ms = cuda_ms(lambda: model.encode_device(ids, mask), 3, 1)
+    tp_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    cos = torch.nn.functional.cosine_similarity(sharded, whole)
+    want = len(tp_mesh.model_rows) * MESH_MP * model.config.num_layers
+    log(f"3o(b): UniXcoderModel.use_mesh over {tp_mesh}, B={ENC_BATCH}, "
+        f"L={ENC_LEN}: pooled cosine against the unsharded forward min "
+        f"{cos.min().item():.7f}; paired_attention launches {launched} "
+        f"(want {want}, 6 heads a position); forward {tp_ms:.2f} ms "
+        f"(peak {tp_gb:.2f} GB above the start), unsharded {whole_ms:.2f} "
+        f"ms, dp-only split over {MESH_SHARDS} shards {dp_ms:.2f} ms "
+        f"({smi})")
+    require(cos.min().item() >= 0.999, f"3o(b): cosine {cos.min()}")
+    require(launched == want, f"3o(b): {launched} launches, want {want}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this runs on the card only",
@@ -5571,7 +5873,10 @@ def main() -> int:
              ("scan_topk_int8", "merge_candidates")),
             ("training", phase_train_path,
              ("paired_attention", "lt_paired_attention_bf16",
-              "lt_paired_attention_f32"))):
+              "lt_paired_attention_f32")),
+            ("trainer mesh", phase_train_mesh_path,
+             ("paired_attention", "lt_paired_attention_bf16", "scan_topk",
+              "merge_candidates"))):
         _build.reset_launch_counts()
         phase(ctx)
         counts = {**_build.launch_counts(), **_build.entry_launch_counts()}

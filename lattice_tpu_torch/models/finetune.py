@@ -2,9 +2,11 @@
 
 Port of `lattice_tpu/models/finetune.py`, the CLI's `lattice train`: mines
 (NL, code) pairs from a loaded index (`models/data.py`), runs
-`ContrastiveTrainer` steps on one device, and writes the parameters and
-the report under the index's data dir. The report has the reference's
-keys and statuses ("skipped" when fewer pairs than a batch are mined).
+`ContrastiveTrainer` steps on one device or over `mesh` (a `parallel/`
+mesh: data and tensor parallelism, the global in-batch loss), and writes
+the parameters and the report under the index's data dir. The report has
+the reference's keys and statuses ("skipped" when fewer pairs than a
+batch are mined).
 
 `finetuned_params.npz` holds the reference's names and shapes
 (`unixcoder.params_to_jax`: flax's slash-joined tree paths, Dense kernels
@@ -72,7 +74,7 @@ def finetune_from_index(
     elapsed = time.time() - t0
     ckpt_path = data_dir / "finetuned_params.npz"
     data_dir.mkdir(parents=True, exist_ok=True)
-    np.savez(ckpt_path, **params_to_jax(trainer.module.state_dict()))
+    np.savez(ckpt_path, **params_to_jax(trainer.state_dict()))
     report = {
         "status": "completed",
         "pairs_mined": len(pairs),

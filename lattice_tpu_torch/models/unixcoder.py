@@ -12,29 +12,48 @@ FFN, vocab 51416). Numerics follow the flax module:
   `cumsum(mask) * mask + pad_id`; every LayerNorm in f32 on the f32
   residual sum, eps 1e-5; exact GELU; the mean-pool in f32, divided by
   max(mask sum, 1);
-- attention through `ops.attention.paired_attention` (the hand-written
-  kernel on a CUDA tensor, its plain version on a CPU one) when head_dim is
-  64, the heads pair up and L >= 8; otherwise, or with
-  `paired_attention=False`, the einsum path: f32 scores / sqrt(d), the
-  -1e9 bias, an f32 softmax, probabilities in the compute dtype, f32
-  context. The kernel has no backward, so training runs the einsum path
-  (`models/train.py`);
-- `fused_qkv`: one `Dense(H, 3H)` named `qkv` whose output's three column
-  slices (q, k, v in that order, as `jnp.split(qkv, 3)`) feed the
+- attention, chosen as the JAX package chooses it (`SelfAttention`):
+  `ops.attention.paired_attention` (the hand-written kernel on a CUDA
+  tensor, its plain version on a CPU one) when paired attention is on,
+  flash is off, head_dim is 64, the heads pair up and L >= 8; else, when
+  flash is on and L >= 128, `F.scaled_dot_product_attention` over
+  [B, H, L, 64] in the compute dtype with pad tokens as their own segment
+  (a real token attends only to real tokens, a pad token only to pads);
+  else the einsum path: f32 scores / sqrt(d), the -1e9 bias, an f32
+  softmax, probabilities in the compute dtype, f32 context.
+  `LATTICE_PAIRED_ATTN` and `LATTICE_FLASH_ATTN` override the config's
+  `paired_attention` and `fused_attention` as in the reference ("1" on,
+  any other value off). The paired auto default is "on" (the reference's
+  is "on a TPU"). The kernel has no backward, so training takes the einsum
+  path or, with flash on, SDPA (`models/train.py`);
+- `fused_attention`: the reference runs JAX's library flash kernel
+  (`jax.experimental.pallas.ops.tpu.flash_attention`, not one of the
+  repository's Pallas kernels), so its counterpart here is the library's
+  `scaled_dot_product_attention`, which has a backward;
+- `fused_qkv`: one [H, 3H] projection named `qkv` whose output's three
+  column slices (q, k, v in that order, as `jnp.split(qkv, 3)`) feed the
   attention as they are, strided, without a copy;
 - `remat`: under grad mode each layer runs through
   `torch.utils.checkpoint`, so the backward recomputes its activations.
 
 `use_mesh` splits each batch over a mesh's data axis (the JAX package's
-pjit batch data parallelism): the weights are copied to each shard's
-device (shards that share a card share one copy), the batch is padded to a
-multiple of the shards and split, each shard runs the forward (its
-`paired_attention` launches among them), and the pooled rows are gathered
-on the model's device. A model axis larger than 1 (tensor parallelism)
-raises `NotImplementedError`.
+pjit batch data parallelism): the batch is padded to a multiple of the
+data rows and split, each row runs `tensor_parallel_forward` over its
+model positions (its `paired_attention` launches among them) on the
+weights `parallel.mesh.shard_params` places on them (rows on the same
+devices share them), and the pooled rows are gathered on the model's
+device. That function is the encoder's only forward: the modules hold
+the parameters, their names and their init, and `UniXcoderEncoder.forward`
+runs it over one position. On mp > 1 it is the Megatron encoder of the
+JAX package's rules: the query, key, value and intermediate layers
+column-parallel, each position computing its own output columns and
+attending over its own num_heads / mp heads (`paired_attention` where
+that count is even); the attention-output and FFN-output layers
+row-parallel, their partial products summed in f32 on the row's lead
+device with the bias added once and one rounding to the compute dtype.
+The JAX package lets GSPMD insert those all-reduces.
 
-Left behind: the TPU layout pinning and the stock Pallas flash path
-(`fused_attention` set True raises). Random init draws from an explicit
+Left behind: the TPU layout pinning. Random init draws from an explicit
 `torch.Generator(seed)` with flax's initialisers; it cannot reproduce
 JAX's draws, so its fingerprint says `unixcoder-torch-random-seed{seed}`.
 """
@@ -45,8 +64,10 @@ import dataclasses
 import hashlib
 import logging
 import math
+import os
 import pickle
 import re
+from collections.abc import Callable, Sequence
 from pathlib import Path
 
 import numpy as np
@@ -58,7 +79,8 @@ from torch.utils.checkpoint import checkpoint
 from lattice_tpu_torch.core.errors import ConfigurationError, EmbeddingError
 from lattice_tpu_torch.ops.attention import MASKED, paired_attention
 from lattice_tpu_torch.ops.topk import full_f32
-from lattice_tpu_torch.parallel.mesh import DeviceMesh, require_no_model_axis
+from lattice_tpu_torch.parallel.mesh import (MODEL_AXIS, DeviceMesh,
+                                             shard_params)
 
 logger = logging.getLogger(__name__)
 
@@ -79,7 +101,9 @@ class UniXcoderConfig:
     layer_norm_eps: float = 1e-5
     pad_token_id: int = 1           # RoBERTa pad
     dtype: str = "bfloat16"         # compute dtype; params stay f32
-    # the stock Pallas flash path of the JAX package; not ported (True raises)
+    # None = auto = off. True: flash attention at L >= 128, here
+    # `F.scaled_dot_product_attention` (the JAX package runs JAX's library
+    # flash kernel). LATTICE_FLASH_ATTN=0/1 overrides
     fused_attention: bool | None = None
     # dtype the einsum path rounds its scores to before the softmax
     scores_dtype: str = "float32"
@@ -89,9 +113,9 @@ class UniXcoderConfig:
     # one [H, 3H] Q/K/V projection (`fuse_qkv_params` derives its weights;
     # checkpoints stay in the three-matmul layout)
     fused_qkv: bool = False
-    # ops/attention.paired_attention: None or True = the paired path where
-    # it applies (the kernel on a CUDA tensor, its plain version on a CPU
-    # one); False = the einsum path
+    # ops/attention.paired_attention: None (auto) or True = the paired path
+    # where it applies (the kernel on a CUDA tensor, its plain version on a
+    # CPU one); False = the einsum path. LATTICE_PAIRED_ATTN=0/1 overrides
     paired_attention: bool | None = None
 
     @property
@@ -99,35 +123,44 @@ class UniXcoderConfig:
         return getattr(torch, self.dtype)
 
 
-def _paired_enabled(cfg: UniXcoderConfig, length: int) -> bool:
-    return (cfg.paired_attention is not False
+def _paired_enabled(cfg: UniXcoderConfig) -> bool:
+    """The reference's lever: LATTICE_PAIRED_ATTN ("1" on, anything else
+    off) over the config; auto is on (the reference's auto is "on a
+    TPU")."""
+    env = os.environ.get("LATTICE_PAIRED_ATTN")
+    if env is not None:
+        return env == "1"
+    return cfg.paired_attention is not False
+
+
+def _flash_enabled(cfg: UniXcoderConfig) -> bool:
+    """LATTICE_FLASH_ATTN ("1" on, anything else off) over the config's
+    `fused_attention`; auto is off, as in the reference."""
+    env = os.environ.get("LATTICE_FLASH_ATTN")
+    if env is not None:
+        return env == "1"
+    return bool(cfg.fused_attention)
+
+
+def _paired_applies(cfg: UniXcoderConfig, heads: int, length: int) -> bool:
+    """Whether `heads` heads at `length` take `paired_attention`: paired on,
+    flash off (an explicit flash opt-in wins over the paired default, as in
+    the reference), heads of 64 that pair up, L >= 8."""
+    return (_paired_enabled(cfg) and not _flash_enabled(cfg)
             and cfg.hidden_size // cfg.num_heads == 64
-            and cfg.num_heads % 2 == 0 and length >= 8)
-
-
-class Dense(nn.Linear):
-    """flax `Dense(dtype=compute, param_dtype=f32)`: the product in the
-    compute dtype, then the bias added in that dtype (two roundings)."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype):
-        super().__init__(in_features, out_features)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cdt = self.compute_dtype
-        y = F.linear(x.to(cdt), self.weight.to(cdt))
-        return y + self.bias.to(cdt)
+            and heads % 2 == 0 and length >= 8)
 
 
 def _einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      mask: torch.Tensor, cfg: UniXcoderConfig) -> torch.Tensor:
-    """The JAX package's einsum path; [B, L, W] f32 context."""
+                      mask: torch.Tensor, cfg: UniXcoderConfig,
+                      heads: int) -> torch.Tensor:
+    """The JAX package's einsum path over `heads` heads; [B, L, W] f32
+    context."""
     bsz, ln, width = q.shape
-    head_dim = width // cfg.num_heads
+    head_dim = width // heads
 
     def split(x):
-        return x.reshape(bsz, ln, cfg.num_heads, head_dim).transpose(1, 2)
+        return x.reshape(bsz, ln, heads, head_dim).transpose(1, 2)
 
     # the products run in full f32 in the forward. Their backward runs
     # outside these blocks, at the process's f32 matmul precision: full f32
@@ -145,59 +178,76 @@ def _einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.transpose(1, 2).reshape(bsz, ln, width)
 
 
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, cfg: UniXcoderConfig,
+                     heads: int) -> torch.Tensor:
+    """The reference's flash path: q, k, v in the compute dtype as
+    [B, H, L, d] through `scaled_dot_product_attention`, the mask's values
+    as segment ids (a query attends to the keys of its own segment, so pad
+    tokens form a segment of their own); [B, L, W] context in the compute
+    dtype."""
+    bsz, ln, width = q.shape
+    head_dim = width // heads
+
+    def split(x):
+        return x.reshape(bsz, ln, heads, head_dim).transpose(1, 2).to(
+            cfg.compute_dtype)
+
+    same = mask[:, None, :, None] == mask[:, None, None, :]
+    ctx = F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                         attn_mask=same,
+                                         scale=1.0 / math.sqrt(head_dim))
+    return ctx.transpose(1, 2).reshape(bsz, ln, width)
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: torch.Tensor, cfg: UniXcoderConfig,
+               heads: int) -> torch.Tensor:
+    """Attention over q/k/v [B, L, heads * d] by the reference's order of
+    paths: paired, then flash at L >= 128, then einsum."""
+    ln = q.shape[1]
+    if _paired_applies(cfg, heads, ln):
+        # the projections in their native [B, L, H*64] layout: no split,
+        # transpose or copy feeds the kernel
+        return paired_attention(q, k, v, mask, 1.0 / math.sqrt(
+            cfg.hidden_size // cfg.num_heads))
+    if _flash_enabled(cfg) and ln >= 128:
+        return _flash_attention(q, k, v, mask, cfg, heads)
+    return _einsum_attention(q, k, v, mask, cfg, heads)
+
+
 class SelfAttention(nn.Module):
+    """The attention's parameters; the forward is `tensor_parallel_forward`."""
+
     def __init__(self, config: UniXcoderConfig):
         super().__init__()
-        self.config = config
-        h, cdt = config.hidden_size, config.compute_dtype
+        h = config.hidden_size
         if config.fused_qkv:
-            self.qkv = Dense(h, 3 * h, cdt)
+            self.qkv = nn.Linear(h, 3 * h)
         else:
-            self.query = Dense(h, h, cdt)
-            self.key = Dense(h, h, cdt)
-            self.value = Dense(h, h, cdt)
-        self.output = Dense(h, h, cdt)
-
-    def forward(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        if cfg.fused_qkv:
-            # three column slices of one [B, L, 3H] product, views
-            q, k, v = self.qkv(hidden).split(cfg.hidden_size, dim=-1)
-        else:
-            q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
-        if _paired_enabled(cfg, hidden.shape[1]):
-            # the projections in their native [B, L, H*64] layout: no
-            # split, transpose or copy feeds the kernel
-            ctx = paired_attention(q, k, v, mask,
-                                   1.0 / math.sqrt(cfg.hidden_size
-                                                   // cfg.num_heads))
-        else:
-            ctx = _einsum_attention(q, k, v, mask, cfg)
-        return self.output(ctx.to(cfg.compute_dtype))
+            self.query = nn.Linear(h, h)
+            self.key = nn.Linear(h, h)
+            self.value = nn.Linear(h, h)
+        self.output = nn.Linear(h, h)
 
 
 class EncoderLayer(nn.Module):
+    """One layer's parameters; the forward is `tensor_parallel_forward`."""
+
     def __init__(self, config: UniXcoderConfig):
         super().__init__()
-        self.config = config
-        h, cdt = config.hidden_size, config.compute_dtype
+        h = config.hidden_size
         self.attention = SelfAttention(config)
         self.attention_norm = nn.LayerNorm(h, eps=config.layer_norm_eps)
-        self.intermediate = Dense(h, config.intermediate_size, cdt)
-        self.output = Dense(config.intermediate_size, h, cdt)
+        self.intermediate = nn.Linear(h, config.intermediate_size)
+        self.output = nn.Linear(config.intermediate_size, h)
         self.output_norm = nn.LayerNorm(h, eps=config.layer_norm_eps)
-
-    def forward(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        cdt = self.config.compute_dtype
-        attn_out = self.attention(hidden, mask)
-        hidden = self.attention_norm(hidden.float() + attn_out.float()).to(cdt)
-        inter = F.gelu(self.intermediate(hidden), approximate="none")
-        out = self.output(inter)
-        return self.output_norm(hidden.float() + out.float()).to(cdt)
 
 
 class UniXcoderEncoder(nn.Module):
-    """Embeddings + N transformer layers + mean-pool sentence embedding."""
+    """Embeddings + N transformer layers + mean-pool sentence embedding:
+    the parameters under their state-dict names, and the forward on their
+    device (`tensor_parallel_forward` over one position)."""
 
     def __init__(self, config: UniXcoderConfig):
         super().__init__()
@@ -212,23 +262,10 @@ class UniXcoderEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        cfg = self.config
-        mask = attention_mask.to(torch.int64)
-        # RoBERTa positions: pad tokens get pad_id; others count from pad+1
-        positions = torch.cumsum(mask, dim=-1) * mask + cfg.pad_token_id
-        emb = self.word_embeddings(input_ids) + self.position_embeddings(
-            positions)
-        hidden = self.embeddings_norm(emb.float()).to(cfg.compute_dtype)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for layer in self.layers:
-            if remat:
-                hidden = checkpoint(layer, hidden, mask, use_reentrant=False)
-            else:
-                hidden = layer(hidden, mask)
-        mask_f = mask.to(torch.float32)[:, :, None]
-        pooled = (hidden.float() * mask_f).sum(dim=1) / torch.clamp(
-            mask_f.sum(dim=1), min=1.0)
-        return hidden, pooled
+        params = dict(self.named_parameters())
+        return tensor_parallel_forward(
+            self.config, lambda name, p: params[name],
+            (self.word_embeddings.weight.device,), input_ids, attention_mask)
 
 
 def init_random_(encoder: UniXcoderEncoder, seed: int) -> None:
@@ -251,6 +288,126 @@ def init_random_(encoder: UniXcoderEncoder, seed: int) -> None:
                 mod.bias.zero_()
 
 
+# ---- tensor parallelism over a mesh's model axis ---------------------------
+
+
+def check_tensor_parallel(cfg: UniXcoderConfig, mp: int) -> None:
+    """Raise `ConfigurationError` unless the heads and the FFN width split
+    `mp` ways."""
+    if cfg.num_heads % mp or cfg.intermediate_size % mp:
+        raise ConfigurationError(
+            f"a model axis of {mp} does not split {cfg.num_heads} heads "
+            f"and an FFN of {cfg.intermediate_size}")
+
+
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+           cdt: torch.dtype) -> torch.Tensor:
+    """flax `Dense(dtype=compute, param_dtype=f32)`: the product in the
+    compute dtype, then the bias added in that dtype (two roundings); no
+    bias: a row-parallel layer's partial product."""
+    y = F.linear(x.to(cdt), weight.to(cdt))
+    return y if bias is None else y + bias.to(cdt)
+
+
+def _reduce(parts: list[torch.Tensor], bias: torch.Tensor,
+            lead: torch.device, cdt: torch.dtype) -> torch.Tensor:
+    """A row-parallel layer's result on `lead` from its positions' partial
+    products: one partial is `_dense`'s own result; more are summed in f32
+    with the bias added once, then rounded once to the compute dtype."""
+    if len(parts) == 1:
+        return parts[0] + bias.to(cdt)
+    total = parts[0].to(lead).float()
+    for part in parts[1:]:
+        total = total + part.to(lead).float()
+    return (total + bias.float()).to(cdt)
+
+
+def tensor_parallel_forward(
+        cfg: UniXcoderConfig, weight: Callable[[str, int], torch.Tensor],
+        devices: Sequence[torch.device], input_ids: torch.Tensor,
+        attention_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's one forward, over the model positions of one data row,
+    `devices[p]` being position p's device; returns (hidden, pooled) on
+    `devices[0]`, the row's lead, where the inputs are. Over one position
+    it is the plain encoder (`UniXcoderEncoder.forward`, the single-device
+    trainer, a mesh without a model axis).
+
+    `weight(name, p)` is position p's tensor of a state-dict name, on
+    `devices[p]`: the column or row slice `parallel.mesh.shard_params`
+    gives for the names `param_sharding_rules` splits, else the whole
+    tensor. The embeddings, residuals, LayerNorms and the pool run on the
+    lead; the query, key, value and intermediate layers run column-parallel
+    (the whole q/k/v biases sliced here, as the rules keep them whole; a
+    fused-QKV weight is whole, its product sliced), attention over each
+    position's num_heads / mp heads; the attention-output and FFN-output
+    layers row-parallel (`_reduce`). Differentiable: the copies between
+    devices are `.to()`."""
+    mp = len(devices)
+    lead, cdt = devices[0], cfg.compute_dtype
+    h = cfg.hidden_size
+    width, heads = h // mp, cfg.num_heads // mp
+    mask = attention_mask.to(torch.int64)
+    # RoBERTa positions: pad tokens get pad_id; others count from pad+1
+    positions = torch.cumsum(mask, dim=-1) * mask + cfg.pad_token_id
+    emb = (F.embedding(input_ids, weight("word_embeddings.weight", 0))
+           + F.embedding(positions, weight("position_embeddings.weight", 0)))
+    hidden = F.layer_norm(emb.float(), (h,), weight("embeddings_norm.weight",
+                                                    0),
+                          weight("embeddings_norm.bias", 0),
+                          cfg.layer_norm_eps).to(cdt)
+    masks = [mask.to(d) for d in devices]
+
+    def norm(x: torch.Tensor, name: str) -> torch.Tensor:
+        return F.layer_norm(x, (h,), weight(name + ".weight", 0),
+                            weight(name + ".bias", 0), cfg.layer_norm_eps)
+
+    def qkv(pre: str, p: int, x: torch.Tensor):
+        cols = slice(p * width, (p + 1) * width)
+        if cfg.fused_qkv:
+            out = _dense(x, weight(pre + "qkv.weight", p),
+                         weight(pre + "qkv.bias", p), cdt)
+            return [t[..., cols] for t in out.split(h, dim=-1)]
+        return [_dense(x, weight(f"{pre}{n}.weight", p),
+                       weight(f"{pre}{n}.bias", p)[cols], cdt)
+                for n in ("query", "key", "value")]
+
+    def layer(i: int, hidden: torch.Tensor) -> torch.Tensor:
+        pre = f"layers.{i}."
+        xs = [hidden.to(d) for d in devices]
+        parts = []
+        for p in range(mp):
+            ctx = _attention(*qkv(pre + "attention.", p, xs[p]), masks[p],
+                             cfg, heads)
+            parts.append(_dense(ctx, weight(pre + "attention.output.weight",
+                                            p), None, cdt))
+        attn_out = _reduce(parts, weight(pre + "attention.output.bias", 0),
+                           lead, cdt)
+        hidden = norm(hidden.float() + attn_out.float(),
+                      pre + "attention_norm").to(cdt)
+        xs = [hidden.to(d) for d in devices]
+        parts = [_dense(F.gelu(_dense(xs[p], weight(pre + "intermediate."
+                                                    "weight", p),
+                                      weight(pre + "intermediate.bias", p),
+                                      cdt), approximate="none"),
+                        weight(pre + "output.weight", p), None, cdt)
+                 for p in range(mp)]
+        out = _reduce(parts, weight(pre + "output.bias", 0), lead, cdt)
+        return norm(hidden.float() + out.float(), pre + "output_norm").to(cdt)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.num_layers):
+        if remat:
+            # non-reentrant: the weights `layer` closes over get their
+            # gradients from the recomputation
+            hidden = checkpoint(layer, i, hidden, use_reentrant=False)
+        else:
+            hidden = layer(i, hidden)
+    mask_f = mask.to(torch.float32)[:, :, None]
+    pooled = (hidden.float() * mask_f).sum(dim=1) / torch.clamp(
+        mask_f.sum(dim=1), min=1.0)
+    return hidden, pooled
+
+
 def _device(device: str | torch.device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -270,10 +427,6 @@ class UniXcoderModel:
                  finetune_dir: str | Path | None = None,
                  device: str | torch.device = "cuda"):
         self.config = config or UniXcoderConfig()
-        if self.config.fused_attention:
-            raise ConfigurationError(
-                "fused_attention (the JAX package's stock Pallas flash "
-                "path) is not ported to lattice_tpu_torch")
         self.device = _device(device)
         self.encoder = UniXcoderEncoder(self.config)
         init_random_(self.encoder, seed)
@@ -310,33 +463,33 @@ class UniXcoderModel:
                     logger.info("loaded fine-tuned checkpoint %s", npz)
         self.encoder.to(self.device).eval()
         self.mesh: DeviceMesh | None = None
-        self._replicas: dict[torch.device, UniXcoderEncoder] = {}
+        # each data row's weights, `shard_params`' placement on the row's
+        # devices, made at first use (rows on the same devices share them)
+        self._row_weights: dict[tuple[torch.device, ...],
+                                dict[str, list[torch.Tensor]]] = {}
 
     def use_mesh(self, mesh: DeviceMesh) -> None:
         """Split every batch over the mesh's data axis (batch data
-        parallelism); the pooled rows come back on the model's device."""
-        require_no_model_axis(mesh, "UniXcoderModel.use_mesh")
+        parallelism) and, on a model axis larger than 1, each row's
+        forward over its model positions (`tensor_parallel_forward`); the
+        pooled rows come back on the model's device."""
+        check_tensor_parallel(self.config, mesh.shape.get(MODEL_AXIS, 1))
         self.mesh = mesh
-        self._replicas = {}
+        self._row_weights = {}
 
     @property
     def data_shards(self) -> int:
         return self.mesh.shape["data"] if self.mesh is not None else 1
 
-    def _replica(self, device: torch.device) -> "UniXcoderEncoder":
-        """The encoder on `device`: itself where its weights live, else a
-        copy of its current weights made at first use."""
-        if device == next(self.encoder.parameters()).device:
-            return self.encoder
-        enc = self._replicas.get(device)
-        if enc is None:
-            state = {k: v.to(device)
-                     for k, v in self.encoder.state_dict().items()}
-            with torch.device("meta"):
-                enc = UniXcoderEncoder(self.config)
-            enc.load_state_dict(state, assign=True)
-            enc = self._replicas[device] = enc.eval()
-        return enc
+    def _placed(self, devices: tuple[torch.device, ...]
+                ) -> dict[str, list[torch.Tensor]]:
+        """The weights of a data row on `devices`: `shard_params` of the
+        encoder's (no copy where a tensor is already in place)."""
+        placed = self._row_weights.get(devices)
+        if placed is None:
+            placed = self._row_weights[devices] = shard_params(
+                self.encoder.state_dict(), devices)
+        return placed
 
     def bucket_length(self, n: int) -> int:
         for b in self.LENGTH_BUCKETS:
@@ -359,7 +512,7 @@ class UniXcoderModel:
             encoder = UniXcoderEncoder(self.config)
         encoder.load_state_dict(state, assign=True)
         self.encoder = encoder.eval()
-        self._replicas = {}
+        self._row_weights = {}
         self.weights_fingerprint += "+qkvfused"
 
     def enable_bf16_inference(self) -> None:
@@ -372,27 +525,31 @@ class UniXcoderModel:
             for p in self.encoder.parameters():
                 if p.dim() >= 2:
                     p.data = p.data.to(torch.bfloat16)
-        self._replicas = {}
+        self._row_weights = {}
         self.weights_fingerprint += "+bf16serve"
 
     def _forward(self, input_ids: torch.Tensor,
                  attention_mask: torch.Tensor) -> torch.Tensor:
         """Pooled rows on the model's device; with a mesh, the batch padded
-        (pad tokens, an all-zero mask) to a multiple of the data shards,
-        one slice a shard, every shard launched before any is read."""
+        (pad tokens, an all-zero mask) to a multiple of the data rows, one
+        slice a row, every row launched before any is read."""
         with torch.inference_mode():
             if self.mesh is None or input_ids.shape[0] == 0:
                 return self.encoder(input_ids, attention_mask)[1]
-            devices = self.mesh.row_devices
+            rows = self.mesh.model_rows
             b = input_ids.shape[0]
-            pad = (-b) % len(devices)
+            pad = (-b) % len(rows)
             ids = F.pad(input_ids, (0, 0, 0, pad),
                         value=self.config.pad_token_id)
             mask = F.pad(attention_mask, (0, 0, 0, pad))
-            per = ids.shape[0] // len(devices)
-            pooled = [self._replica(d)(ids[i * per:(i + 1) * per].to(d),
-                                       mask[i * per:(i + 1) * per].to(d))[1]
-                      for i, d in enumerate(devices)]
+            per = ids.shape[0] // len(rows)
+            pooled = []
+            for i, devices in enumerate(rows):
+                placed = self._placed(devices)
+                pooled.append(tensor_parallel_forward(
+                    self.config, lambda name, p: placed[name][p], devices,
+                    ids[i * per:(i + 1) * per].to(devices[0]),
+                    mask[i * per:(i + 1) * per].to(devices[0]))[1])
             return torch.cat([p.to(self.device) for p in pooled])[:b]
 
     def encode_device(self, input_ids, attention_mask) -> torch.Tensor:

@@ -24,8 +24,10 @@ Axes, as in the JAX package:
 - `data` shards the corpus rows (the index, the rank columns), the edge
   lists and the encoder's batch;
 - `model` is the Megatron tensor-parallel axis of the encoder. Its rules
-  (`param_sharding_rules`, `shard_params`) are here; a forward over a
-  model axis larger than 1 is not ported yet (`require_no_model_axis`);
+  (`param_sharding_rules`, `shard_params`) are here; the forward over it
+  is `models/unixcoder.tensor_parallel_forward`, run by
+  `UniXcoderModel.use_mesh` and `ContrastiveTrainer(mesh=...)` for each
+  data row (`model_rows`);
 - `dcn` (`make_multislice_mesh`) groups the shards into slices whose
   results merge within a slice first, then across slices.
 """
@@ -44,10 +46,6 @@ from lattice_tpu_torch.core.errors import ConfigurationError
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 DCN_AXIS = "dcn"
-
-# what a forward over a model axis larger than 1 waits for
-TENSOR_PARALLEL_ITEM = ("ROADMAP queue 1, item 11: the trainer's mesh and "
-                        "the tensor-parallel encoder")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +79,16 @@ class DeviceMesh:
             return self.devices
         mp = self.shape.get(MODEL_AXIS, 1)
         return self.devices[::mp]
+
+    @property
+    def model_rows(self) -> tuple[tuple[torch.device, ...], ...]:
+        """The devices of each data row's model positions, in row order
+        (one position a row without a model axis)."""
+        if self.multislice:
+            return tuple((d,) for d in self.devices)
+        mp = self.shape.get(MODEL_AXIS, 1)
+        return tuple(self.devices[i:i + mp]
+                     for i in range(0, len(self.devices), mp))
 
     @property
     def slices(self) -> list[range]:
@@ -180,15 +188,6 @@ def visible_shards(device: str | torch.device) -> int:
             if torch.device(device).type == "cuda" else 1)
 
 
-def require_no_model_axis(mesh: DeviceMesh, what: str) -> None:
-    """Raise where a forward would use a model axis larger than 1."""
-    mp = mesh.shape.get(MODEL_AXIS, 1)
-    if mp > 1:
-        raise NotImplementedError(
-            f"{what} over a model axis of {mp} (tensor parallelism) is not "
-            f"ported to lattice_tpu_torch yet ({TENSOR_PARALLEL_ITEM})")
-
-
 def replicated(mesh: DeviceMesh, x: torch.Tensor) -> list[torch.Tensor]:
     """`x` on the device of every row shard; shards that share a device
     share one copy."""
@@ -248,13 +247,16 @@ def param_sharding_rules(name: str, value: torch.Tensor
     return ()
 
 
-def shard_params(params: dict[str, torch.Tensor], mesh: DeviceMesh
+def shard_params(params: dict[str, torch.Tensor],
+                 where: DeviceMesh | Sequence[torch.device]
                  ) -> dict[str, list[torch.Tensor]]:
     """Place a state dict under the tensor-parallel rules: for each name,
-    one tensor per position of the model axis (on the devices of the first
-    data row), split along the dimension its spec names, else whole."""
-    mp = mesh.shape.get(MODEL_AXIS, 1)
-    devices = mesh.devices[:mp]
+    one tensor per position of the model axis, on that position's device
+    (a mesh's first data row, or the devices given), split along the
+    dimension its spec names, else whole."""
+    devices = (where.model_rows[0] if isinstance(where, DeviceMesh)
+               else tuple(where))
+    mp = len(devices)
     out = {}
     for name, value in params.items():
         spec = param_sharding_rules(name, value)

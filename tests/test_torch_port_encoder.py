@@ -6,6 +6,12 @@ are carried into the port by `params_from_jax`; seeded numpy ids with
 ragged masks, padded to the 64 bucket, go through both. float32 must agree
 within 2e-4 with JAX's paired kernel (interpret mode) and with its einsum
 path; bfloat16 within 2e-2 with every row's cosine >= 0.999.
+
+The attention levers: `fused_attention=True` (SDPA in the port) against
+the reference's flash kernel in interpret mode over the live rows at L in
+the 128 and 256 buckets (f32 2e-4; bf16 2e-2 and cosine >= 0.999), and
+LATTICE_PAIRED_ATTN / LATTICE_FLASH_ATTN routed as the reference routes
+them (the calls into `paired_attention` under each setting).
 """
 
 import dataclasses
@@ -21,8 +27,7 @@ from lattice_tpu.models.unixcoder import UniXcoderModel as JaxModel
 from lattice_tpu.models.unixcoder import fuse_qkv_params as jax_fuse_qkv
 from lattice_tpu.providers import unixcoder_provider as jax_up
 from lattice_tpu.query.golden_eval import load_cases
-from lattice_tpu_torch.core.errors import (ConfigurationError, EmbeddingError,
-                                           KernelError)
+from lattice_tpu_torch.core.errors import EmbeddingError, KernelError
 from lattice_tpu_torch.embeddings.embedder import Embedder
 from lattice_tpu_torch.embeddings.indexer import VectorIndexer, VectorSearcher
 from lattice_tpu_torch.models import unixcoder as um
@@ -265,12 +270,145 @@ def test_random_init_fingerprint_and_statistics():
     assert torch.equal(sa["embeddings_norm.weight"], torch.ones(256))
 
 
-@pytest.mark.parametrize("field", ["fused_attention"])
-def test_unported_options_raise(field):
-    """The stock Pallas flash path is not ported (`fused_qkv` is: below)."""
-    with pytest.raises(ConfigurationError):
-        um.UniXcoderModel(um.UniXcoderConfig(**SMALL, **{field: True}),
-                          device="cpu")
+# ---- the attention levers: LATTICE_PAIRED_ATTN, LATTICE_FLASH_ATTN and
+# fused_attention (the reference's flash path; SDPA here) -------------------
+
+# SMALL with positions for the 256 bucket, so that flash (L >= 128) applies
+FLASH = {**SMALL, "max_position_embeddings": 260}
+
+
+def _live_cosine_and_diff(got, want, mask):
+    live = mask.sum(1) > 0
+    return cosine(got[live], want[live]).min(), np.abs(got[live]
+                                                      - want[live]).max()
+
+
+@pytest.mark.parametrize("ln", [100, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_attention_matches_jax_flash(dtype, ln):
+    """`fused_attention=True`: the port's SDPA path against the reference's
+    flash kernel (JAX's library code, run in interpret mode), over the live
+    rows, at the 128 and 256 buckets."""
+    from jax.experimental.pallas import tpu as pltpu
+    cfg = JaxConfig(**FLASH, dtype=dtype, fused_attention=True)
+    jm = JaxModel(cfg, seed=SEED)
+    port = port_model(jm, max_position_embeddings=260, fused_attention=True)
+    ids, mask = batch(seed=16, b=5, ln=ln)
+    with pltpu.force_tpu_interpret_mode():
+        want = jm.encode(ids, mask)
+    got = port.encode(ids, mask)
+    cos, diff = _live_cosine_and_diff(got, want, mask)
+    if dtype == "float32":
+        assert diff <= 2e-4, diff
+    else:
+        assert diff <= 2e-2 and cos >= 0.999, (diff, cos)
+    # the einsum path gives the live rows the same embeddings
+    einsum = port_model(jm, max_position_embeddings=260,
+                        paired_attention=False).encode(ids, mask)
+    cos, diff = _live_cosine_and_diff(got, einsum, mask)
+    assert diff <= (2e-4 if dtype == "float32" else 2e-2) and cos >= 0.999
+
+
+def test_flash_env_and_short_lengths(monkeypatch):
+    """LATTICE_FLASH_ATTN=1 is `fused_attention=True`; below L = 128 both
+    take the einsum path (flash on keeps the paired path off), as the
+    reference does; the SDPA path is reached only at L >= 128."""
+    jm = JaxModel(JaxConfig(**FLASH, dtype="float32"), seed=SEED)
+    opt_in = port_model(jm, max_position_embeddings=260,
+                        fused_attention=True)
+    plain = port_model(jm, max_position_embeddings=260)
+    einsum = port_model(jm, max_position_embeddings=260,
+                        paired_attention=False)
+    calls = []
+    real = um._flash_attention
+
+    def spy(*args):
+        calls.append(args[0].shape[1])
+        return real(*args)
+
+    monkeypatch.setattr(um, "_flash_attention", spy)
+    long_ids, long_mask = batch(seed=17, b=3, ln=120)
+    short_ids, short_mask = batch(seed=18, b=3, ln=50)
+    a = opt_in.encode(long_ids, long_mask)
+    np.testing.assert_array_equal(opt_in.encode(short_ids, short_mask),
+                                  einsum.encode(short_ids, short_mask))
+    monkeypatch.setenv("LATTICE_FLASH_ATTN", "1")
+    b = plain.encode(long_ids, long_mask)
+    np.testing.assert_array_equal(a, b)
+    assert calls == [128] * (2 * SMALL["num_layers"])
+    # LATTICE_FLASH_ATTN=0 beats the config: the paired path again
+    monkeypatch.setenv("LATTICE_FLASH_ATTN", "0")
+    np.testing.assert_array_equal(opt_in.encode(long_ids, long_mask),
+                                  plain.encode(long_ids, long_mask))
+    assert len(calls) == 2 * SMALL["num_layers"]
+
+
+# (LATTICE_PAIRED_ATTN, LATTICE_FLASH_ATTN, config's paired_attention) ->
+# paired_attention calls a forward of SMALL's two layers, as the reference
+# routes (`lattice_tpu/models/unixcoder.py:82-107, 134-138`)
+LEVERS = {
+    "auto": (None, None, None, 2),
+    "paired_0": ("0", None, None, 0),
+    "paired_1": ("1", None, None, 2),
+    "paired_1_over_config_off": ("1", None, False, 2),
+    "paired_0_over_config_on": ("0", None, True, 0),
+    "paired_true_is_off": ("true", None, None, 0),
+    "flash_1": (None, "1", None, 0),
+    "flash_1_beats_paired_1": ("1", "1", None, 0),
+    "flash_0": (None, "0", None, 2),
+    "config_off": (None, None, False, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LEVERS))
+def test_attention_levers_route_as_the_reference(monkeypatch, case):
+    """F2: the port reads LATTICE_PAIRED_ATTN and LATTICE_FLASH_ATTN as the
+    reference does: the variable wins over the config, "1" is on and any
+    other value off, and an explicit flash opt-in wins over the paired
+    path. On the CPU the kernel's wrapper runs its plain version, so the
+    launch counter stays where it was; the calls into the wrapper are the
+    routes the card would launch."""
+    paired_env, flash_env, paired_cfg, want = LEVERS[case]
+    for name, value in (("LATTICE_PAIRED_ATTN", paired_env),
+                        ("LATTICE_FLASH_ATTN", flash_env)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    model = um.UniXcoderModel(um.UniXcoderConfig(
+        **SMALL, paired_attention=paired_cfg), device="cpu")
+    calls = []
+    real = um.paired_attention
+
+    def spy(q, k, v, m, scale):
+        calls.append(q.shape)
+        return real(q, k, v, m, scale)
+
+    monkeypatch.setattr(um, "paired_attention", spy)
+    before = _build.launch_counts()["paired_attention"]
+    ids, mask = batch(seed=19)
+    model.encode(ids, mask)
+    assert len(calls) == want
+    assert _build.launch_counts()["paired_attention"] == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paired_off_matches_jax_einsum(monkeypatch, dtype):
+    """Under LATTICE_PAIRED_ATTN=0 the port's einsum path against the JAX
+    package's (the variable set for both)."""
+    monkeypatch.setenv("LATTICE_PAIRED_ATTN", "0")
+    jm = JaxModel(JaxConfig(**SMALL, dtype=dtype, paired_attention=True),
+                  seed=SEED)
+    port = port_model(jm, paired_attention=True)
+    monkeypatch.setattr(um, "paired_attention",
+                        lambda *a: pytest.fail("took the paired path"))
+    ids, mask = batch(seed=20)
+    got, want = port.encode(ids, mask), jm.encode(ids, mask)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-4)
+    else:
+        np.testing.assert_allclose(got, want, atol=2e-2)
+        assert cosine(got, want).min() >= 0.999
 
 
 def test_fuse_qkv_params_matches_jax():

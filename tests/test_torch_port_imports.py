@@ -9,7 +9,8 @@ sharded plan and graph of `parallel/` on four logical shards) and
 through a tiny UniXcoder encoder (tokenizer, paired
 attention's plain version, the torch module, the provider), takes a
 training step and validates a checkpoint of that encoder (the parity
-check skipped for want of `transformers`), runs the
+check skipped for want of `transformers`), runs the dry run of
+`graft_entry.py` on four logical shards and its `entry()`, runs the
 score probe's plain version, the span tracer and the dissection tool's
 bounds (`ops/probe.py`, `utils/`, `tools/`), checks that no kernel was
 launched on the CPU and that asking for "cuda" without CUDA raises, then
@@ -164,6 +165,12 @@ report = validate_weights(ckpt, device="cpu")
 assert report["ok"], report
 assert report["checks"]["torch_parity"]["ok"] is None, report
 assert report["checks"]["state_dict"]["config"]["hidden_size"] == 128
+# the dry run (graft_entry.py) on four logical CPU shards: the trainer's
+# dp x tp step, the tensor-parallel encoder and every sharded search
+from lattice_tpu_torch import graft_entry
+graft_entry.dryrun_multichip(4, device="cpu", config=tiny_cfg)
+fn, args = graft_entry.entry(device="cpu", config=tiny_cfg)
+assert fn(*args).shape == (8, 128)
 from lattice_tpu_torch.ops.probe import score_probe
 from lattice_tpu_torch.tools import dissect
 from lattice_tpu_torch.utils.tracing import get_tracer

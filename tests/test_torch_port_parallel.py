@@ -167,15 +167,28 @@ class TestMesh:
         assert torch.equal(torch.cat(placed[w]), port[w])
 
     def test_model_axis_raises_where_a_forward_uses_it(self):
+        """A model axis runs the tensor-parallel forward
+        (`tests/test_torch_port_tensor_parallel.py` holds it to JAX's);
+        where it does not split the heads, the forward would use it, so
+        `use_mesh` and the trainer raise, and the model keeps its mesh."""
         from lattice_tpu_torch.models.train import ContrastiveTrainer
         tp = make_mesh(4, model_parallel=2, device="cpu")
         model = um.UniXcoderModel(um.UniXcoderConfig(**SMALL), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11"):
-            model.use_mesh(tp)
-        assert model.mesh is None
-        with pytest.raises(NotImplementedError, match="item 11"):
-            ContrastiveTrainer(um.UniXcoderConfig(**SMALL), mesh=mesh4(),
-                               device="cpu")
+        want = model.encode(np.full((3, 8), 7), np.ones((3, 8), np.int64))
+        model.use_mesh(tp)
+        assert model.mesh is tp and model.data_shards == 2
+        got = model.encode(np.full((3, 8), 7), np.ones((3, 8), np.int64))
+        np.testing.assert_allclose(got, want, atol=2e-2)
+        with pytest.raises(ConfigurationError, match="does not split"):
+            model.use_mesh(make_mesh(4, model_parallel=4, device="cpu"))
+        assert model.mesh is tp
+        with pytest.raises(ConfigurationError, match="does not split"):
+            ContrastiveTrainer(um.UniXcoderConfig(**SMALL),
+                               mesh=make_mesh(4, model_parallel=4,
+                                              device="cpu"))
+        trainer = ContrastiveTrainer(um.UniXcoderConfig(**SMALL),
+                                     mesh=mesh4())
+        assert trainer.mp == 1 and trainer.device == torch.device("cpu")
 
 
 class TestShardedIndex:

@@ -16,7 +16,8 @@ Tolerances:
   parameter within 2e-5, except where the first gradient is that noise
   (|g| < 1e-6): Adam moves such an element by about lr a step whatever the
   noise's size, and the two packages' noise points either way, so those
-  are bounded by 2 * steps * lr.
+  are bounded by 2 * steps * lr. The same bars hold the flash trainer
+  (`fused_attention=True`, SDPA) to the einsum trainer at L = 128.
 """
 
 import dataclasses
@@ -63,7 +64,7 @@ def ragged_batch(seed=1):
 def port_trainer(jax_params, remat=True) -> pt.ContrastiveTrainer:
     trainer = pt.ContrastiveTrainer(um.UniXcoderConfig(**TINY), remat=remat,
                                     learning_rate=LR, device="cpu")
-    trainer.module.load_state_dict(um.params_from_jax(flat_params(jax_params)))
+    trainer.load_state_dict(um.params_from_jax(flat_params(jax_params)))
     return trainer
 
 
@@ -90,12 +91,10 @@ def test_dummy_batch_equals_jax(args):
 def test_loss_and_gradients_match_jax(start):
     params, want_loss, want_grads = start
     trainer = port_trainer(params)
-    loss = pt.contrastive_loss(trainer.module,
-                               trainer.shard_batch(ragged_batch()))
+    loss = trainer.loss(trainer.shard_batch(ragged_batch()))
     assert abs(loss.item() - want_loss) <= 1e-5 * abs(want_loss)
     loss.backward()
-    grads = um.params_to_jax({n: p.grad for n, p in
-                              trainer.module.named_parameters()})
+    grads = um.params_to_jax(trainer.grads())
     assert grads.keys() == want_grads.keys()
     top = max(np.abs(g).max() for g in want_grads.values())
     for name, want in want_grads.items():
@@ -119,7 +118,7 @@ def test_three_steps_match_jax(start, remat):
         want, got = jt.train_step(batch), trainer.train_step(batch)
         assert abs(got - want) <= 1e-4 * abs(want), (got, want)
     assert trainer.state.step == STEPS
-    got = um.params_to_jax(trainer.module.state_dict())
+    got = um.params_to_jax(trainer.state_dict())
     for name, want in flat_params(jt.state.params).items():
         diff = np.abs(got[name] - want)
         noise = np.abs(first_grads[name]) < NOISE
@@ -135,8 +134,8 @@ def test_remat_is_bit_equal(start):
     batch = ragged_batch(seed=4)
     for _ in range(STEPS):
         assert a.train_step(batch) == b.train_step(batch)
-    for (name, x), y in zip(a.module.state_dict().items(),
-                            b.module.state_dict().values()):
+    for (name, x), y in zip(a.state_dict().items(),
+                            b.state_dict().values()):
         assert torch.equal(x, y), name
 
 
@@ -172,13 +171,76 @@ def test_trainer_takes_the_einsum_path(monkeypatch):
 
 
 def test_trainer_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        pt.ContrastiveTrainer(um.UniXcoderConfig(**TINY), mesh=object(),
-                              device="cpu")
-    with pytest.raises(ConfigurationError):
-        pt.ContrastiveTrainer(um.UniXcoderConfig(**TINY,
-                                                 fused_attention=True),
-                              device="cpu")
+    """What the trainer still refuses: CUDA without CUDA, a model axis that
+    does not split the heads, and LATTICE_PAIRED_ATTN=1 where it would
+    send a step through `paired_attention` (heads of 64 that pair up),
+    which has no backward: raised when the trainer is made. At TINY's
+    heads of 8 the paired path never applies, and with LATTICE_FLASH_ATTN=1
+    flash wins over it, so both train. A mesh and `fused_attention=True`
+    are accepted."""
+    heads64 = um.UniXcoderConfig(vocab_size=512, hidden_size=128,
+                                 num_layers=1, num_heads=2,
+                                 intermediate_size=256,
+                                 max_position_embeddings=66, dtype="float32")
+    monkeypatch.setenv("LATTICE_PAIRED_ATTN", "1")
+    with pytest.raises(ConfigurationError, match="no backward"):
+        pt.ContrastiveTrainer(heads64, device="cpu")
+    pt.ContrastiveTrainer(um.UniXcoderConfig(**TINY), device="cpu")
+    monkeypatch.setenv("LATTICE_FLASH_ATTN", "1")
+    pt.ContrastiveTrainer(heads64, device="cpu")
+    monkeypatch.delenv("LATTICE_PAIRED_ATTN")
+    monkeypatch.delenv("LATTICE_FLASH_ATTN")
+    from lattice_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ConfigurationError, match="does not split"):
+        pt.ContrastiveTrainer(heads64, mesh=make_mesh(
+            4, model_parallel=4, device="cpu"))
+    trainer = pt.ContrastiveTrainer(
+        um.UniXcoderConfig(**TINY, fused_attention=True),
+        mesh=make_mesh(4, model_parallel=2, device="cpu"))
+    assert trainer.config.fused_attention and trainer.mp == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(EmbeddingError):
         pt.ContrastiveTrainer(um.UniXcoderConfig(**TINY))
+
+
+@pytest.mark.parametrize("opt_in", ["config", "env"])
+def test_flash_trainer_steps_match_einsum(start, monkeypatch, opt_in):
+    """`fused_attention=True` (or LATTICE_FLASH_ATTN=1) trains through
+    `scaled_dot_product_attention` at L >= 128: three steps from JAX's
+    parameters equal the einsum trainer's at this file's bars (the live
+    tokens' attention is the same function; a pad token's context, which
+    the pool drops, differs)."""
+    params, _, _ = start
+    calls = []
+    real = um._flash_attention
+
+    def spy(*args):
+        calls.append(args[0].shape[1])
+        return real(*args)
+
+    monkeypatch.setattr(um, "_flash_attention", spy)
+    einsum = port_trainer(params)
+    batch = pt.make_dummy_batch(4, 128, TINY["vocab_size"], seed=2)
+    batch["anchor_mask"][1, 70:] = 0
+    batch["positive_mask"][3, 5:] = 0
+    want = [einsum.train_step(batch) for _ in range(STEPS)]
+    assert calls == []
+    if opt_in == "env":
+        monkeypatch.setenv("LATTICE_FLASH_ATTN", "1")
+        flash = port_trainer(params)
+    else:
+        flash = pt.ContrastiveTrainer(
+            um.UniXcoderConfig(**TINY, fused_attention=True), remat=True,
+            learning_rate=LR, device="cpu")
+        flash.load_state_dict(um.params_from_jax(flat_params(params)))
+    got = [flash.train_step(batch) for _ in range(STEPS)]
+    # 2 layers, anchors and positives, each step; remat recomputes each
+    assert len(calls) == STEPS * 2 * 2 * 2 and set(calls) == {128}
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-4 * abs(w), (g, w)
+    a, b = flash.state_dict(), einsum.state_dict()
+    for name in a:
+        assert (a[name] - b[name]).abs().max().item() <= 2 * STEPS * LR
+    moved = max((a[n] - b[n]).abs().max().item() for n in a
+                if "key.bias" not in n)
+    assert moved <= 2e-5, moved
