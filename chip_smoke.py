@@ -1706,14 +1706,19 @@ def attention_work(mask: torch.Tensor, heads: int) -> tuple[float, float]:
     return n_bytes, 4 * w * ln * keys
 
 
+def top_kernels(summary: dict, n: int = 6) -> list[tuple[str, float]]:
+    """The `n` kernels of a `summarize_device_trace` summary that took the
+    most device time, names cut to 60 characters, in ms."""
+    return [(name[:60], round(ms, 3)) for name, ms, _ in summary["ops"][:n]]
+
+
 def phase_encoder_trace(model, ids: torch.Tensor, mask: torch.Tensor,
                         smi: str, n: int = 4) -> None:
     """A `utils/tracing.py` device trace of `n` encoder forwards on
     device-resident ids: busy ms per batch, the idle share of the traced
-    window, `paired_attention`'s share of busy time, and the time by
-    kernel class."""
-    from lattice_tpu_torch.utils.tracing import (categorize_device_trace,
-                                                 device_trace,
+    window, `paired_attention`'s share of busy time, and the kernels that
+    took the most time."""
+    from lattice_tpu_torch.utils.tracing import (device_trace,
                                                  summarize_device_trace)
     where = str(Path(__file__).resolve().parent / "build" / "traces"
                 / "encoder")
@@ -1730,13 +1735,12 @@ def phase_encoder_trace(model, ids: torch.Tensor, mask: torch.Tensor,
             f"encoder trace: {summ.get('error', 'no device time')}")
     busy = summ["total_ms"]
     attn_ms = sum(ms for name, ms, _ in summ["ops"] if "paired_attn_" in name)
-    cats = categorize_device_trace(where)["categories"]
     log(f"encoder trace, {n} forwards B={ENC_BATCH} L={ENC_LEN}: device busy "
         f"{busy / n:.3f} ms per batch, idle {1 - busy / wall:.4f} of the "
         f"traced window ({wall / n:.3f} ms per batch under the profiler); "
         f"paired_attention {attn_ms / n:.4f} ms per batch = "
-        f"{attn_ms / busy:.4f} of busy time; by kernel class (ms over {n} "
-        f"batches): {cats} ({smi})")
+        f"{attn_ms / busy:.4f} of busy time; top kernels (ms over {n} "
+        f"batches): {top_kernels(summ)} ({smi})")
 
 
 ROOT = Path(__file__).resolve().parent
@@ -5332,11 +5336,10 @@ def phase_remat_memory(ctx: dict, smi: str) -> None:
 
 def trace_train_steps(trainer, batches: list[dict], smi: str) -> None:
     """A `utils/tracing.py` device trace of training steps: device busy
-    ms a step, the idle share of the traced window, the time by kernel
-    class."""
+    ms a step, the idle share of the traced window, the kernels that took
+    the most time."""
     from lattice_tpu_torch.utils.tracing import (_device_events,
                                                  _load_events,
-                                                 categorize_device_trace,
                                                  device_trace,
                                                  summarize_device_trace)
     where = str(ROOT / "build" / "traces" / "train")
@@ -5350,12 +5353,11 @@ def trace_train_steps(trainer, batches: list[dict], smi: str) -> None:
             f"training trace: {summ.get('error', 'no device time')}")
     n, busy = len(batches), summ["total_ms"]
     kernels = sum(1 for _ in _device_events(_load_events(where)))
-    cats = categorize_device_trace(where)["categories"]
     log(f"3m(b): training trace, {n} steps (remat on): device busy "
         f"{busy / n:.3f} ms a step, idle {1 - busy / wall:.4f} of the traced "
         f"window ({wall / n:.3f} ms a step under the profiler); "
-        f"{kernels / n:.0f} device events a step; by kernel class (ms over "
-        f"{n} steps): {cats} ({smi})")
+        f"{kernels / n:.0f} device events a step; top kernels (ms over "
+        f"{n} steps): {top_kernels(summ)} ({smi})")
 
 
 def phase_fused_qkv(ctx: dict) -> None:

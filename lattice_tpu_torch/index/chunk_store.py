@@ -70,6 +70,7 @@ from lattice_tpu_torch.parallel import mesh as mesh_ops
 from lattice_tpu_torch.parallel.sharded_index import (ShardedIndex,
                                                       ShardedQuantizedIndex)
 from lattice_tpu_torch.parallel.sharded_rank import ShardedHybridRank
+from lattice_tpu_torch.utils.tracing import get_tracer
 
 # every method string _plan_search_impl accepts; surfaces (HTTP, MCP)
 # validate requests against this before minting per-config serving state
@@ -1293,8 +1294,9 @@ class ChunkStore:
         `scan_ops.MAX_K1`, or 8k > `scan_ops.MAX_K1_LONG` for "int4", or
         max(k, 32) > `scan_ops.MAX_K1_LONG` for "pq", or a shard's first
         stage past its kernel's list for "sharded") the kernel's wrapper
-        raises KernelError."""
-        return self._plan_search(batch, k_eff, filters, method)
+        raises KernelError. Traced as the hot span `search.plan`."""
+        with get_tracer().hot("search.plan"):
+            return self._plan_search(batch, k_eff, filters, method)
 
     def _serves_sharded(self, plan: str) -> bool:
         return plan == "sharded" and self._mesh_shards() > 1
@@ -1349,35 +1351,39 @@ class ChunkStore:
 
         The serving-loop / bench entry; raw (unnormalized) queries in.
         Same decision table as `search`; payload assembly is the caller's
-        problem.
+        problem. Traced as the hot span `search.device`, whose self time is
+        what its stages' spans leave: the filter mask, the view's lock and
+        the validity mask.
         """
-        if self._size == 0:
-            raise VectorStoreError("empty store has no device path")
-        raw = queries.to(self.device)
-        k_eff = min(k, self._cap)
-        plan = self._resolve_plan(int(raw.shape[0]), k_eff, filters, method)
-        mask = self.filter_mask(filters)
-        if self._serves_sharded(plan):
-            return self._sharded_search_rescored(raw, k_eff, mask)
-        if plan == "ivf":
-            return self._serving_ivf().search_device(
-                topk_ops.l2_normalize_t(raw), k_eff, nprobe=IVF_AUTO_NPROBE,
-                mask=mask)
-        if plan == "pq":
-            return self._search_pq_device(topk_ops.l2_normalize_t(raw),
-                                          k_eff, mask)
-        valid = self._valid if mask is None else (self._valid & mask)
-        if plan == "quantized":
-            return self._quant_view().search_device(raw, valid, k_eff,
-                                                    full_precision=self._emb)
-        if plan == "int4":
-            return self._int4_view().search_device(raw, valid, k_eff,
-                                                   full_precision=self._emb)
-        if plan in _BF16_SCANS:
-            return _BF16_SCANS[plan](raw, self._emb, valid, k_eff,
-                                     normalize=True)
-        return topk_ops.flat_topk(topk_ops.l2_normalize_t(raw), self._emb,
-                                  valid, k_eff)
+        with get_tracer().hot("search.device"):
+            if self._size == 0:
+                raise VectorStoreError("empty store has no device path")
+            raw = queries.to(self.device)
+            k_eff = min(k, self._cap)
+            plan = self._resolve_plan(int(raw.shape[0]), k_eff, filters,
+                                      method)
+            mask = self.filter_mask(filters)
+            if self._serves_sharded(plan):
+                return self._sharded_search_rescored(raw, k_eff, mask)
+            if plan == "ivf":
+                return self._serving_ivf().search_device(
+                    topk_ops.l2_normalize_t(raw), k_eff,
+                    nprobe=IVF_AUTO_NPROBE, mask=mask)
+            if plan == "pq":
+                return self._search_pq_device(topk_ops.l2_normalize_t(raw),
+                                              k_eff, mask)
+            valid = self._valid if mask is None else (self._valid & mask)
+            if plan == "quantized":
+                return self._quant_view().search_device(
+                    raw, valid, k_eff, full_precision=self._emb)
+            if plan == "int4":
+                return self._int4_view().search_device(
+                    raw, valid, k_eff, full_precision=self._emb)
+            if plan in _BF16_SCANS:
+                return _BF16_SCANS[plan](raw, self._emb, valid, k_eff,
+                                         normalize=True)
+            return topk_ops.flat_topk(topk_ops.l2_normalize_t(raw),
+                                      self._emb, valid, k_eff)
 
     def search_device_pipelined(self, queries: torch.Tensor, k: int,
                                 chunk: int = 256,

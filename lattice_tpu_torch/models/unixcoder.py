@@ -81,6 +81,7 @@ from lattice_tpu_torch.ops.attention import MASKED, paired_attention
 from lattice_tpu_torch.ops.topk import full_f32
 from lattice_tpu_torch.parallel.mesh import (MODEL_AXIS, DeviceMesh,
                                              shard_params)
+from lattice_tpu_torch.utils.tracing import get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -555,7 +556,9 @@ class UniXcoderModel:
     def encode_device(self, input_ids, attention_mask) -> torch.Tensor:
         """Pooled [B, H] f32 embeddings left on the model's device. Inputs
         that are already tensors on that device at a bucket length go
-        straight in; anything else takes the host pad path."""
+        straight in; anything else takes the host pad path. Only the host
+        pad path feeds the tracer's token counters: the device tensors'
+        mask is not read back to count them."""
         if (isinstance(input_ids, torch.Tensor)
                 and isinstance(attention_mask, torch.Tensor)
                 and input_ids.device == self.device
@@ -569,24 +572,33 @@ class UniXcoderModel:
 
     def _encode_device_host(self, input_ids, attention_mask) -> torch.Tensor:
         """Host pad path: numpy, truncation and padding to the length
-        bucket, one upload."""
-        if isinstance(input_ids, torch.Tensor):
-            input_ids = input_ids.cpu().numpy()
-        if isinstance(attention_mask, torch.Tensor):
-            attention_mask = attention_mask.cpu().numpy()
-        ids = np.asarray(input_ids, dtype=np.int64)
-        mask = np.asarray(attention_mask, dtype=np.int64)
-        if ids.ndim == 1:
-            ids, mask = ids[None, :], mask[None, :]
-        length = self.bucket_length(ids.shape[1])
-        ids, mask = ids[:, :length], mask[:, :length]
-        if ids.shape[1] < length:
-            pad = length - ids.shape[1]
-            ids = np.pad(ids, ((0, 0), (0, pad)),
-                         constant_values=self.config.pad_token_id)
-            mask = np.pad(mask, ((0, 0), (0, pad)))
-        return self._forward(torch.from_numpy(ids).to(self.device),
-                             torch.from_numpy(mask).to(self.device))
+        bucket, one upload each of ids and mask; traced as the hot span
+        `encode.host_prep`. While tracing is on, the counters
+        `encode.tokens_live` (the mask's sum) and `encode.tokens_padded`
+        (B x the bucket length) take the batch."""
+        tracer = get_tracer()
+        with tracer.hot("encode.host_prep"):
+            if isinstance(input_ids, torch.Tensor):
+                input_ids = input_ids.cpu().numpy()
+            if isinstance(attention_mask, torch.Tensor):
+                attention_mask = attention_mask.cpu().numpy()
+            ids = np.asarray(input_ids, dtype=np.int64)
+            mask = np.asarray(attention_mask, dtype=np.int64)
+            if ids.ndim == 1:
+                ids, mask = ids[None, :], mask[None, :]
+            length = self.bucket_length(ids.shape[1])
+            ids, mask = ids[:, :length], mask[:, :length]
+            if ids.shape[1] < length:
+                pad = length - ids.shape[1]
+                ids = np.pad(ids, ((0, 0), (0, pad)),
+                             constant_values=self.config.pad_token_id)
+                mask = np.pad(mask, ((0, 0), (0, pad)))
+            if tracer.on:
+                tracer.count("encode.tokens_live", mask.sum())
+                tracer.count("encode.tokens_padded", mask.size)
+            ids_t = torch.from_numpy(ids).to(self.device)
+            mask_t = torch.from_numpy(mask).to(self.device)
+        return self._forward(ids_t, mask_t)
 
     def encode(self, input_ids, attention_mask) -> np.ndarray:
         """Pooled [B, H] embeddings on the host (`encode_device` + copy)."""

@@ -33,6 +33,7 @@ from lattice_tpu_torch.ops import scan_topk as scan_ops
 from lattice_tpu_torch.ops.scan_topk import unpack_int4
 from lattice_tpu_torch.ops.topk import (NEG_INF, full_f32, l2_normalize_t,
                                         stable_topk)
+from lattice_tpu_torch.utils.tracing import get_tracer
 
 __all__ = ["Int4View", "NEG_INF", "QuantizedView", "int4_dequant_rescore",
            "int4_topk", "int8_topk", "quantize_rows", "quantize_rows_device",
@@ -141,18 +142,21 @@ class _ShadowView:
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """The view's kernel (+ kernel B) on the card, the plain version on
         the CPU. Its output is sorted, so slicing the widened list to k is
-        exact."""
-        s, i = self._scan(q_values, q_scales, self.values, self.scales,
-                          valid, k)
-        return s[:, :k], i[:, :k]
+        exact. Traced as the hot span `search.first_stage`."""
+        with get_tracer().hot("search.first_stage"):
+            s, i = self._scan(q_values, q_scales, self.values, self.scales,
+                              valid, k)
+            return s[:, :k], i[:, :k]
 
     def _two_stage(self, queries: torch.Tensor, valid: torch.Tensor, k: int,
                    rescore) -> tuple[torch.Tensor, torch.Tensor]:
         """Raw queries in. Without `rescore`, the first stage alone at
         width k; else `rescore(q, s1, cand, k)` of `_width(k, n)`
-        candidates."""
-        q = _l2n(queries).contiguous()
-        q_values, q_scales = quantize_rows_device(q)
+        candidates. The queries' normalisation and quantization are
+        traced as the hot span `search.quantize`."""
+        with get_tracer().hot("search.quantize"):
+            q = _l2n(queries).contiguous()
+            q_values, q_scales = quantize_rows_device(q)
         if rescore is None:
             return self._first_stage(q_values, q_scales, valid, k)
         s1, cand = self._first_stage(q_values, q_scales, valid,

@@ -80,6 +80,7 @@ from lattice_tpu_torch.ops import _build
 from lattice_tpu_torch.ops.topk import (NEG_INF, blocked_topk,
                                         flat_topk_blocked, full_f32,
                                         l2_normalize_t, stable_topk)
+from lattice_tpu_torch.utils.tracing import get_tracer
 
 # must match csrc/scan_topk.cu and csrc/scan_wg.cuh
 BQ = 64          # queries per block
@@ -606,14 +607,17 @@ def _exact_rescore(queries: torch.Tensor, embeddings: torch.Tensor,
     A gather of [B, k1, d] rows, an f32 product (TF32 off) and a stable
     top-k, as `_exact_rescore` (pallas_topk.py:1096) ran in XLA. Slots the
     first stage scored NEG_INF (fewer live rows than k1) are masked by
-    their stage score so they are never promoted."""
-    rows = embeddings[candidates.to(torch.int64)].to(torch.float32)
-    with full_f32():
-        scores = torch.einsum("bd,bkd->bk", queries.to(torch.float32), rows)
-    scores = torch.where(stage_scores > NEG_INF / 2, scores,
-                         torch.full_like(scores, NEG_INF))
-    top, pos = stable_topk(scores, min(k, scores.shape[-1]))
-    return top, torch.gather(candidates, -1, pos.to(torch.int64))
+    their stage score so they are never promoted. Traced as the hot span
+    `search.rescore`."""
+    with get_tracer().hot("search.rescore"):
+        rows = embeddings[candidates.to(torch.int64)].to(torch.float32)
+        with full_f32():
+            scores = torch.einsum("bd,bkd->bk", queries.to(torch.float32),
+                                  rows)
+        scores = torch.where(stage_scores > NEG_INF / 2, scores,
+                             torch.full_like(scores, NEG_INF))
+        top, pos = stable_topk(scores, min(k, scores.shape[-1]))
+        return top, torch.gather(candidates, -1, pos.to(torch.int64))
 
 
 def binned_topk(queries: torch.Tensor, embeddings: torch.Tensor,
@@ -623,13 +627,15 @@ def binned_topk(queries: torch.Tensor, embeddings: torch.Tensor,
 
     Candidates widen to k1 = max(k, widen) (capped by N) and rescore in
     f32. With fewer rows than k the contract shape is padded with NEG_INF
-    / -1. `normalize` L2-normalizes raw queries first."""
+    / -1. `normalize` L2-normalizes raw queries first. The scan is traced
+    as the hot span `search.first_stage`."""
     queries = queries.to(torch.float32)
     if normalize:
         queries = l2_normalize_t(queries)
     queries = queries.contiguous()
     k1 = min(max(k, widen), embeddings.shape[0])
-    s1, c1 = scan_topk(queries, embeddings, valid, k1)
+    with get_tracer().hot("search.first_stage"):
+        s1, c1 = scan_topk(queries, embeddings, valid, k1)
     out_s, out_i = _exact_rescore(queries, embeddings, s1, c1, min(k, k1))
     if k > k1:  # corpus smaller than k: pad the contract shape
         pad = k - k1

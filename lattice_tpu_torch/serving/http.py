@@ -63,6 +63,7 @@ from lattice_tpu_torch.serving.frontend import (
     Overloaded,
 )
 from lattice_tpu_torch.serving.router import FrontendRouter
+from lattice_tpu_torch.utils.tracing import get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -80,6 +81,32 @@ class _ThreadingHTTPServer(ThreadingHTTPServer):
     on an H100 host: 5.5 QPS with a frontend p50 of 26 ms)."""
 
     request_queue_size = 1024
+
+
+def _tracer_lines(snapshot: dict, esc) -> list[str]:
+    """The process tracer's span totals, self totals and counts, and its
+    counters (`Tracer.snapshot()`), in Prometheus text: the always-on
+    spans, and the hot spans and counters recorded while tracing was on
+    (`LATTICE_TRACE=1`)."""
+    spans = snapshot["spans"]
+    series = [
+        ("lattice_span_seconds_total", "Seconds inside each traced span",
+         "span", {k: v["total_ms"] / 1e3 for k, v in spans.items()}),
+        ("lattice_span_self_seconds_total", "Seconds inside each traced "
+         "span less its child spans", "span",
+         {k: v["self_ms"] / 1e3 for k, v in spans.items()}),
+        ("lattice_span_calls_total", "Times each traced span closed",
+         "span", {k: v["count"] for k, v in spans.items()}),
+        ("lattice_trace_count_total", "The tracer's counters", "counter",
+         snapshot["counters"]),
+    ]
+    out = []
+    for name, help_, label, values in series:
+        out.append(f"# HELP {name} {help_}")
+        out.append(f"# TYPE {name} counter")
+        for key, value in values.items():
+            out.append(f'{name}{{{label}="{esc(key)}"}} {value}')
+    return out
 
 
 class ServingHTTPServer:
@@ -245,6 +272,7 @@ class ServingHTTPServer:
                 "lifetime_p99_ms": life_p99,
                 "configs": self.router.stats(),
                 "corpus": len(self.store),
+                "spans": get_tracer().snapshot(),
             }
         if method == "POST" and path == "/v1/search":
             if self.embed_fn is None:
@@ -401,6 +429,7 @@ class ServingHTTPServer:
         out.append("# HELP lattice_live_configs Frontends currently live")
         out.append("# TYPE lattice_live_configs gauge")
         out.append(f"lattice_live_configs {len(self.router)}")
+        out.extend(_tracer_lines(get_tracer().snapshot(), esc))
         return "\n".join(out) + "\n"
 
     @staticmethod

@@ -1,13 +1,34 @@
-"""Lightweight phase tracing and device-trace summaries over torch.profiler.
+"""Phase tracing on the profiler's clock, and device-trace summaries over
+torch.profiler.
 
 Port of `lattice_tpu/utils/tracing.py`. `SpanStats`, `Tracer` and
-`get_tracer` are copied: a process-wide tracer that aggregates named
-spans (count / total / max) on the host clock. The device side moves from
-`jax.profiler`'s XSpace capture to `torch.profiler`: `device_trace`
-records CPU and CUDA activity into a Chrome trace (`*.pt.trace.json`),
-and the two readers sum its device events (CUDA kernels, memcpy and
-memset, each on its device and stream) by name, as the JAX readers summed
-the ops of a device plane.
+`get_tracer` keep the JAX package's shape: a process-wide tracer that
+aggregates named spans (count / total / max) on the host clock, and whose
+`report()` has the same keys. Beside that one tracer keeps:
+
+- two kinds of span. `span(name)` always records: cold, per-request
+  phases (`query.planning`). `hot(name)` records only while tracing is
+  on, and costs one flag check and no allocation while it is off: the
+  stages of a hot path (`search.plan`, `encode.host_prep`). Tracing is on
+  while a `torch.profiler` session records, or after `enable()`, or from
+  the start when `LATTICE_TRACE=1` is set (read once, at import);
+- while a profiler records, every span also opens a user-scope record
+  function of its name (the binding under
+  `torch.autograd.profiler.record_function`, without that wrapper's two
+  dispatched profiler ops: a third of its cost), so it lies in the Chrome
+  trace as a `user_annotation` nested under its caller, on the clock of
+  the device's events: an idle gap of the card can be put down to the
+  stage the host was in;
+- each span's self time, its time less that of the spans opened inside
+  it on the same thread (a per-thread stack of open spans), and integer
+  counters (`count`, gated like `hot`); `snapshot()` returns them with
+  the spans, unrounded.
+
+The device side moves from `jax.profiler`'s XSpace capture to
+`torch.profiler`: `device_trace` records CPU and CUDA activity into a
+Chrome trace (`*.pt.trace.json`), and `summarize_device_trace` sums its
+device events (CUDA kernels, memcpy and memset, each on its device and
+stream) by name, as the JAX reader summed the ops of a device plane.
 """
 
 from __future__ import annotations
@@ -16,13 +37,17 @@ import contextlib
 import glob
 import json
 import os
-import re
 import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+TRACE_ENV = "LATTICE_TRACE"
+_annotate = torch._C._autograd._record_function_with_args_enter
+_end_annotation = torch._C._autograd._record_function_with_args_exit
 
 
 @dataclass
@@ -41,21 +66,97 @@ class SpanStats:
         return self.total_ms / self.count if self.count else 0.0
 
 
+class _OpenSpans(threading.local):
+    """The spans open on this thread, innermost last."""
+
+    def __init__(self) -> None:
+        self.stack: list[_Span] = []
+
+
+class _Span:
+    """One timing of a named span; the context manager `span` and `hot`
+    hand out."""
+
+    __slots__ = ("tracer", "name", "t0", "child_ms", "annotation")
+
+    def __init__(self, tracer: Tracer, name: str) -> None:
+        self.tracer = tracer
+        self.name = name
+        self.child_ms = 0.0
+        self.annotation = None
+
+    def __enter__(self) -> _Span:
+        if _autograd_profiler._is_profiler_enabled:
+            self.annotation = _annotate(self.name)
+        self.tracer._open.stack.append(self)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        ms = (time.perf_counter() - self.t0) * 1000
+        stack = self.tracer._open.stack
+        # a span held across an `await` may close after one opened later
+        # by another coroutine of the thread: take it out where it is
+        at = len(stack) - 1
+        while stack[at] is not self:
+            at -= 1
+        del stack[at]
+        if at:
+            stack[at - 1].child_ms += ms
+        if self.annotation is not None:
+            _end_annotation(self.annotation)
+        self.tracer._record(self.name, ms, ms - self.child_ms)
+
+
+_OFF = contextlib.nullcontext()
+
+
 @dataclass
 class Tracer:
     _lock: threading.Lock = field(default_factory=threading.Lock)
     spans: dict[str, SpanStats] = field(
         default_factory=lambda: defaultdict(SpanStats))
+    self_ms: dict[str, float] = field(
+        default_factory=lambda: defaultdict(float))
+    counters: dict[str, int] = field(default_factory=lambda: defaultdict(int))
+    enabled: bool = False
+    _open: _OpenSpans = field(default_factory=_OpenSpans, repr=False)
 
-    @contextlib.contextmanager
-    def span(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            ms = (time.perf_counter() - t0) * 1000
+    @property
+    def on(self) -> bool:
+        """Whether `hot` spans and `count` record now: after `enable()`,
+        or while a `torch.profiler` session records."""
+        return self.enabled or _autograd_profiler._is_profiler_enabled
+
+    def enable(self) -> None:
+        self.enabled = True
+
+    def disable(self) -> None:
+        self.enabled = False
+
+    def span(self, name: str) -> _Span:
+        """An always-on span."""
+        return _Span(self, name)
+
+    def hot(self, name: str):
+        """A span that records only while tracing is `on`; else a shared
+        null context."""
+        # `on` spelled out: while tracing is off this check is all a span
+        # costs
+        if not (self.enabled or _autograd_profiler._is_profiler_enabled):
+            return _OFF
+        return _Span(self, name)
+
+    def count(self, name: str, n: int) -> None:
+        """Add `n` to the counter `name` while tracing is `on`."""
+        if self.on:
             with self._lock:
-                self.spans[name].record(ms)
+                self.counters[name] += int(n)
+
+    def _record(self, name: str, ms: float, self_ms: float) -> None:
+        with self._lock:
+            self.spans[name].record(ms)
+            self.self_ms[name] += self_ms
 
     def report(self) -> dict[str, dict]:
         with self._lock:
@@ -66,12 +167,26 @@ class Tracer:
                 for name, s in sorted(self.spans.items())
             }
 
+    def snapshot(self) -> dict[str, dict]:
+        """{"spans": {name: {"count", "total_ms", "self_ms", "max_ms"}},
+        "counters": {name: n}}, unrounded, in name order."""
+        with self._lock:
+            return {
+                "spans": {name: {"count": s.count, "total_ms": s.total_ms,
+                                 "self_ms": self.self_ms[name],
+                                 "max_ms": s.max_ms}
+                          for name, s in sorted(self.spans.items())},
+                "counters": dict(sorted(self.counters.items())),
+            }
+
     def reset(self) -> None:
         with self._lock:
             self.spans.clear()
+            self.self_ms.clear()
+            self.counters.clear()
 
 
-_GLOBAL = Tracer()
+_GLOBAL = Tracer(enabled=os.environ.get(TRACE_ENV) == "1")
 
 
 def get_tracer() -> Tracer:
@@ -154,80 +269,5 @@ def summarize_device_trace(trace_dir: str,
         "planes": planes,
         "total_ms": total / 1e3,
         "ops": [(name, us / 1e3, (us / total if total else 0.0))
-                for name, us in ops],
-    }
-
-
-# Kernel-name needles, first match wins. The port's own kernels (the
-# `__global__` functions of `csrc/`, launched through the `lt_*` entries)
-# are "custom-call", as Pallas kernels were in XLA's traces; cuBLAS and
-# CUTLASS GEMMs are "matmul"; PyTorch's eager elementwise kernels take the
-# place of XLA's fusions.
-_OP_CATEGORIES = (
-    ("copy", ("memcpy", "memset", "copy")),
-    ("transpose", ("transpose",)),
-    ("custom-call", ("scan_topk_kernel", "merge_candidates_kernel",
-                     "ivf_probe_kernel", "paired_attn_",
-                     "score_probe_")),
-    ("matmul", ("gemm", "gemv", "xmma", "cutlass", "matmul")),
-    ("collective", ("nccl",)),
-    ("softmax-exp", ("softmax", "exp_kernel")),
-    ("reduce", ("reduce",)),
-    ("sort-topk", ("sort", "topk")),
-    ("elementwise", ("elementwise",)),
-)
-
-
-def _short_name(name: str) -> str:
-    """A kernel's function name without return type, namespace or
-    template arguments."""
-    name = re.sub(r"^void\s+", "", name)
-    name = re.split(r"[<(]", name, maxsplit=1)[0]
-    return name.rsplit("::", 1)[-1][:24] or "other"
-
-
-def categorize_device_trace(trace_dir: str, top: int = 25) -> dict:
-    """Per-category device time of the busiest stream of the newest trace.
-
-    The busiest (device, stream) line's kernels run one after another, so
-    its events tile its busy time without overlap; each kernel name goes
-    to the first category whose needle it contains (else its short name),
-    and categories under 0.2% of the line merge into "other". Returns
-    {"line": "/device:GPU:<n>//stream <s>", "total_ms", "categories":
-    {...}, "ops": top N (names truncated)}, or {"error": ...}.
-    """
-    events = _load_events(trace_dir)
-    if events is None:
-        return {"error": f"no {TRACE_SUFFIX} trace under {trace_dir}"}
-    lines: dict[str, dict[str, float]] = {}
-    for ev in _device_events(events):
-        stream = (ev.get("args") or {}).get("stream", ev.get("tid"))
-        ops = lines.setdefault(f"{_plane(ev)}//stream {stream}", {})
-        ops[ev["name"]] = ops.get(ev["name"], 0.0) + ev.get("dur", 0)
-    if not lines:
-        return {"error": "no device events in the trace"}
-    label, op_us = max(lines.items(), key=lambda kv: sum(kv[1].values()))
-    total = sum(op_us.values())
-    cats: dict[str, float] = {}
-    for name, us in op_us.items():
-        low = name.lower()
-        cat = next((c for c, needles in _OP_CATEGORIES
-                    if any(nd in low for nd in needles)), _short_name(name))
-        cats[cat] = cats.get(cat, 0.0) + us
-    floor = total * 0.002
-    tail = {c: us for c, us in cats.items() if us < floor and c != "other"}
-    if tail:
-        cats = {c: us for c, us in cats.items() if c not in tail}
-        cats["other"] = cats.get("other", 0.0) + sum(tail.values())
-    ops = sorted(op_us.items(), key=lambda kv: -kv[1])[:top]
-    trunc = lambda s: re.sub(r"\s+", " ", s)[:220]  # noqa: E731
-    return {
-        "line": label,
-        "total_ms": total / 1e3,
-        "categories": {c: round(us / 1e3, 3)
-                       for c, us in sorted(cats.items(),
-                                           key=lambda kv: -kv[1])},
-        "ops": [(trunc(name), round(us / 1e3, 3),
-                 round(us / total if total else 0.0, 4))
                 for name, us in ops],
     }

@@ -28,6 +28,7 @@ from lattice_tpu_torch.providers.hash_provider import HashEmbedder
 from lattice_tpu_torch.serving.http import ServingHTTPServer
 
 D = 64
+TRACER_SERIES = ("lattice_span_", "lattice_trace_")
 TEXTS = [f"def handler_{i}(request): return process_{i}(request)"
          for i in range(40)]
 
@@ -611,7 +612,11 @@ def test_stats_and_metrics_equal_jax_after_the_same_traffic():
         def series(text):
             return sorted({m.group(1) for m in re.finditer(
                 r"^([a-z_]+(?:\{config=\"[^\n]*?\"\})?)", text, re.M)})
-        assert series(psrv.metrics_text()) == series(jsrv.metrics_text())
+        # the port's tracer series (`lattice_span_*`, `lattice_trace_*`)
+        # have no counterpart in the JAX package
+        assert [name for name in series(psrv.metrics_text())
+                if not name.startswith(TRACER_SERIES)] == \
+            series(jsrv.metrics_text())
     finally:
         jsrv.shutdown()
         psrv.shutdown()
@@ -681,3 +686,62 @@ def test_golden_eval_http_surface_reraises_device_errors(monkeypatch):
     monkeypatch.setattr(pge, "http_deep_batch", fail(KernelError("launch")))
     with pytest.raises(KernelError):
         pge.main(["--device", "cpu"])
+
+
+def test_the_tracer_is_exported_with_lattice_trace_on():
+    """A CPU server in a process started with `LATTICE_TRACE=1`: after
+    forced "quantized" searches, `/v1/stats` carries the tracer's spans
+    and counters and `/metrics` its span totals, self totals, counts and
+    counters, one series a span."""
+    code = """
+import json, re, sys
+import numpy as np
+from lattice_tpu_torch.index.chunk_store import ChunkStore
+from lattice_tpu_torch.serving.http import ServingHTTPServer
+from lattice_tpu_torch.utils.tracing import get_tracer
+rng = np.random.default_rng(0)
+store = ChunkStore(dim=64, device="cpu")
+store.add(rng.standard_normal((300, 64)).astype(np.float32),
+          [{"file_path": f"f{i}.py"} for i in range(300)])
+get_tracer().count("probe.count", 7)
+with ServingHTTPServer(store, None, max_wait_ms=1) as srv:
+    for i in range(3):
+        status, _ = srv.handle("POST", "/v1/search_vector", {
+            "vector": rng.standard_normal(64).tolist(), "k": 4,
+            "method": "quantized"})
+        assert status == 200, status
+    _, stats = srv.handle("GET", "/v1/stats", {})
+    text = srv.metrics_text()
+print(json.dumps({"stats": stats["spans"], "metrics": [
+    line for line in text.splitlines()
+    if line.startswith(("lattice_span_", "lattice_trace_"))]}))
+"""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    env = {**os.environ, "LATTICE_TRACE": "1"}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    spans = got["stats"]["spans"]
+    for name in ("search.device", "search.plan", "search.quantize",
+                 "search.first_stage", "search.rescore"):
+        assert spans[name]["count"] == 3, name
+        assert set(spans[name]) == {"count", "total_ms", "self_ms",
+                                    "max_ms"}
+    assert got["stats"]["counters"] == {"probe.count": 7}
+    lines = got["metrics"]
+    assert 'lattice_trace_count_total{counter="probe.count"} 7' in lines
+    assert 'lattice_span_calls_total{span="search.plan"} 3' in lines
+    for metric in ("lattice_span_seconds_total",
+                   "lattice_span_self_seconds_total"):
+        (line,) = [ln for ln in lines
+                   if ln.startswith(f'{metric}{{span="search.device"}}')]
+        assert float(line.split()[-1]) >= 0
+    seconds = {ln.split('"')[1]: float(ln.split()[-1]) for ln in lines
+               if ln.startswith("lattice_span_seconds_total")}
+    assert seconds["search.device"] == pytest.approx(
+        spans["search.device"]["total_ms"] / 1e3)
