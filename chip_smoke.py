@@ -236,7 +236,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    least 4,096),
    through `Embedder.embed_with_progress` -> `UniXcoderEmbedder.
    embed_batch_device` (batch 128, max_length 512) -> `ChunkStore.add`
-   (bf16); `paired_attention` launches exactly 12 times per batch. The
+   (bf16); one forward a length bucket of a batch's rows, as many as
+   the masks give, and `paired_attention` 12 times a forward. The
    first 256 chunks through the kernel path and the einsum path
    (`paired_attention=False`, same weights): every pooled cosine >= 0.999.
    256 chunks drawn by seed, encoded again as queries, through
@@ -357,7 +358,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    write (`np.savez`); `np.savez` and `np.savez_compressed` on one
    layer's arrays; 5 steps with remat on and off on the same batches
    (step p50, peak memory); (c) the checkpoint through `finetune_dir` on
-   the card (12 `paired_attention` launches a forward) and on the CPU, 16
+   the card (one forward a length bucket of the rows, 12
+   `paired_attention` launches a forward) and on the CPU, 16
    chunks: every pooled cosine >= 0.999; (d) `enable_fused_qkv` at B=128,
    L=512 on this checkout's chunks: cosine >= 0.999 against unfused, 12
    launches a forward, one layer's fused q/k/v slices through the kernel
@@ -1498,6 +1500,50 @@ def repo_chunks() -> tuple[list[str], list[dict]]:
     return texts, out
 
 
+@contextlib.contextmanager
+def counted_forwards(model):
+    """Counts `model._forward` calls (`seen["forwards"]`) and the groups
+    that the masks handed to the host pad path give (`seen["groups"]`: the
+    distinct length buckets of the rows' own lengths, the last live token
+    + 1, so one a batch of rows in one bucket)."""
+    seen = {"forwards": 0, "groups": 0}
+    forward, host = model._forward, model._encode_device_host
+
+    def counted(*args):
+        seen["forwards"] += 1
+        return forward(*args)
+
+    def grouped(ids, mask):
+        host_mask = mask.cpu() if isinstance(mask, torch.Tensor) else mask
+        live = np.atleast_2d(np.asarray(host_mask)) != 0
+        ends = np.where(live.any(1),
+                        live.shape[1] - np.argmax(live[:, ::-1], 1), 0)
+        seen["groups"] += max(len({model.bucket_length(int(e))
+                                   for e in ends}), 1)
+        return host(ids, mask)
+
+    model._forward, model._encode_device_host = counted, grouped
+    try:
+        yield seen
+    finally:
+        del model._forward, model._encode_device_host
+
+
+def require_forwards(seen: dict, launched: int, per_forward: int,
+                     where: str) -> int:
+    """`counted_forwards`' count: one forward a group of the host path's
+    masks (one where the device fast path takes the batch whole), and
+    `per_forward` `paired_attention` launches each. Returns the forwards."""
+    forwards = seen["forwards"]
+    require(forwards == (seen["groups"] or 1),
+            f"{where}: {forwards} forwards where the masks give "
+            f"{seen['groups']} groups")
+    require(launched == per_forward * forwards,
+            f"{where}: paired_attention launched {launched} times in "
+            f"{forwards} forwards, want {per_forward} a forward")
+    return forwards
+
+
 def phase_encoder_path(ctx: dict) -> None:
     """The encoder's serving path at full width: the repo's code through
     `Embedder.embed_with_progress` -> `UniXcoderEmbedder.embed_batch_device`
@@ -1531,15 +1577,18 @@ def phase_encoder_path(ctx: dict) -> None:
                             device="cuda")
     store = indexer.code
     before = _build.launch_counts()["paired_attention"]
-    t0 = time.perf_counter()
-    vectors = embedder.embed_with_progress(texts)
-    torch.cuda.synchronize()
-    embed_s = time.perf_counter() - t0
+    with counted_forwards(model) as seen:
+        t0 = time.perf_counter()
+        vectors = embedder.embed_with_progress(texts)
+        torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
     batches = -(-n // ENC_BATCH)
     launched = _build.launch_counts()["paired_attention"] - before
-    require(launched == model.config.num_layers * batches,
-            f"paired_attention launched {launched} times for {batches} "
-            f"batches of {model.config.num_layers} layers")
+    # one forward a length bucket of a batch's rows, one launch a layer
+    forwards = require_forwards(seen, launched, model.config.num_layers,
+                                "embed_with_progress")
+    require(batches <= forwards <= len(model.LENGTH_BUCKETS) * batches,
+            f"{forwards} forwards for {batches} batches")
     require(isinstance(vectors, torch.Tensor) and vectors.is_cuda
             and vectors.shape == (n, DIM) and vectors.dtype == torch.float32
             and bool(torch.isfinite(vectors).all()),
@@ -1551,8 +1600,9 @@ def phase_encoder_path(ctx: dict) -> None:
     log(f"embedded {n} chunks of this checkout's code (32-line windows, "
         f"stride 8) in {batches} batches of {ENC_BATCH}: {embed_s:.2f} s = "
         f"{n / embed_s:.0f} chunks/s through embed_with_progress (host "
-        f"tokenizer included); paired_attention launches {launched} = "
-        f"{model.config.num_layers} x {batches}; store {store.stats}")
+        f"tokenizer included); {forwards} forwards (one a length bucket "
+        f"of a batch's rows); paired_attention launches {launched} = "
+        f"{model.config.num_layers} x {forwards}; store {store.stats}")
 
     # the kernel path against the einsum path, same weights and batches
     einsum = UniXcoderModel(dataclasses.replace(model.config,
@@ -5274,8 +5324,9 @@ def phase_npz_writers(ckpt: Path, smi: str) -> None:
 
 def phase_finetuned_embeds(ctx: dict, data_dir: Path) -> None:
     """3m(c): the fine-tuned checkpoint through `finetune_dir` on the card
-    (`paired_attention`, 12 launches a forward) and on the CPU (its plain
-    version), 16 of the store's chunks: every pooled cosine >= 0.999."""
+    (`paired_attention`, 12 launches a forward, one forward a length
+    bucket of the rows) and on the CPU (its plain version), 16 of the
+    store's chunks: every pooled cosine >= 0.999."""
     from lattice_tpu_torch.models.unixcoder import UniXcoderModel
     from lattice_tpu_torch.ops import _build
     card = UniXcoderModel(finetune_dir=data_dir, device="cuda")
@@ -5287,18 +5338,19 @@ def phase_finetuned_embeds(ctx: dict, data_dir: Path) -> None:
     texts = [p["content"] for p in store._payloads if p][:TRAIN_BATCH]
     ids, mask = ctx["provider"].tokenizer.encode_batch(texts, TRAIN_LEN)
     before = _build.launch_counts()["paired_attention"]
-    a = card.encode(ids, mask)
+    with counted_forwards(card) as seen:
+        a = card.encode(ids, mask)
     launched = _build.launch_counts()["paired_attention"] - before
     b = host.encode(ids, mask)
     cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b,
                                                                       axis=1)
     log(f"3m(c): the fine-tuned checkpoint ({card.weights_fingerprint}) on "
-        f"the card and on the CPU, {len(texts)} chunks at L "
-        f"{card.bucket_length(len(ids[0]))}: pooled cosine min "
+        f"the card and on the CPU, {len(texts)} chunks of up to "
+        f"{len(ids[0])} tokens: pooled cosine min "
         f"{cos.min():.7f}, max abs difference {np.abs(a - b).max():.3g}; "
-        f"paired_attention launches {launched}")
-    require(launched == card.config.num_layers,
-            f"paired_attention launched {launched} times in one forward")
+        f"{seen['forwards']} forwards, paired_attention launches "
+        f"{launched}")
+    require_forwards(seen, launched, card.config.num_layers, "3m(c)")
     require(cos.min() >= 0.999, f"fine-tuned embeddings: cosine {cos.min()}")
 
 
@@ -5389,7 +5441,8 @@ def phase_fused_qkv(ctx: dict) -> None:
     before = _build.launch_counts()["paired_attention"]
     um.paired_attention = spy
     try:
-        fused = models["fused"].encode_device(ids, mask)
+        with counted_forwards(models["fused"]) as calls:
+            fused = models["fused"].encode_device(ids, mask)
     finally:
         um.paired_attention = attn.paired_attention
     launched = _build.launch_counts()["paired_attention"] - before
@@ -5413,7 +5466,8 @@ def phase_fused_qkv(ctx: dict) -> None:
         f"{tuple(q.shape)} at strides {q.stride()} (contiguous "
         f"{q.is_contiguous()}), kernel on the slices bit-equal to the "
         f"kernel on copies {torch.equal(strided, copies)}, max abs error "
-        f"against plain {e:.3g}; paired_attention launches {launched}; "
+        f"against plain {e:.3g}; paired_attention launches {launched} in "
+        f"{calls['forwards']} forwards; "
         f"chunks/s {' / '.join(f'{n} {c}' for n, c in chunks.items())} "
         f"(in order {FUSED_ORDER}; ms {ms}; {smi})")
     require(not q.is_contiguous() and q.stride()[1] == 3 * q.shape[2],
@@ -5421,7 +5475,7 @@ def phase_fused_qkv(ctx: dict) -> None:
     require(torch.equal(strided, copies), "paired_attention on the fused "
             "slices differs from the kernel on contiguous copies")
     require(e <= 1e-2, f"paired_attention on the fused slices: error {e}")
-    require(launched == 12, f"fused forward: {launched} launches")
+    require_forwards(calls, launched, 12, "3m(d) fused forward")
     require(cos.min().item() >= 0.999, f"fused QKV: cosine {cos.min()}")
     del models, seen
     torch.cuda.empty_cache()
@@ -5753,16 +5807,18 @@ def phase_tp_encoder(ctx: dict) -> None:
     random_vectors_(model.encoder)
     launches = {}
     for (paired, flash), want in LEVER_LAUNCHES.items():       # (d)
-        with attention_env(paired, flash):
+        with attention_env(paired, flash), counted_forwards(model) as seen:
             before = _build.launch_counts()["paired_attention"]
             model.encode_device(ids[:16], mask[:16])
-            launches[(paired, flash)] = (
-                _build.launch_counts()["paired_attention"] - before)
-    log(f"3o(d): paired_attention launches a forward under "
+            launched = _build.launch_counts()["paired_attention"] - before
+        forwards = require_forwards(seen, launched, want,
+                                    f"3o(d) {paired}/{flash}")
+        launches[(paired, flash)] = (launched, forwards)
+    log(f"3o(d): paired_attention launches, forwards under "
         f"(LATTICE_PAIRED_ATTN, LATTICE_FLASH_ATTN) = "
         f"{ {f'{p}/{f}': n for (p, f), n in launches.items()} } "
-        f"(want { {f'{p}/{f}': n for (p, f), n in LEVER_LAUNCHES.items()} })")
-    require(launches == LEVER_LAUNCHES, f"3o(d): launches {launches}")
+        f"(want a forward "
+        f"{ {f'{p}/{f}': n for (p, f), n in LEVER_LAUNCHES.items()} })")
     live = mask.sum(1) > 0
     whole = model.encode_device(ids, mask)
     with attention_env("0", None):                               # (c)
@@ -5784,7 +5840,8 @@ def phase_tp_encoder(ctx: dict) -> None:
     tp_mesh = make_mesh(MESH_SHARDS, model_parallel=MESH_MP)
     model.use_mesh(tp_mesh)                                      # (b)
     before = _build.launch_counts()["paired_attention"]
-    sharded = model.encode_device(ids, mask)
+    with counted_forwards(model) as seen:
+        sharded = model.encode_device(ids, mask)
     launched = _build.launch_counts()["paired_attention"] - before
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -5795,12 +5852,13 @@ def phase_tp_encoder(ctx: dict) -> None:
     log(f"3o(b): UniXcoderModel.use_mesh over {tp_mesh}, B={ENC_BATCH}, "
         f"L={ENC_LEN}: pooled cosine against the unsharded forward min "
         f"{cos.min().item():.7f}; paired_attention launches {launched} "
-        f"(want {want}, 6 heads a position); forward {tp_ms:.2f} ms "
+        f"in {seen['forwards']} forwards (want {want} a forward, 6 heads a "
+        f"position); forward {tp_ms:.2f} ms "
         f"(peak {tp_gb:.2f} GB above the start), unsharded {whole_ms:.2f} "
         f"ms, dp-only split over {MESH_SHARDS} shards {dp_ms:.2f} ms "
         f"({smi})")
     require(cos.min().item() >= 0.999, f"3o(b): cosine {cos.min()}")
-    require(launched == want, f"3o(b): {launched} launches, want {want}")
+    require_forwards(seen, launched, want, "3o(b)")
     del model
     torch.cuda.empty_cache()
 

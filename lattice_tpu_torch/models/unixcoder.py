@@ -529,14 +529,21 @@ class UniXcoderModel:
         self._row_weights = {}
         self.weights_fingerprint += "+bf16serve"
 
-    def _forward(self, input_ids: torch.Tensor,
-                 attention_mask: torch.Tensor) -> torch.Tensor:
-        """Pooled rows on the model's device; with a mesh, the batch padded
-        (pad tokens, an all-zero mask) to a multiple of the data rows, one
-        slice a row, every row launched before any is read."""
+    def _forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 weights: dict[str, torch.Tensor] | None = None
+                 ) -> torch.Tensor:
+        """Pooled rows on the model's device; `weights` (`_cast_weights`),
+        where given, in place of the encoder's parameters. With a mesh, the
+        batch padded (pad tokens, an all-zero mask) to a multiple of the
+        data rows, one slice a row, every row launched before any is
+        read."""
         with torch.inference_mode():
             if self.mesh is None or input_ids.shape[0] == 0:
-                return self.encoder(input_ids, attention_mask)[1]
+                if weights is None:
+                    return self.encoder(input_ids, attention_mask)[1]
+                return tensor_parallel_forward(
+                    self.config, lambda name, p: weights[name],
+                    (self.device,), input_ids, attention_mask)[1]
             rows = self.mesh.model_rows
             b = input_ids.shape[0]
             pad = (-b) % len(rows)
@@ -552,6 +559,19 @@ class UniXcoderModel:
                     ids[i * per:(i + 1) * per].to(devices[0]),
                     mask[i * per:(i + 1) * per].to(devices[0]))[1])
             return torch.cat([p.to(self.device) for p in pooled])[:b]
+
+    def _cast_weights(self) -> dict[str, torch.Tensor]:
+        """The encoder's parameters by name, the Linear layers' cast once to
+        the compute dtype as `_dense` casts them at each use: the forwards
+        of one batch's groups share one cast, with the same products."""
+        cdt = self.config.compute_dtype
+        with torch.inference_mode():
+            weights = dict(self.encoder.named_parameters())
+            for name, mod in self.encoder.named_modules():
+                if isinstance(mod, nn.Linear):
+                    weights[f"{name}.weight"] = mod.weight.to(cdt)
+                    weights[f"{name}.bias"] = mod.bias.to(cdt)
+        return weights
 
     def encode_device(self, input_ids, attention_mask) -> torch.Tensor:
         """Pooled [B, H] f32 embeddings left on the model's device. Inputs
@@ -571,12 +591,23 @@ class UniXcoderModel:
         return self._encode_device_host(input_ids, attention_mask)
 
     def _encode_device_host(self, input_ids, attention_mask) -> torch.Tensor:
-        """Host pad path: numpy, truncation and padding to the length
-        bucket, one upload each of ids and mask; traced as the hot span
-        `encode.host_prep`. While tracing is on, the counters
-        `encode.tokens_live` (the mask's sum) and `encode.tokens_padded`
-        (B x the bucket length) take the batch."""
+        """Host pad path: numpy, truncation at the largest bucket, and the
+        rows grouped by the length bucket of each row's own length (its
+        last live token + 1, so a mask with holes keeps every live token; a
+        row with none goes to the smallest bucket). The rows are reordered
+        so that each group is contiguous, longest group first, and padded
+        to the longest group's bucket; one upload each of ids and mask (and
+        of the inverse permutation, where there is one). Traced as the hot
+        span `encode.host_prep`. Then one `_forward` a group, on its row
+        slice at its bucket, longest first, so the card runs the longest
+        while the host issues the rest, the groups sharing one cast of the
+        weights; the pooled rows come back in the caller's order. A batch
+        whose rows share one bucket runs one `_forward` at it, unreordered.
+        While tracing is on, the counters `encode.tokens_live` (the mask's
+        sum), `encode.tokens_padded` (each group's rows x its bucket) and
+        `encode.sub_batches` (the `_forward` calls) take the batch."""
         tracer = get_tracer()
+        buckets = self.LENGTH_BUCKETS
         with tracer.hot("encode.host_prep"):
             if isinstance(input_ids, torch.Tensor):
                 input_ids = input_ids.cpu().numpy()
@@ -586,7 +617,24 @@ class UniXcoderModel:
             mask = np.asarray(attention_mask, dtype=np.int64)
             if ids.ndim == 1:
                 ids, mask = ids[None, :], mask[None, :]
-            length = self.bucket_length(ids.shape[1])
+            ids, mask = ids[:, :buckets[-1]], mask[:, :buckets[-1]]
+            ends = ((mask != 0) * np.arange(1, mask.shape[1] + 1)).max(
+                axis=1, initial=0)
+            # each row's bucket, as an index into `buckets`
+            which = np.searchsorted(buckets, ends)
+            sizes = np.bincount(which, minlength=len(buckets))
+            groups, start = [], 0          # (first row, end row, bucket)
+            for g in reversed(range(len(buckets))):
+                if sizes[g]:
+                    groups.append((start, start + int(sizes[g]), buckets[g]))
+                    start += int(sizes[g])
+            groups = groups or [(0, 0, buckets[0])]
+            length = groups[0][2]
+            inverse = None
+            if len(groups) > 1:
+                order = np.argsort(-which, kind="stable")
+                ids, mask = ids[order], mask[order]
+                inverse = torch.from_numpy(np.argsort(order)).to(self.device)
             ids, mask = ids[:, :length], mask[:, :length]
             if ids.shape[1] < length:
                 pad = length - ids.shape[1]
@@ -595,10 +643,18 @@ class UniXcoderModel:
                 mask = np.pad(mask, ((0, 0), (0, pad)))
             if tracer.on:
                 tracer.count("encode.tokens_live", mask.sum())
-                tracer.count("encode.tokens_padded", mask.size)
+                tracer.count("encode.tokens_padded",
+                             sum((b - a) * n for a, b, n in groups))
+                tracer.count("encode.sub_batches", len(groups))
             ids_t = torch.from_numpy(ids).to(self.device)
             mask_t = torch.from_numpy(mask).to(self.device)
-        return self._forward(ids_t, mask_t)
+        # a mesh's rows hold their own placed weights
+        weights = self._cast_weights() if self.mesh is None else None
+        pooled = [self._forward(ids_t[a:b, :n], mask_t[a:b, :n], weights)
+                  for a, b, n in groups]
+        if inverse is None:
+            return pooled[0]
+        return torch.cat(pooled).index_select(0, inverse)
 
     def encode(self, input_ids, attention_mask) -> np.ndarray:
         """Pooled [B, H] embeddings on the host (`encode_device` + copy)."""

@@ -12,6 +12,10 @@ the reference's flash kernel in interpret mode over the live rows at L in
 the 128 and 256 buckets (f32 2e-4; bf16 2e-2 and cosine >= 0.999), and
 LATTICE_PAIRED_ATTN / LATTICE_FLASH_ATTN routed as the reference routes
 them (the calls into `paired_attention` under each setting).
+
+The host path's split: a batch whose rows span the four length buckets
+runs one forward a bucket, longest first, and returns the rows of one
+forward at 512 in the caller's order (f32 1e-5, bf16 2e-2).
 """
 
 import dataclasses
@@ -137,6 +141,56 @@ def test_padding_and_device_fast_path(models, monkeypatch):
     np.testing.assert_allclose(dev.numpy(), host, atol=1e-6)
     assert [port.bucket_length(n) for n in (1, 64, 65, 300, 9999)] == [
         64, 64, 128, 512, 512]
+
+
+SPLIT = {**SMALL, "num_layers": 1, "max_position_embeddings": 514}
+
+
+def split_batch(seed=9, width=600):
+    """Rows in all four buckets: one past 512 (truncated), one with no live
+    token, one whose mask has a hole (its last live token sets its
+    bucket)."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([600, 0, 30, 100, 200, 300, 64, 65, 129, 10])
+    mask = (np.arange(width)[None, :] < lengths[:, None]).astype(np.int64)
+    mask[4, 50:60] = 0
+    ids = np.where(mask == 1, rng.integers(5, 500, mask.shape), 1)
+    return ids, mask
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+def test_host_path_splits_batch_by_row_bucket(dtype, atol, monkeypatch):
+    """The host path runs one `_forward` a length bucket of the rows' own
+    lengths, longest first, and returns the rows of one forward over the
+    whole batch padded to 512, in the caller's order; rows that share a
+    bucket take one forward at it, unreordered."""
+    model = um.UniXcoderModel(um.UniXcoderConfig(**SPLIT, dtype=dtype),
+                              seed=SEED, device="cpu")
+    forward, calls = model._forward, []
+
+    def recorded(ids, mask, *weights):
+        calls.append(ids.clone())
+        return forward(ids, mask, *weights)
+
+    monkeypatch.setattr(model, "_forward", recorded)
+    ids, mask = split_batch()
+    whole = forward(torch.from_numpy(ids[:, :512]),
+                    torch.from_numpy(mask[:, :512])).numpy()
+    got = model.encode(ids, mask)
+    assert [tuple(c.shape) for c in calls] == [(2, 512), (2, 256), (2, 128),
+                                               (4, 64)]
+    assert got.shape == whole.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, whole, atol=atol)
+
+    calls.clear()
+    ids, mask = ids[[1, 2, 6, 9], :100], mask[[1, 2, 6, 9], :100]
+    got = model.encode(ids, mask)
+    assert len(calls) == 1
+    torch.testing.assert_close(calls[0], torch.from_numpy(ids[:, :64]))
+    np.testing.assert_allclose(
+        got, forward(torch.from_numpy(ids[:, :64]),
+                     torch.from_numpy(mask[:, :64])).numpy(), atol=atol)
 
 
 def test_bf16_serve_matches_jax():

@@ -477,6 +477,21 @@ class TestEncoderBatchDP:
         out = pm.encode_device(torch.from_numpy(ids_p),
                                torch.from_numpy(mask_p))
         np.testing.assert_allclose(out.numpy(), want, atol=2e-5)
+        # rows of two length buckets: each bucket's group of 3 rows is
+        # padded to the 4 data rows and split, one row a shard
+        wide = um.UniXcoderModel(um.UniXcoderConfig(
+            **{**SMALL, "max_position_embeddings": 130}, dtype="float32"),
+            seed=7, device="cpu")
+        ids = rng.integers(5, 500, size=(6, 100))
+        mask = np.ones((6, 100), dtype=np.int64)
+        mask[[1, 3, 4], 50:] = 0
+        whole = wide._forward(
+            torch.from_numpy(np.pad(ids, ((0, 0), (0, 28)))),
+            torch.from_numpy(np.pad(mask, ((0, 0), (0, 28))))).numpy()
+        wide.use_mesh(mesh4())
+        calls.clear()
+        np.testing.assert_allclose(wide.encode(ids, mask), whole, atol=2e-5)
+        assert calls == [1] * (2 * 4 * SMALL["num_layers"])
 
     def test_provider_autoshards_on_multidevice(self, monkeypatch):
         """With more than one device of the model's kind (here the mesh

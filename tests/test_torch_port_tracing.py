@@ -335,5 +335,9 @@ def test_encode_device_counts_live_and_padded_tokens(traced):
     counters = traced.snapshot()["counters"]
     assert counters["encode.tokens_live"] == sum(int(m.sum())
                                                  for _, m in batches)
-    assert counters["encode.tokens_padded"] == 3 * 64 + 5 * 128
+    # each forward's rows x its bucket: the first batch in one group at 64,
+    # the second (rows of 100, 97, 25, 38, 66 tokens) split into 3 rows at
+    # 128 and 2 at 64
+    assert counters["encode.tokens_padded"] == 3 * 64 + 3 * 128 + 2 * 64
+    assert counters["encode.sub_batches"] == 1 + 2
     assert _counts(traced) == {"encode.host_prep": 2}
